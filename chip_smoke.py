@@ -2,28 +2,39 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's fold
-main path (the flagship ``mega_real_8bit`` configuration: DUMMY 8-bit
-dual-pol real input at 800 Msamp/s, DM 2.64, 64 channels, 1024 bins) for a
-few blocks, checks the result, and prints timings.  Exits non-zero on any
-failure, or when no CUDA device is present.  The last line of standard
-output is ``{"ok": true, "device": {...}}``.
+Builds the hand-written kernels from the sources in this checkout (one
+nvcc per source, all at once), holds each against its plain PyTorch version
+on the card, drives the port's two main paths on the flagship input (DUMMY
+8-bit dual-pol real input at 800 Msamp/s, DM 2.64, 64 channels) for a few
+blocks each, checks the results, and prints timings:
+
+- the fold path (``mega_real_8bit``: 1024 bins, kernel ``megastep``);
+- the search path (``megafil_search``: the digifil workflow to an 8-bit
+  SIGPROC file, kernel ``megafil``).
+
+Exits non-zero on any failure, or when no CUDA device is present.  The last
+line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 TOL_SMALL = 2e-5  # relative, kernel (f32) against plain (f64), test geometry
 TOL_FLAGSHIP = 1e-4  # relative, kernel against plain, both f32, 2^19 windows
-REPLACES = "dspsr_tpu/ops/megakernel.py:1054"  # build_megastep's pallas_call
+# the pallas_call of build_megastep and of build_megafil
+REPLACES = {"megastep": "dspsr_tpu/ops/megakernel.py:1054",
+            "megafil": "dspsr_tpu/ops/megakernel.py:1439"}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -66,6 +77,14 @@ def flagship_cfg(**kw):
     return FoldConfig(folding_period=0.00575745, dispersion_measure=2.64,
                       nchan=64, nbin=1024, block_parts=8, npol_out=1,
                       min_block_samples=1 << 25, **kw)
+
+
+def search_cfg():
+    from dspsr_tpu_torch.models.load_to_fil import FilConfig
+
+    # megafil_search (bench.py:445-446)
+    return FilConfig(nchan=64, dispersion_measure=2.64, nbits=8,
+                     min_block_samples=1 << 25, block_parts=8)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -189,9 +208,10 @@ def flagship_block(card: str) -> dict:
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms)
 
 
-def kernel_breakdown(fn, card: str, reps: int = 3) -> None:
-    """Device time of each of the step's kernels (torch.profiler), and the
-    step's peak device memory."""
+def kernel_breakdown(fn, card: str, reps: int = 5) -> None:
+    """Device time of each of the step's kernels (torch.profiler: the mean
+    over the launches it recorded, with their count), and the step's peak
+    device memory."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -207,9 +227,10 @@ def kernel_breakdown(fn, card: str, reps: int = 3) -> None:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
-        if "mega_" in ev.key and us > 0:
-            name = ev.key[ev.key.index("mega_"):].split("(")[0]
-            parts.append(f"{name} {us / reps / 1e3:.3f} ms")
+        m = re.search(r"\b(mega\w*)(?:\(|$)", ev.key)
+        if m and us > 0:
+            parts.append(f"{m.group(1)} {us / ev.count / 1e3:.3f} ms "
+                         f"(x{ev.count})")
     print(f"kernel breakdown per block: {'; '.join(parts) or 'no device time'}"
           f"; step scratch + outputs {peak_mb:.0f} MiB [{card}]", flush=True)
 
@@ -315,23 +336,214 @@ def pipeline_rates(card: str) -> None:
           flush=True)
 
 
-def main() -> None:
-    card = card_facts()
+def small_checks_megafil() -> None:
+    """Search front-end kernel (f32) against plain (f64) at the test
+    geometry: two input pols (DET_SUM), one (DET_ONE), PP/QQ, PPQQ, Stokes,
+    two's complement and two input channels."""
+    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, MegaPlan, build_megafil, megafil_plain, unpack_affine)
+
+    nsub, freq_res, npart = 4, 64, 3
+    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
+                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
+    cases = [
+        dict(npol=2), dict(npol=1), dict(npol=2, detection="pp"),
+        dict(npol=2, detection="qq"), dict(npol=2, npol_out=2),
+        dict(npol=2, npol_out=4), dict(npol=2, twos_complement=True),
+        dict(npol=2, nchan_in=2), dict(npol=1, nchan_in=2),
+    ]
+    rng = np.random.default_rng(1)
+    for kw in cases:
+        plan = MegaPlan.from_filterbank(fb, nbin=2, **kw)
+        nci, npol = plan.nchan_in, plan.npol
+        raw = torch.from_numpy(rng.integers(
+            0, 256, plan.block_ndat(npart) * nci * npol,
+            dtype=np.uint8)).cuda()
+        resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
+        scale, offset = unpack_affine(8, plan.twos_complement)
+        cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
+        got = build_megafil(plan, cst, npart)(raw)
+        want = megafil_plain(plan, cst, raw, npart, dtype=torch.float64)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"small megafil {kw}: rel err {err:.3e}", flush=True)
+        check(got.shape == want.shape, f"megafil shape {kw}")
+        check(bool(torch.isfinite(got).all()), f"finite megafil {kw}")
+        check(err < TOL_SMALL, f"small megafil {kw}: {err} >= {TOL_SMALL}")
+
+
+def search_block(card: str) -> dict:
+    """One flagship search block: the megafil kernel against plain (both
+    f32) on device noise, then both timed."""
+    from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
+    from dspsr_tpu_torch.models.load_to_fil import FilPipeline
+    from dspsr_tpu_torch.ops.megakernel import megafil_plain
+
+    pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+                       device="cuda")
+    plan = pipe.megafil_plan
+    raw = device_noise_bytes(0, pipe.block_in_samples * 2, "cuda")
+    got = pipe._megafil(raw)
+    want = megafil_plain(plan, pipe.constants, raw, pipe.npart)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((got - want).abs().max())
+    print(f"flagship search block: plan nsub {plan.nsub} freq_res "
+          f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} nkeep {plan.nkeep}, "
+          f"npart {pipe.npart}; output {tuple(got.shape)}; rel err "
+          f"{err:.3e} (abs {abs_err:.3e})", flush=True)
+    check(tuple(got.shape) == (64, 1, pipe.npart * plan.nkeep),
+          f"search block shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "finite search block")
+    check(err < TOL_FLAGSHIP, f"search block rel err {err} >= "
+          f"{TOL_FLAGSHIP}")
+    kernel_ms = cuda_ms(lambda: pipe._megafil(raw), 10)
+    plain_ms = cuda_ms(
+        lambda: megafil_plain(plan, pipe.constants, raw, pipe.npart), 3)
+    sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
+    print(f"megafil kernel per flagship search block: {kernel_ms:.3f} ms; "
+          f"plain: {plain_ms:.3f} ms; block = {sky_ms:.2f} ms of sky "
+          f"[{card}]", flush=True)
+    kernel_breakdown(lambda: pipe._megafil(raw), card)
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def search_path(card: str) -> int:
+    """The port's search main path at the megafil_search width, through
+    ``FilPipeline.run`` to a SIGPROC file; returns the megafil launches."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.io.writers import read_sigproc_header
+    from dspsr_tpu_torch.models.load_to_fil import FilPipeline
+
+    nblocks = 3
+    block_bytes = 16_896_000  # 64 chans x 264,000 samples x 8 bits
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "search.fil")
+        reset_launch_counts()
+        pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+                           device="cuda")
+
+        def forbidden(*args, **kwargs):
+            raise RuntimeError("torch.fft/torch.matmul called on the main "
+                               "path")
+
+        saved = (torch.fft.rfft, torch.fft.ifft, torch.matmul)
+        torch.fft.rfft = torch.fft.ifft = torch.matmul = forbidden
+        try:
+            t0 = time.perf_counter()
+            pipe.run(out, max_blocks=nblocks)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.fft.rfft, torch.fft.ifft, torch.matmul = saved
+        counts = launch_counts()
+        items, hdr = read_sigproc_header(out)
+        size = os.path.getsize(out)
+        data = np.fromfile(out, np.uint8, offset=hdr)
+    check(counts["megafil"] == nblocks,
+          f"megafil launched {counts['megafil']} times")
+    check(counts["megastep"] == 0,
+          f"megastep launched {counts['megastep']} times")
+    check(size == hdr + nblocks * block_bytes,
+          f"file size {size} != {hdr} + {nblocks} x {block_bytes}")
+    check(int(items["nchans"]) == 64 and int(items["nbits"]) == 8,
+          f"header nchans {items['nchans']} nbits {items['nbits']}")
+    check(abs(items["tsamp"] * 6.25e6 - 1.0) < 1e-12,
+          f"header tsamp {items['tsamp']} != 1/6.25 MHz")
+    # detected noise levelled to mean 0, sigma 1 and digitized at 127.5 +
+    # 32 z: a Gamma(2) intensity, clipped at 255 (0.4%), gives mean 127.39
+    # and standard deviation 31.49 counts
+    mean, std = float(data.mean()), float(data.std())
+    clipped = float((data == 255).mean())
+    print(f"search path: {nblocks} blocks, {counts['megafil']} megafil and "
+          f"{counts['megastep']} megastep launches; file {size} B (header "
+          f"{hdr}); nchans {items['nchans']} nbits {items['nbits']} tsamp "
+          f"{items['tsamp']}; bytes mean {mean:.4f} std {std:.4f} at 255 "
+          f"{clipped:.5f}; host-fed incl. first-block warm-up "
+          f"{nblocks * pipe.stride_in_samples / wall / 1e6:.1f} Msamp/s "
+          f"[{card}]", flush=True)
+    check(126.5 < mean < 128.5, f"byte mean {mean} outside (126.5, 128.5)")
+    check(30.0 < std < 33.0, f"byte std {std} outside (30, 33)")
+    check(clipped < 0.01, f"{clipped} of the bytes clipped at 255")
+    return counts["megafil"]
+
+
+def search_rates(card: str) -> None:
+    """Host-fed and device-fed rates of the search pipeline (warm)."""
+    from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
+    from dspsr_tpu_torch.io.writers import SigProcWriter
+    from dspsr_tpu_torch.models.load_to_fil import FilPipeline
+
+    nblocks = 3
+    pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+                       device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        with SigProcWriter(os.path.join(tmp, "r.fil"), pipe.obs_out,
+                           8) as out:
+            pipe.run_writer(out, max_blocks=1)  # warm-up
+            t0 = time.perf_counter()
+            pipe.run_writer(out, max_blocks=nblocks)
+            wall = time.perf_counter() - t0
+    host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
+
+    nbytes = pipe.block_in_samples * 2
+    state = (pipe._rescale_state, pipe._mean, pipe._inv)
+
+    def block(b):
+        raw = device_noise_bytes(b * nbytes, nbytes, "cuda")
+        *_, packed = pipe._step(*state, raw, "cumulative")
+        return packed.cpu()
+
+    block(0)
+    nb = 6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(1, nb + 1):
+        block(b)
+    wall = time.perf_counter() - t0
+    dev_msps = nb * pipe.stride_in_samples / wall / 1e6
+    print(f"search pipeline host-fed (DummySource bytes, pinned copy, "
+          f"SIGPROC write): {host_msps:.1f} Msamp/s; device-fed "
+          f"(device_noise_bytes, step, rescale, digitize, bytes to host): "
+          f"{dev_msps:.1f} Msamp/s; real time is 800 Msamp/s [{card}]",
+          flush=True)
+
+
+def build_all() -> None:
+    """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
 
-    path, log, secs = build("megastep", verbose=True)
-    print(f"built {path.name} in {secs:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        futs = {n: pool.submit(build, n, True)
+                for n in ("megastep", "megafil")}
+        results = {n: f.result() for n, f in futs.items()}
+    for name, (path, log, secs) in results.items():
+        print(f"built {path.name} in {secs:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+
+
+def main() -> None:
+    card = card_facts()
+    build_all()
     small_checks()
+    small_checks_megafil()
     flag = flagship_block(card)
     launches = main_path(card)
     pipeline_rates(card)
-    print(json.dumps({"kernels": [{
-        "name": "megastep", "route": "cuda",
-        "source": "dspsr_tpu_torch/csrc/megastep.cu",
-        "replaces": REPLACES, "launches": launches, **flag}]}), flush=True)
+    search = search_block(card)
+    search_launches = search_path(card)
+    search_rates(card)
+    print(json.dumps({"kernels": [
+        {"name": "megastep", "route": "cuda",
+         "source": "dspsr_tpu_torch/csrc/megastep.cu",
+         "replaces": REPLACES["megastep"], "launches": launches, **flag},
+        {"name": "megafil", "route": "cuda",
+         "source": "dspsr_tpu_torch/csrc/megafil.cu",
+         "replaces": REPLACES["megafil"], "launches": search_launches,
+         **search}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 The JAX package keeps its chirp in the permuted ``[nchan_in, R1, R2]``
 spectral layout of its TPU kernel (flat bin ``k = k2*R1 + k1``); the port
 keeps it in natural order ``[nchan_in, n_fft]``.  These helpers turn the JAX
-package's numpy arrays into the port's tensors, so its own constants and
-carried accumulators can be fed to the port.
+package's numpy arrays into the port's tensors, so its own constants,
+carried fold accumulators and search rescale state can be fed to the port.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .ops.megakernel import MegaConstants, MegaPlan, unpack_affine
+from .ops.rescale import RescaleState
 
 
 def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:
@@ -36,5 +37,19 @@ def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:
 def accumulators_from_numpy(profiles, hits, device):
     """A JAX pipeline's carried ``_profiles [nchan_in, nplane, nsub, nbin]``
     and ``_hits [nchan_in, nbin]`` as float32 tensors on ``device``."""
-    return (torch.as_tensor(np.asarray(profiles, np.float32)).to(device),
-            torch.as_tensor(np.asarray(hits, np.float32)).to(device))
+    return _tensor(profiles, device), _tensor(hits, device)
+
+
+def rescale_state_from_numpy(state, mean, inv, device):
+    """A JAX ``FilPipeline``'s ``_rescale_state`` (``count``, ``total``,
+    ``sumsq``, each ``[nchan, npol]``), ``_mean`` and ``_inv`` as the port's
+    float32 ``(RescaleState, mean, inv)`` on ``device``, so a port pipeline
+    carries on with the JAX run's levels."""
+    return (RescaleState(*(_tensor(a, device) for a in state)),
+            _tensor(mean, device), _tensor(inv, device))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A float32 copy of array ``a`` on ``device`` (JAX arrays read as
+    numpy are read-only; the copy is the port's own)."""
+    return torch.tensor(np.asarray(a, np.float32), device=device)

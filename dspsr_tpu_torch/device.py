@@ -10,10 +10,11 @@ launches the kernel, and nowhere else.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: kernel name -> number of launches since the last reset
-_LAUNCHES: dict[str, int] = {"megastep": 0}
+_LAUNCHES: dict[str, int] = {"megastep": 0, "megafil": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -40,3 +41,12 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: through pinned memory and without waiting
+    for the device on CUDA, a plain copy on the CPU."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``.  The library goes to
 ``build/dspsr_tpu_torch/`` at the repository root (ignored by git) under a
-name that carries a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  A failed build raises.
+name that carries a hash of the source, the ``csrc/`` headers it includes
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,10 +36,29 @@ def nvcc_path() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every file it includes by ``#include "..."`` from the
+    source directory, recursively, each once, in first-include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.exists():
+            _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source, the
+    headers it includes and the flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(_SRC_DIR / f"{name}.cu", []):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> tuple[Path, str, float]:

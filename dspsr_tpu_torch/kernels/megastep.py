@@ -38,7 +38,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -50,19 +52,36 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _tile(lib, which: int, plan: MegaPlan, npolf: int, start: int,
-          limit: int) -> int:
-    """Largest power-of-two tile <= start whose shared memory fits."""
-    tile = start
-    while tile > 1 and _smem(lib, which, plan, npolf, tile) > limit:
-        tile //= 2
-    return tile
+def smem_limit(dev: torch.device) -> int:
+    """Shared memory one block may opt in to on ``dev``, in bytes."""
+    props = torch.cuda.get_device_properties(dev)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
-def _smem(lib, which: int, plan: MegaPlan, npolf: int, tile: int) -> int:
-    return lib.megastep_smem_bytes(which, plan.R1, plan.row_len,
-                                   plan.freq_res, npolf, plan.nplane,
-                                   plan.nbin, tile)
+def forward_tiles(smem, plan: MegaPlan, limit: int) -> tuple[int, int]:
+    """Tiles (columns of ``mega_fwd1``, rows of ``mega_fwd2``): the largest
+    powers of two up to 16 and 8 whose shared memory ``smem(which, tile)``
+    fits in ``limit``."""
+    def tile(which: int, start: int) -> int:
+        t = start
+        while t > 1 and smem(which, t) > limit:
+            t //= 2
+        return t
+
+    return tile(0, min(16, plan.row_len)), tile(1, min(8, plan.R1))
+
+
+def check_smem(smem, plan: MegaPlan, tiles, limit: int) -> None:
+    """Raise ``NotImplementedError`` when a pass needs more shared memory
+    than ``limit`` (``tiles`` for passes 0, 1; pass 2 is the inverse)."""
+    for which, tile in ((0, tiles[0]), (1, tiles[1]), (2, 0)):
+        need = smem(which, tile)
+        if need > limit:
+            raise NotImplementedError(
+                f"geometry (R1={plan.R1}, R2={plan.R2}, freq_res="
+                f"{plan.freq_res}, nbin={plan.nbin}) needs {need} B of shared "
+                f"memory in pass {which}, over the card's {limit} B; a "
+                "multi-pass inverse is open work (ROADMAP.md Queue 2)")
 
 
 def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -79,14 +98,15 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     npart = phi0.shape[0]
     nchan = p.nchan_in
     f32 = torch.float32
-    _check(raw, "raw", torch.uint8,
-           (p.block_ndat(npart) * nchan * p.npol,), dev)
-    _check(phi0, "phi0", f32, (npart,), dev)
-    _check(dphi, "dphi", f32, (npart,), dev)
-    _check(profiles, "profiles", f32, (nchan, p.nplane, p.nsub, p.nbin), dev)
-    _check(hits, "hits", f32, (nchan, p.nbin), dev)
-    _check(cst.gr, "cst.gr", f32, (nchan, p.n_fft), dev)
-    _check(cst.gi, "cst.gi", f32, (nchan, p.n_fft), dev)
+    check_tensor(raw, "raw", torch.uint8,
+                 (p.block_ndat(npart) * nchan * p.npol,), dev)
+    check_tensor(phi0, "phi0", f32, (npart,), dev)
+    check_tensor(dphi, "dphi", f32, (npart,), dev)
+    check_tensor(profiles, "profiles", f32,
+                 (nchan, p.nplane, p.nsub, p.nbin), dev)
+    check_tensor(hits, "hits", f32, (nchan, p.nbin), dev)
+    check_tensor(cst.gr, "cst.gr", f32, (nchan, p.n_fft), dev)
+    check_tensor(cst.gi, "cst.gi", f32, (nchan, p.n_fft), dev)
     if p.block_ndat(npart) * nchan * p.npol >= 1 << 31 \
             or npart * p.nkeep >= 1 << 31:
         raise NotImplementedError("blocks of 2^31 bytes or output samples")
@@ -94,18 +114,14 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     lib = _lib()
     pols = fold_pols(p)
     npolf = len(pols)
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    tc = _tile(lib, 0, p, npolf, min(16, p.row_len), limit)
-    tk = _tile(lib, 1, p, npolf, min(8, p.R1), limit)
-    for which, tile in ((0, tc), (1, tk), (2, 0)):
-        need = _smem(lib, which, p, npolf, tile)
-        if need > limit:
-            raise NotImplementedError(
-                f"geometry (R1={p.R1}, R2={p.R2}, freq_res={p.freq_res}, "
-                f"nbin={p.nbin}) needs {need} B of shared memory in pass "
-                f"{which}, over the card's {limit} B; a multi-pass inverse "
-                "is ROADMAP.md Queue 2 item 1 work")
+
+    def smem(which, tile):
+        return lib.megastep_smem_bytes(which, p.R1, p.row_len, p.freq_res,
+                                       npolf, p.nplane, p.nbin, tile)
+
+    limit = smem_limit(dev)
+    tc, tk = forward_tiles(smem, p, limit)
+    check_smem(smem, p, (tc, tk), limit)
 
     prof_out = torch.empty_like(profiles)
     hits_out = torch.empty_like(hits)

@@ -30,7 +30,7 @@ from dspsr_tpu.timing.mjd import MJD
 from dspsr_tpu.timing.par import Ephemeris
 from dspsr_tpu.timing.polyco import FixedPeriodPredictor, Polyco
 
-from ..device import resolve_device
+from ..device import host_to_device, resolve_device
 from ..ops.filterbank import FilterbankPlan, update_observation
 from ..ops.fold import FoldPlan, choose_nbin, compute_anchors
 from ..ops.megakernel import (
@@ -509,10 +509,7 @@ class FoldPipeline:
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array to the pipeline's device (through pinned memory on
         CUDA, copied without waiting for the device)."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return host_to_device(a, self.device)
 
     def run(self, max_blocks: Optional[int] = None,
             total_seconds: Optional[float] = None,

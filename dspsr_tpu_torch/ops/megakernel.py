@@ -23,6 +23,11 @@ plain PyTorch version of the step (``megastep_plain``) and
 launches the hand-written kernel (``kernels.megastep``); on CPU tensors it
 runs ``megastep_plain``.
 
+The search front end (``megafil_plain``, ``build_megafil``) runs steps 1-5
+and returns the detected samples in time order instead of folding them; its
+kernel is ``kernels.megafil``.  Both plain versions share one front end
+(``_front_plain``).
+
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
 they existed for the TPU's matrix unit, and the Hopper kernel runs radix-2
 FFTs instead.
@@ -402,6 +407,29 @@ def fold_bins(plan: MegaPlan, phi0: torch.Tensor,
     return b.clamp_(0, plan.nbin - 1)
 
 
+def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
+                 npart: int, dtype) -> torch.Tensor:
+    """The front end both plain steps share: unpack, ``rfft`` of each
+    window (Nyquist dropped), chirp, per-subband ``ifft`` (kept samples
+    only) and detection, in ``dtype``.  Returns ``[nchan_in, nplane, npart,
+    nsub, nkeep]``."""
+    p = plan
+    check_supported(p)
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    nchan, M = p.nchan_in, p.freq_res
+    codes = raw.view(torch.int8) if p.twos_complement else raw
+    x = codes.to(dtype) * cst.unpack_scale + cst.unpack_offset
+    x = x.reshape(p.block_ndat(npart), nchan, p.npol).permute(1, 2, 0)
+    x = x[:, list(fold_pols(p))]
+    win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, 2N]
+    spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
+    chirp = torch.complex(cst.gr, cst.gi).to(cdtype)
+    spec = spec * chirp[:, None, None, :]
+    sub = spec.reshape(nchan, -1, npart, p.nsub, M)
+    v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
+    return _detect_plain(v, p)
+
+
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                    hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
                    dphi: torch.Tensor, bounds=None):
@@ -415,22 +443,10 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     ``(profiles, hits)``.
     """
     p = plan
-    check_supported(p)
     npart = phi0.shape[0]
     dtype = profiles.dtype
-    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
-    nchan, M = p.nchan_in, p.freq_res
-    codes = raw.view(torch.int8) if p.twos_complement else raw
-    x = codes.to(dtype) * cst.unpack_scale + cst.unpack_offset
-    x = x.reshape(p.block_ndat(npart), nchan, p.npol).permute(1, 2, 0)
-    x = x[:, list(fold_pols(p))]
-    win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, 2N]
-    spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
-    chirp = torch.complex(cst.gr, cst.gi).to(cdtype)
-    spec = spec * chirp[:, None, None, :]
-    sub = spec.reshape(nchan, -1, npart, p.nsub, M)
-    v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
-    planes = _detect_plain(v, p)  # [nchan, nplane, npart, nsub, nkeep]
+    nchan = p.nchan_in
+    planes = _front_plain(p, cst, raw, npart, dtype)
 
     lo, hi = bounds_pair(bounds)
     g = torch.arange(npart * p.nkeep, device=raw.device)
@@ -465,5 +481,70 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
                                  bounds)
         return megastep_plain(plan, cst, profiles, hits, raw, phi0, dphi,
                               bounds)
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# the search front end (detected filterbank, no fold)
+# --------------------------------------------------------------------------
+
+_HYBRID_ITEM = "ROADMAP.md Queue 1 item 6 (hybrid fold tail)"
+
+
+def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
+                  npart: int, dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the fused search front end (``torch.fft``),
+    in ``dtype`` (float32 or float64): raw uint8 flat TFP bytes of one block
+    -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
+    (output channel ``c*nsub + s``)."""
+    p = plan
+    planes = _front_plain(p, cst, raw, npart, dtype)
+    # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
+    # nkeep]: time order within each output channel
+    return planes.permute(0, 3, 1, 2, 4).reshape(
+        p.nchan_in * p.nsub, p.nplane, npart * p.nkeep)
+
+
+def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
+                  output: str = "detected", passband: bool = False,
+                  return_weights: bool = False,
+                  response_as_args: bool = False,
+                  jones_as_args: bool = False):
+    """The fused search front end for ``npart`` windows a block:
+    ``step(raw) -> float32[nchan_in*nsub, nplane, npart*nkeep]`` of
+    detected, time-ordered filterbank samples (the JAX package's
+    ``build_megafil`` with its default keywords).  On CUDA tensors it
+    launches the hand-written kernel (``kernels.megafil.megafil_cuda``); on
+    CPU tensors it runs :func:`megafil_plain`.  ``cst`` holds tensors on the
+    step's device.
+
+    The voltage output, the passband tap, the JA98 weights and the traced
+    response and Jones arguments serve the hybrid fold engine and raise
+    ``NotImplementedError``, as do fourth moments (the JAX kernel refuses
+    them too)."""
+    if output not in ("detected", "voltage"):
+        raise ValueError(f"unknown output mode: {output}")
+    uncovered = (
+        (output == "voltage", "output='voltage'"),
+        (passband, "passband=True"),
+        (return_weights, "return_weights=True"),
+        (response_as_args, "response_as_args=True"),
+        (jones_as_args, "jones_as_args=True"),
+        (plan.fourth_moment, "fourth moments (applied after the front end)"),
+    )
+    for bad, what in uncovered:
+        if bad:
+            raise NotImplementedError(
+                f"{what} on the fused search front end; see " + _HYBRID_ITEM)
+    plan.validate()
+    check_supported(plan)
+
+    def step(raw):
+        if raw.is_cuda:
+            from ..kernels.megafil import megafil_cuda
+
+            return megafil_cuda(plan, cst, raw, npart)
+        return megafil_plain(plan, cst, raw, npart)
 
     return step

@@ -1,6 +1,7 @@
 """The port never imports jax: importing every module of dspsr_tpu_torch and
-running a small CPU pipeline leaves ``jax`` out of ``sys.modules``.  Runs in
-a fresh interpreter, since this test process has jax loaded already."""
+running its fold pipeline and its search pipeline (to a SIGPROC file) on
+the CPU leaves ``jax`` out of ``sys.modules``.  Runs in a fresh interpreter,
+since this test process has jax loaded already."""
 
 import os
 import subprocess
@@ -27,21 +28,31 @@ from dspsr_tpu.io.sources import RawFileSource
 from dspsr_tpu.observation import Observation, Signal
 from dspsr_tpu.timing.mjd import MJD
 from dspsr_tpu_torch.models.load_to_fold import FoldConfig, FoldPipeline
+from dspsr_tpu_torch.io.writers import read_sigproc_header
+from dspsr_tpu_torch.models.load_to_fil import FilConfig, FilPipeline
 rng = np.random.default_rng(0)
-with tempfile.NamedTemporaryFile(suffix=".raw") as f:
-    f.write(rng.integers(0, 256, 1 << 15, dtype=np.uint8).tobytes())
-    f.flush()
-    obs = Observation(nchan=1, npol=2, ndim=1, nbit=8,
-                      centre_frequency=1400.0, bandwidth=-2.0, rate=2e6,
-                      start_time=MJD.from_utc("2010-04-13-02:05:45"),
-                      state=Signal.NYQUIST, source="FAKE", telescope="PKS",
-                      instrument="RAW")
-    res = FoldPipeline(RawFileSource(f.name, obs),
+obs = Observation(nchan=1, npol=2, ndim=1, nbit=8, centre_frequency=1400.0,
+                  bandwidth=-2.0, rate=2e6,
+                  start_time=MJD.from_utc("2010-04-13-02:05:45"),
+                  state=Signal.NYQUIST, source="FAKE", telescope="PKS",
+                  instrument="RAW")
+with tempfile.TemporaryDirectory() as d:
+    raw, fil = d + "/in.raw", d + "/out.fil"
+    with open(raw, "wb") as f:
+        f.write(rng.integers(0, 256, 1 << 15, dtype=np.uint8).tobytes())
+    res = FoldPipeline(RawFileSource(raw, obs),
                        FoldConfig(folding_period=0.005, dispersion_measure=5.0,
                                   nchan=4, nbin=32, block_parts=2,
                                   min_block_samples=0),
                        device="cpu").run()
-assert res.hits.sum() > 0
+    assert res.hits.sum() > 0
+    FilPipeline(RawFileSource(raw, obs),
+                FilConfig(nchan=4, dispersion_measure=5.0, block_parts=2,
+                          min_block_samples=0),
+                device="cpu").run(fil)
+    items, hdr = read_sigproc_header(fil)
+    with open(fil, "rb") as f:
+        assert items["nchans"] == 4 and len(f.read()) > hdr
 print(len(mods), sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
 """
 
