@@ -146,6 +146,65 @@ def small_checks() -> None:
             check(float(hk.sum()) > 0, f"hits folded {kw}")
 
 
+def unequal_raw(plan, npart: int, rng) -> torch.Tensor:
+    """Raw TFP bytes whose pol a spans the codes 0-255 and pol b only
+    127/128: pol b's power is ~1/22000 of pol a's."""
+    shape = (plan.block_ndat(npart), plan.nchan_in, plan.npol)
+    raw = rng.integers(0, 256, shape, dtype=np.uint8)
+    raw[..., 1] = rng.integers(127, 129, shape[:2], dtype=np.uint8)
+    return torch.from_numpy(raw.reshape(-1)).cuda()
+
+
+def per_plane_err(got: torch.Tensor, want: torch.Tensor, axis: int) -> list:
+    """rel_err of each plane (index on ``axis``) against its own maximum."""
+    return [rel_err(got.select(axis, p), want.select(axis, p))
+            for p in range(got.shape[axis])]
+
+
+def small_unequal() -> None:
+    """Both kernels (f32) against plain (f64) with pols of very unequal
+    power and PPQQ detection, each plane judged against its own maximum:
+    catches precision lost where the two pols share one transform."""
+    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, MegaPlan, build_megafil, build_megastep,
+        megafil_plain, megastep_plain, unpack_affine)
+
+    nsub, freq_res, npart, nbin = 4, 64, 3, 32
+    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
+                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
+    rng = np.random.default_rng(2)
+    plan = MegaPlan.from_filterbank(fb, nbin=nbin, npol=2, npol_out=2)
+    raw = unequal_raw(plan, npart, rng)
+    resp = np.exp(1j * rng.uniform(-3, 3, (nsub, freq_res)))
+    cst = MegaConstants.build(plan, resp, *unpack_affine(8)).to("cuda")
+    phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32)).cuda()
+    dphi = torch.full((npart,), 0.013, dtype=torch.float32, device="cuda")
+    shp = (1, plan.nplane, nsub, nbin)
+    pk, hk = build_megastep(plan, cst, npart)(
+        torch.zeros(shp, device="cuda"), torch.zeros(1, nbin, device="cuda"),
+        raw, phi0, dphi)
+    pp, hp = megastep_plain(
+        plan, cst, torch.zeros(shp, dtype=torch.float64, device="cuda"),
+        torch.zeros(1, nbin, dtype=torch.float64, device="cuda"), raw, phi0,
+        dphi)
+    got = build_megafil(plan, cst, npart)(raw)
+    want = megafil_plain(plan, cst, raw, npart, dtype=torch.float64)
+    torch.cuda.synchronize()
+    fold_errs = per_plane_err(pk, pp, 1)
+    fil_errs = per_plane_err(got, want, 1)
+    power = [float(want[:, p].mean()) for p in range(2)]
+    print(f"small unequal pols (PPQQ, plane means {power[0]:.4g} / "
+          f"{power[1]:.4g}): megastep rel err per plane "
+          f"{', '.join(f'{e:.3e}' for e in fold_errs)}; megafil "
+          f"{', '.join(f'{e:.3e}' for e in fil_errs)}", flush=True)
+    check(bool(torch.isfinite(pk).all() and torch.isfinite(got).all()),
+          "finite unequal-power outputs")
+    check(max(fold_errs + fil_errs) < TOL_SMALL,
+          f"unequal pols: {fold_errs} {fil_errs} >= {TOL_SMALL}")
+    check(float((hk.double() - hp).abs().max()) == 0, "unequal pols hits")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card (CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -227,10 +286,10 @@ def kernel_breakdown(fn, card: str, reps: int = 5) -> None:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
-        m = re.search(r"\b(mega\w*)(?:\(|$)", ev.key)
+        m = re.search(r"\b(mega\w*)(<[^>]*>)?(?:\(|$)", ev.key)
         if m and us > 0:
-            parts.append(f"{m.group(1)} {us / ev.count / 1e3:.3f} ms "
-                         f"(x{ev.count})")
+            parts.append(f"{m.group(1)}{m.group(2) or ''} "
+                         f"{us / ev.count / 1e3:.3f} ms (x{ev.count})")
     print(f"kernel breakdown per block: {'; '.join(parts) or 'no device time'}"
           f"; step scratch + outputs {peak_mb:.0f} MiB [{card}]", flush=True)
 
@@ -520,9 +579,15 @@ def build_all() -> None:
         results = {n: f.result() for n, f in futs.items()}
     for name, (path, log, secs) in results.items():
         print(f"built {path.name} in {secs:.1f} s", flush=True)
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+            m = re.search(r"entry function '.*?(mega\w+?)"
+                          r"(?:I((?:Li\d+E)+)EEv|E)", line)
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            elif "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas {kernel}: {line.strip()}", flush=True)
 
 
 def main() -> None:
@@ -530,6 +595,7 @@ def main() -> None:
     build_all()
     small_checks()
     small_checks_megafil()
+    small_unequal()
     flag = flagship_block(card)
     launches = main_path(card)
     pipeline_rates(card)

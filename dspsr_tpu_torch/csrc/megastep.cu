@@ -4,20 +4,23 @@
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megastep.
 // The TPU kernel expressed every transform as a dense DFT matmul (the shape
 // its matrix unit wanted, ~885 GFLOP a flagship block); here the same
-// factorisation runs as radix-2 FFTs in shared memory, about 100x fewer
-// operations, so the step is bound by the bytes of its intermediates, not
-// by arithmetic.  A flagship block (R1 = R2 = 512, 75 windows, 2 pols) moves
-// the 68 MB of raw codes, 630 MB of stage-1 columns and 315 MB of spectra
-// through device memory twice each.  What the design does about it: the
-// inverse FFT, detection and fold are one kernel, so the 270 MB of subband
-// voltages never leave shared memory; the forward transform is split in two
-// passes (columns, then rows) whose tiles are written with coalesced runs.
-// Fusing the forward passes, or walking the windows in L2-sized groups, is
-// later work.
+// factorisation runs as register-resident FFTs (see mega_common.cuh), about
+// 10 GFLOP, so the step is bound by moving data, not by arithmetic.  The
+// tensor cores are not used: single-pass TF32 keeps about three digits and
+// cannot meet the 2e-5 tolerance, and the arithmetic is not the bound.  A
+// flagship block (R1 = R2 = 512, 75 windows, 2 pols packed as one complex
+// sequence) reads 79 MB of codes twice and writes and reads 315 MB of
+// stage-1 columns and 315 MB of spectra: about 1.3 GB, 0.40 ms at the
+// device-memory rate.  Measured on an H100 (700 W) the step takes about
+// 1.2 ms, of which the two forward passes take 0.9 and mega_invfold 0.28
+// (1.1 TB/s for its 315 MB: the fold's shared-memory atomics and profile
+// flush sit on top of the inverse).  The inverse FFT, detection and fold are
+// one kernel, so the 270 MB of subband voltages never leave shared memory.
 //
-// Four kernels run in order on the caller's stream (plus two memsets):
-//   mega_fwd1,   the forward passes shared with megafil.cu (see
-//   mega_fwd2    mega_common.cuh): unpack, columns, twiddle; rows, chirp.
+// Five kernels run in order on the caller's stream (plus two memsets):
+//   mega_polpow, the forward half shared with megafil.cu (see
+//   mega_fwd1,   mega_common.cuh): pol energies; unpack, columns, twiddle;
+//   mega_fwd2    rows, pol separation, chirp.
 //   mega_invfold per (subband, window, input channel): length-freq_res
 //                inverse FFT of each needed pol (scaled by 1/freq_res), keep
 //                nfilt_pos <= t < nfilt_pos + nkeep, detect, fold into a
@@ -51,31 +54,23 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+template <int P, int NS>
+__global__ void __launch_bounds__(kMaxThreads)
 mega_invfold(const float2* __restrict__ ybuf, const float* __restrict__ phi0,
              const float* __restrict__ dphi, float* __restrict__ pacc,
-             unsigned* __restrict__ hacc, int npolf, int npart, int nsub,
-             int M, int logM, int nfilt_pos, int nkeep, int nbin, int nplane,
-             int det, int fourth, int lo, int hi) {
+             unsigned* __restrict__ hacc, const float2* __restrict__ tw,
+             int npart, int nsub, int M, int nfilt_pos, int nkeep, int nbin,
+             int nplane, int det, int fourth, int lo, int hi) {
   extern __shared__ float2 sm[];
-  float2* tw = sm;
-  float2* a = tw + M / 2;
-  float* prof = (float*)(a + npolf * M);
+  const int ld = seq_ld(M);
+  float* prof = (float*)(sm + NS * ld);
   unsigned* hit = (unsigned*)(prof + nplane * nbin);
   const int s = blockIdx.x;
   const int w = blockIdx.y;
   const int c = blockIdx.z;
-  make_twiddles(tw, M, +1.0);
   for (int i = threadIdx.x; i < nplane * nbin; i += blockDim.x) prof[i] = 0.f;
   for (int i = threadIdx.x; i < nbin; i += blockDim.x) hit[i] = 0u;
-  const long long n = (long long)nsub * M;
-  for (int pf = 0; pf < npolf; ++pf) {
-    const float2* src =
-        ybuf + ((long long)(c * npolf + pf) * npart + w) * n + (long long)s * M;
-    for (int j = threadIdx.x; j < M; j += blockDim.x)
-      a[pf * M + bitrev(j, logM)] = src[j];
-  }
-  fft_smem(a, npolf, logM, M, tw);
+  inverse_subband<P, NS>(ybuf, sm, tw, npart, nsub, M, s, w, c);
 
   const float p0 = phi0[w];
   const float dp = dphi[w];
@@ -109,11 +104,11 @@ mega_invfold(const float2* __restrict__ ybuf, const float* __restrict__ phi0,
       for (int p = 0; p < kMaxPlanes; ++p) acc[p] = 0.f;
     }
     const int t = nfilt_pos + i;
-    const float2 va = a[t];
+    const float2 va = sm[sidx(t)];
     const float2 xa = make_float2(va.x * inv_m, va.y * inv_m);
     float2 xb = make_float2(0.f, 0.f);
-    if (npolf > 1) {
-      const float2 vb = a[M + t];
+    if (NS > 1) {
+      const float2 vb = sm[ld + sidx(t)];
       xb = make_float2(vb.x * inv_m, vb.y * inv_m);
     }
     float pl[kMaxPlanes];
@@ -154,6 +149,12 @@ mega_finish(const float* __restrict__ pin, const float* __restrict__ pacc,
   if (i < nhits) hout[i] = hin[i] + (float)hacc[i];
 }
 
+// The inverse-and-fold kernel for freq_res M and npolf pols.
+decltype(&mega_invfold<16, 2>) invfold_kernel(int M, int npolf) {
+  if (M >= 16) return npolf == 2 ? &mega_invfold<16, 2> : &mega_invfold<16, 1>;
+  return npolf == 2 ? &mega_invfold<8, 2> : &mega_invfold<8, 1>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,32 +163,39 @@ const char* megastep_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shared-memory bytes of the three transform kernels (the Python wrapper
-// checks the same sums against the card's limit before launching).
-int megastep_smem_bytes(int which, int R1, int row_len, int M, int npolf,
-                        int nplane, int nbin, int tile) {
+// Shared-memory bytes (kind 0) or threads (kind 1) of the three transform
+// kernels: which 0 = mega_fwd1 (tile of `tile` columns), 1 = mega_fwd2
+// (tile of `tile` row pairs), 2 = mega_invfold.  The Python wrapper checks
+// them against the card's limits before launching.
+int megastep_resources(int kind, int which, int R1, int row_len, int M,
+                       int npolf, int nplane, int nbin, int tile) {
+  if (kind == 1) return transform_threads(which, R1, row_len, M, tile);
   if (which < 2) return fwd_smem_bytes(which, R1, row_len, tile);
-  return (M / 2 + npolf * M) * (int)sizeof(float2) + (nplane * nbin + nbin) * 4;
+  return inv_smem_bytes(M, npolf) + (nplane * nbin + nbin) * 4;
 }
 
-// One fused fold step.  Pointers are device pointers; scratch buffers are
-// sized by the wrapper: cbuf float2[nchan*npolf, npart, R1, row_len], ybuf
-// float2[nchan*npolf, npart, R1*R2], pacc float[nchan, nplane, nsub, nbin],
-// hacc uint32[nchan, nbin].  Output samples g of the block fold only when
-// lo <= g < hi.
+// One fused fold step.  Pointers are device pointers; tw is the wrapper's
+// twiddle-table buffer (see Tables in mega_common.cuh); scratch buffers are
+// sized by the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan,
+// npart, R1, row_len], ybuf float2[nchan*npolf, npart, R1*R2], pacc
+// float[nchan, nplane, nsub, nbin], hacc uint32[nchan, nbin].  Output
+// samples g of the block fold only when lo <= g < hi.
 int megastep_launch(const void* raw, const void* phi0, const void* dphi,
-                    const void* gr, const void* gi, const void* prof_in,
-                    const void* hits_in, void* prof_out, void* hits_out,
-                    void* cbuf, void* ybuf, void* pacc, void* hacc, int nchan,
-                    int npol, int pol0, int npolf, int npart, int R1, int R2,
-                    int nsub, int M, int nfilt_pos, int nkeep, int nbin,
-                    int nplane, int det, int fourth, int twos, float scale,
-                    float offset, int nsamp_step, int tc, int tk, int lo,
-                    int hi, void* stream_ptr) {
+                    const void* gr, const void* gi, const void* tw,
+                    const void* prof_in, const void* hits_in, void* prof_out,
+                    void* hits_out, void* psum, void* cbuf, void* ybuf,
+                    void* pacc, void* hacc, int nchan, int npol, int pol0,
+                    int npolf, int npart, int R1, int R2, int nsub, int M,
+                    int nfilt_pos, int nkeep, int nbin, int nplane, int det,
+                    int fourth, int twos, float scale, float offset,
+                    int nsamp_step, int tc, int tk, int lo, int hi,
+                    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
-  const int smem3 = megastep_smem_bytes(2, R1, 2 * R2, M, npolf, nplane, nbin, 0);
-  if ((err = cudaFuncSetAttribute(mega_invfold,
+  const int row_len = 2 * R2;
+  auto inv = invfold_kernel(M, npolf);
+  const int smem3 = megastep_resources(0, 2, R1, row_len, M, npolf, nplane, nbin, 0);
+  if ((err = cudaFuncSetAttribute(inv,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
   const size_t nprof = (size_t)nchan * nplane * nsub * nbin;
@@ -196,16 +204,16 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
     return (int)err;
   if ((err = cudaMemsetAsync(hacc, 0, nhits * sizeof(unsigned), stream)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_forward(raw, gr, gi, cbuf, ybuf, nchan, npol, pol0, npolf,
-                            npart, R1, R2, twos, scale, offset, nsamp_step,
-                            tc, tk, stream)) != cudaSuccess)
+  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nchan, npol,
+                            pol0, npolf, npart, R1, R2, M, twos, scale,
+                            offset, nsamp_step, tc, tk, stream)) != cudaSuccess)
     return (int)err;
 
-  dim3 g3(nsub, npart, nchan);
-  mega_invfold<<<g3, kThreads, smem3, stream>>>(
+  inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),
+        smem3, stream>>>(
       (const float2*)ybuf, (const float*)phi0, (const float*)dphi,
-      (float*)pacc, (unsigned*)hacc, npolf, npart, nsub, M, ilog2(M),
-      nfilt_pos, nkeep, nbin, nplane, det, fourth, lo, hi);
+      (float*)pacc, (unsigned*)hacc, tables(tw, R1, row_len, M).inv, npart,
+      nsub, M, nfilt_pos, nkeep, nbin, nplane, det, fourth, lo, hi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int nmax = (int)(nprof > nhits ? nprof : nhits);

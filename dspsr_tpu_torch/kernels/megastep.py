@@ -3,15 +3,18 @@
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megastep`` (the Pallas
 kernel).  The source note in ``csrc/megastep.cu`` says what bounds it and
 how it is laid out.  This wrapper checks every operand, allocates the
-outputs and scratch with ``torch.empty``, launches the four kernels on the
-current stream through the library's C entry point, raises on any CUDA
-error, and counts the launch.  It never falls back to the plain version.
+outputs and scratch with ``torch.empty``, builds the plan's twiddle tables
+once (``twiddle_tables``, plain numpy, cached on the device), launches the
+kernels on the current stream through the library's C entry point, raises
+on any CUDA error, and counts the launch.  It never falls back to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..device import count_launch
@@ -23,7 +26,12 @@ from . import build
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 13 + [_i] * 16 + [_f, _f] + [_i] * 5 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 15 + [_i] * 16 + [_f, _f] + [_i] * 5 + [_c]
+
+#: the transform kernels' block size limit (``kMaxThreads``)
+MAX_THREADS = 512
+#: largest tiles tried: columns of ``mega_fwd1``, row pairs of ``mega_fwd2``
+TILE_CAPS = (8, 4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,8 +39,8 @@ def _lib() -> ctypes.CDLL:
     if lib.megastep_launch.argtypes is None:
         lib.megastep_launch.argtypes = _LAUNCH_ARGTYPES
         lib.megastep_launch.restype = _i
-        lib.megastep_smem_bytes.argtypes = [_i] * 8
-        lib.megastep_smem_bytes.restype = _i
+        lib.megastep_resources.argtypes = [_i] * 9
+        lib.megastep_resources.restype = _i
         lib.megastep_error_string.argtypes = [_i]
         lib.megastep_error_string.restype = ctypes.c_char_p
     return lib
@@ -58,30 +66,99 @@ def smem_limit(dev: torch.device) -> int:
     return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
-def forward_tiles(smem, plan: MegaPlan, limit: int) -> tuple[int, int]:
-    """Tiles (columns of ``mega_fwd1``, rows of ``mega_fwd2``): the largest
-    powers of two up to 16 and 8 whose shared memory ``smem(which, tile)``
-    fits in ``limit``."""
+def fft_pass_bits(L: int) -> list[int]:
+    """Bits of each pass of the kernels' length-L FFT (``pass_bits`` in
+    ``csrc/mega_common.cuh``): radix P = 16 first (8 for L = 8), then the
+    remaining bits split as evenly as possible, larger first."""
+    lgp = 4 if L >= 16 else 3
+    rem = L.bit_length() - 1 - lgp
+    n = -(-rem // lgp)
+    return [lgp] + [rem // n + (1 if s < rem % n else 0) for s in range(n)]
+
+
+def twiddle_tables(R1: int, row_len: int, M: int,
+                   dtype=np.complex64) -> np.ndarray:
+    """The kernels' twiddle tables for one plan, in one buffer (the layout
+    of ``Tables`` in ``csrc/mega_common.cuh``):
+
+    - for L = R1, row_len and M, L entries: for each pass s >= 1 of the
+      length-L FFT in turn (radix R, Ns = product of the earlier radices),
+      ``exp(-2 pi i k r / (Ns R))`` at ``(r-1)*Ns + k``, then zeros;
+    - ``lo[e] = exp(-2 pi i e / 2N)``, ``e < 2^lo_bits``, and ``hi[e] =
+      exp(-2 pi i e 2^lo_bits / 2N)``, ``e < 2N / 2^lo_bits``, with 2N =
+      R1 * row_len and lo_bits = (log2(2N) + 1) // 2;
+    - ``col[k1*16 + c] = exp(-2 pi i c k1 / 2N)``, ``k1 < R1``, ``c < 16``.
+
+    Computed in float64 and rounded once to ``dtype`` (complex64 for the
+    kernels)."""
+    two_n = R1 * row_len
+    log2n = two_n.bit_length() - 1
+    lo_bits = (log2n + 1) // 2
+
+    def turns(num, den):
+        return np.exp(-2j * np.pi * (np.asarray(num, np.float64) / den))
+
+    parts = []
+    for L in (R1, row_len, M):
+        bits = fft_pass_bits(L)
+        ns, table = 1 << bits[0], []
+        for b in bits[1:]:
+            R = 1 << b
+            table.append(turns(np.arange(1, R)[:, None] * np.arange(ns),
+                               ns * R).ravel())
+            ns *= R
+        table.append(np.zeros(L - sum(t.size for t in table)))
+        parts += table
+    parts.append(turns(np.arange(1 << lo_bits), two_n))
+    parts.append(turns(np.arange(1 << (log2n - lo_bits)) << lo_bits, two_n))
+    parts.append(turns(np.arange(R1)[:, None] * np.arange(16), two_n).ravel())
+    return np.concatenate(parts).astype(dtype)
+
+
+_tables: dict = {}
+
+
+def device_tables(plan: MegaPlan, dev: torch.device) -> torch.Tensor:
+    """``twiddle_tables`` of ``plan`` as float32 ``[n, 2]`` on ``dev``,
+    built once per geometry and device and cached."""
+    key = (plan.R1, plan.row_len, plan.freq_res, str(dev))
+    t = _tables.get(key)
+    if t is None:
+        host = twiddle_tables(plan.R1, plan.row_len, plan.freq_res)
+        t = torch.from_numpy(host.view(np.float32).reshape(-1, 2)).to(dev)
+        _tables[key] = t
+    return t
+
+
+def forward_tiles(res, plan: MegaPlan, limit: int) -> tuple[int, int]:
+    """Tiles (columns of ``mega_fwd1``, row pairs of ``mega_fwd2``): the
+    largest powers of two up to ``TILE_CAPS`` (and row_len, R1/2) whose
+    shared memory ``res(0, which, tile)`` fits in ``limit`` and whose
+    threads ``res(1, which, tile)`` fit in a block."""
     def tile(which: int, start: int) -> int:
         t = start
-        while t > 1 and smem(which, t) > limit:
+        while t > 1 and (res(0, which, t) > limit
+                         or res(1, which, t) > MAX_THREADS):
             t //= 2
         return t
 
-    return tile(0, min(16, plan.row_len)), tile(1, min(8, plan.R1))
+    return (tile(0, min(TILE_CAPS[0], plan.row_len)),
+            tile(1, min(TILE_CAPS[1], plan.R1 // 2)))
 
 
-def check_smem(smem, plan: MegaPlan, tiles, limit: int) -> None:
+def check_resources(res, plan: MegaPlan, tiles, limit: int) -> None:
     """Raise ``NotImplementedError`` when a pass needs more shared memory
-    than ``limit`` (``tiles`` for passes 0, 1; pass 2 is the inverse)."""
+    than ``limit`` or more threads than a block holds (``tiles`` for passes
+    0, 1; pass 2 is the inverse)."""
     for which, tile in ((0, tiles[0]), (1, tiles[1]), (2, 0)):
-        need = smem(which, tile)
-        if need > limit:
+        need, threads = res(0, which, tile), res(1, which, tile)
+        if need > limit or threads > MAX_THREADS:
             raise NotImplementedError(
                 f"geometry (R1={plan.R1}, R2={plan.R2}, freq_res="
                 f"{plan.freq_res}, nbin={plan.nbin}) needs {need} B of shared "
-                f"memory in pass {which}, over the card's {limit} B; a "
-                "multi-pass inverse is open work (ROADMAP.md Queue 2)")
+                f"memory and {threads} threads in pass {which}, over the "
+                f"card's {limit} B or {MAX_THREADS} threads; a multi-pass "
+                "transform is open work (ROADMAP.md Queue 2)")
 
 
 def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -115,18 +192,21 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     pols = fold_pols(p)
     npolf = len(pols)
 
-    def smem(which, tile):
-        return lib.megastep_smem_bytes(which, p.R1, p.row_len, p.freq_res,
-                                       npolf, p.nplane, p.nbin, tile)
+    def res(kind, which, tile):
+        return lib.megastep_resources(kind, which, p.R1, p.row_len,
+                                      p.freq_res, npolf, p.nplane, p.nbin,
+                                      tile)
 
     limit = smem_limit(dev)
-    tc, tk = forward_tiles(smem, p, limit)
-    check_smem(smem, p, (tc, tk), limit)
+    tc, tk = forward_tiles(res, p, limit)
+    check_resources(res, p, (tc, tk), limit)
 
     prof_out = torch.empty_like(profiles)
     hits_out = torch.empty_like(hits)
-    cbuf = torch.empty((nchan * npolf, npart, p.R1, p.row_len, 2),
-                       dtype=f32, device=dev)
+    tw = device_tables(p, dev)
+    psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
+    cbuf = torch.empty((nchan, npart, p.R1, p.row_len, 2), dtype=f32,
+                       device=dev)
     ybuf = torch.empty((nchan * npolf, npart, p.n_fft, 2), dtype=f32,
                        device=dev)
     pacc = torch.empty_like(profiles)
@@ -136,10 +216,10 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.megastep_launch(
             raw.data_ptr(), phi0.data_ptr(), dphi.data_ptr(),
-            cst.gr.data_ptr(), cst.gi.data_ptr(), profiles.data_ptr(),
-            hits.data_ptr(), prof_out.data_ptr(), hits_out.data_ptr(),
-            cbuf.data_ptr(), ybuf.data_ptr(), pacc.data_ptr(),
-            hacc.data_ptr(),
+            cst.gr.data_ptr(), cst.gi.data_ptr(), tw.data_ptr(),
+            profiles.data_ptr(), hits.data_ptr(), prof_out.data_ptr(),
+            hits_out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
+            ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(),
             nchan, p.npol, pols[0], npolf, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),

@@ -29,8 +29,8 @@ kernel is ``kernels.megafil``.  Both plain versions share one front end
 (``_front_plain``).
 
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
-they existed for the TPU's matrix unit, and the Hopper kernel runs radix-2
-FFTs instead.
+they existed for the TPU's matrix unit, and the Hopper kernels run
+register-resident FFTs with twiddle tables built by their wrapper instead.
 """
 
 from __future__ import annotations
