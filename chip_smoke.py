@@ -4,14 +4,19 @@
 
 Builds the hand-written kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch version
-on the card, drives the port's two main paths on the flagship input (DUMMY
+on the card, drives the port's main paths on the flagship input (DUMMY
 8-bit dual-pol real input at 800 Msamp/s, DM 2.64, 64 channels) for a few
 blocks each, checks the results, and prints timings:
 
 - the fold path (``mega_real_8bit``: 1024 bins, kernel ``megastep``);
 - the search path (``megafil_search``: the digifil workflow to an 8-bit
-  SIGPROC file, kernel ``megafil``).
+  SIGPROC file, kernel ``megafil``);
+- the hybrid fold engine (``hybrid_sk``: in-stream spectral kurtosis with
+  1024-sample cells; ``hybrid_rfi``: the spectral RFI filter): kernel
+  ``megafil`` with the passband tap and the chirp handed in per block, then
+  the fold tail in plain PyTorch.
 
+Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
 line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -19,16 +24,35 @@ line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import importlib.abc
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    """Refuses any import of jax or of the JAX package (dspsr_tpu)."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "dspsr_tpu"):
+            raise ImportError(f"chip_smoke imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+#: the card's peaks (H100 SXM data sheet): device-memory bytes/s and
+#: float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 TOL_SMALL = 2e-5  # relative, kernel (f32) against plain (f64), test geometry
 TOL_FLAGSHIP = 1e-4  # relative, kernel against plain, both f32, 2^19 windows
@@ -264,13 +288,23 @@ def flagship_block(card: str) -> dict:
           flush=True)
     kernel_breakdown(lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi),
                      card)
-    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms)
+    from dspsr_tpu_torch.ops.megakernel import fold_pols
+
+    nf = len(fold_pols(plan))
+    nbytes = (raw.numel() + 8 * pipe.constants.gr.numel()
+              + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                **bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf)),
+                library_ms=None)
 
 
-def kernel_breakdown(fn, card: str, reps: int = 5) -> None:
+def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
+                     others: bool = False) -> dict:
     """Device time of each of the step's kernels (torch.profiler: the mean
     over the launches it recorded, with their count), and the step's peak
-    device memory."""
+    device memory; returns the mean milliseconds of each ``mega*`` kernel.
+    With ``others``, the device time per call of every other kernel (the
+    plain PyTorch tail) is summed and printed too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -281,17 +315,28 @@ def kernel_breakdown(fn, card: str, reps: int = 5) -> None:
             fn()
         torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    parts = []
+    parts, times, rest, nrest = [], {}, 0.0, 0
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
         m = re.search(r"\b(mega\w*)(<[^>]*>)?(?:\(|$)", ev.key)
         if m and us > 0:
-            parts.append(f"{m.group(1)}{m.group(2) or ''} "
-                         f"{us / ev.count / 1e3:.3f} ms (x{ev.count})")
-    print(f"kernel breakdown per block: {'; '.join(parts) or 'no device time'}"
-          f"; step scratch + outputs {peak_mb:.0f} MiB [{card}]", flush=True)
+            name = f"{m.group(1)}{m.group(2) or ''}"
+            times[name] = us / ev.count / 1e3
+            parts.append(f"{name} {times[name]:.3f} ms (x{ev.count})")
+        elif us > 0 and not ev.key.startswith(("aten::", "cuda",
+                                                 "ProfilerStep")):
+            # device kernels only: op-level events would count their
+            # kernels twice
+            rest += us / reps / 1e3
+            nrest += ev.count
+    if others:
+        parts.append(f"other kernels {rest:.3f} ms ({nrest // reps} a call)")
+    print(f"kernel breakdown per block{label}: "
+          f"{'; '.join(parts) or 'no device time'}; step scratch + outputs "
+          f"{peak_mb:.0f} MiB [{card}]", flush=True)
+    return times
 
 
 def main_path(card: str) -> int:
@@ -465,7 +510,13 @@ def search_block(card: str) -> dict:
           f"plain: {plain_ms:.3f} ms; block = {sky_ms:.2f} ms of sky "
           f"[{card}]", flush=True)
     kernel_breakdown(lambda: pipe._megafil(raw), card)
-    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms)
+    from dspsr_tpu_torch.ops.megakernel import fold_pols
+
+    nf = len(fold_pols(plan))
+    nbytes = raw.numel() + 8 * pipe.constants.gr.numel() + 4 * got.numel()
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                **bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf)),
+                library_ms=None)
 
 
 def search_path(card: str) -> int:
@@ -473,7 +524,7 @@ def search_path(card: str) -> int:
     ``FilPipeline.run`` to a SIGPROC file; returns the megafil launches."""
     from dspsr_tpu_torch import launch_counts, reset_launch_counts
     from dspsr_tpu_torch.io.sources import DummySource
-    from dspsr_tpu_torch.io.writers import read_sigproc_header
+    from dspsr_tpu_torch.io.sigproc import read_sigproc_header
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
@@ -531,7 +582,7 @@ def search_path(card: str) -> int:
 def search_rates(card: str) -> None:
     """Host-fed and device-fed rates of the search pipeline (warm)."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
-    from dspsr_tpu_torch.io.writers import SigProcWriter
+    from dspsr_tpu_torch.io.sigproc import SigProcWriter
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
@@ -569,6 +620,236 @@ def search_rates(card: str) -> None:
           flush=True)
 
 
+def front_ops(plan, npart: int, nfwd: int, nstore: int) -> float:
+    """float32 operations of the fused front end over one block: per window
+    and input channel the packed forward FFT of 2N points (5 L log2 L for
+    L = 2N), the pol separation, passband and chirp (16 a bin for each pol
+    kept), each kept pol's nsub inverse FFTs of freq_res points, and the
+    detection (4 a kept sample and plane).  ``nfwd`` pols are transformed,
+    ``nstore`` of them inverted."""
+    L, M = 2 * plan.n_fft, plan.freq_res
+    per = (5 * L * math.log2(L) + 16 * plan.n_fft * max(nfwd, nstore)
+           + nstore * plan.nsub * 5 * M * math.log2(M)
+           + 4 * plan.nsub * plan.nkeep * plan.nplane)
+    return plan.nchan_in * npart * per
+
+
+def bound_of(nbytes: float, ops: float) -> dict:
+    """The least time the card could take (ms): the larger of the bytes at
+    the device-memory rate and the operations at the float32 rate."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def masked_chirp(cst, rng) -> tuple:
+    """The constants' chirp times a random 0/1 mask (10% zapped)."""
+    m = torch.from_numpy(
+        (rng.uniform(size=tuple(cst.gr.shape)) > 0.1).astype(np.float32))
+    m = m.to(cst.gr.device)
+    return cst.gr * m, cst.gi * m
+
+
+def small_checks_hybrid() -> None:
+    """The hybrid front end's kernel variants (passband tap, chirp handed
+    in: chirp times a random mask) against the plain version (f64) at the
+    test geometry: data and passband within TOL_SMALL.  PP and QQ transform
+    both pols for the tap and keep one."""
+    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, MegaPlan, build_megafil, megafil_plain, unpack_affine)
+
+    nsub, freq_res, npart = 4, 64, 3
+    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
+                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
+    cases = [
+        dict(npol=2), dict(npol=2, detection="pp"),
+        dict(npol=2, detection="qq"), dict(npol=2, npol_out=2),
+        dict(npol=2, npol_out=4, detection="coherence"), dict(npol=1),
+        dict(npol=2, nchan_in=2), dict(npol=2, twos_complement=True),
+    ]
+    rng = np.random.default_rng(4)
+    for kw in cases:
+        plan = MegaPlan.from_filterbank(fb, nbin=2, **kw)
+        nci, npol = plan.nchan_in, plan.npol
+        raw = torch.from_numpy(rng.integers(
+            0, 256, plan.block_ndat(npart) * nci * npol,
+            dtype=np.uint8)).cuda()
+        resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
+        scale, offset = unpack_affine(8, plan.twos_complement)
+        cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
+        gr, gi = masked_chirp(cst, rng)
+        data, w, pb = build_megafil(plan, cst, npart, passband=True,
+                                    return_weights=True,
+                                    response_as_args=True)(raw, gr, gi)
+        want, wpb = megafil_plain(plan, cst, raw, npart, torch.float64,
+                                  passband=True, gr=gr.double(),
+                                  gi=gi.double())
+        torch.cuda.synchronize()
+        err, perr = rel_err(data, want), rel_err(pb, wpb)
+        print(f"small hybrid megafil {kw}: rel err data {err:.3e}, "
+              f"passband {perr:.3e}", flush=True)
+        check(data.shape == want.shape and pb.shape == wpb.shape,
+              f"hybrid megafil shapes {kw}")
+        check(pb.shape == (nci * nsub, npol, freq_res), f"passband {kw}")
+        check(bool(torch.isfinite(data).all() and torch.isfinite(pb).all()),
+              f"finite hybrid megafil {kw}")
+        check(max(err, perr) < TOL_SMALL,
+              f"small hybrid megafil {kw}: {err}, {perr} >= {TOL_SMALL}")
+        check(bool((w == 1).all()) and w.shape == (nci, npart),
+              f"weights {kw}")
+
+
+def hybrid_pipe(**kw):
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+
+    pipe = FoldPipeline(DummySource(flagship_obs()), flagship_cfg(**kw),
+                        device="cuda")
+    check(pipe.mega_mode == "hybrid", f"mega_mode {pipe.mega_mode} for {kw}")
+    return pipe
+
+
+HYBRID_SK = dict(sk_enable=True, sk_m=1024)  # bench.py:464-467
+HYBRID_RFI = dict(rfi_filter=True)  # bench.py:472-474
+
+
+def hybrid_block(card: str) -> dict:
+    """One flagship block of the hybrid RFI front end (passband tap, the
+    chirp times a random mask handed in) against the plain version (both
+    f32) on device noise, both timed; then what the tap costs: megafil with
+    and without it."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+    from dspsr_tpu_torch.ops.megakernel import build_megafil, megafil_plain
+
+    pipe = hybrid_pipe(**HYBRID_RFI)
+    plan, cst = pipe.front_plan, pipe.constants
+    raw = device_noise_bytes(0, pipe.block_in_samples * 2, "cuda")
+    gr, gi = masked_chirp(cst, np.random.default_rng(6))
+    data, _, pb = pipe._front(raw, gr, gi)
+    want, wpb = megafil_plain(plan, cst, raw, pipe.npart, passband=True,
+                              gr=gr, gi=gi)
+    torch.cuda.synchronize()
+    err, perr = rel_err(data, want), rel_err(pb, wpb)
+    abs_err = float((data - want).abs().max())
+    print(f"flagship hybrid block (passband, masked chirp): output "
+          f"{tuple(data.shape)}, passband {tuple(pb.shape)}; rel err data "
+          f"{err:.3e} (abs {abs_err:.3e}), passband {perr:.3e} (abs "
+          f"{float((pb - wpb).abs().max()):.3e})", flush=True)
+    check(bool(torch.isfinite(data).all() and torch.isfinite(pb).all()),
+          "finite flagship hybrid block")
+    check(max(err, perr) < TOL_FLAGSHIP,
+          f"flagship hybrid rel err {err}, {perr} >= {TOL_FLAGSHIP}")
+
+    plain = build_megafil(plan, cst, pipe.npart)
+    tap_ms = cuda_ms(lambda: pipe._front(raw, gr, gi), 10)
+    bare_ms = cuda_ms(lambda: plain(raw), 10)
+    print(f"megafil per flagship block (Intensity): with the passband tap "
+          f"and the chirp handed in {tap_ms:.3f} ms, without "
+          f"{bare_ms:.3f} ms [{card}]", flush=True)
+    with_tap = kernel_breakdown(lambda: pipe._front(raw, gr, gi), card,
+                                label=" (megafil, passband tap)")
+    without = kernel_breakdown(lambda: plain(raw), card,
+                               label=" (megafil, no tap)")
+    f2 = [k for k in with_tap if k.startswith("mega_fwd2")]
+    for k in f2:
+        if k in without:
+            print(f"tap cost in {k}: {with_tap[k] - without[k]:.3f} ms a "
+                  f"flagship block ({without[k]:.3f} -> {with_tap[k]:.3f}) "
+                  f"[{card}]", flush=True)
+    return dict(err=abs_err)
+
+
+def hybrid_path(card: str) -> int:
+    """``hybrid_sk`` and ``hybrid_rfi`` at the flagship width, 3 blocks
+    each through ``FoldPipeline.run`` with torch.fft and torch.matmul
+    disabled; returns the megafil launches of both runs."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+
+    nblocks = 3
+    total = 0
+    for name, kw, want in (("hybrid_sk", HYBRID_SK, nblocks),
+                           ("hybrid_rfi", HYBRID_RFI, nblocks + 1)):
+        pipe = hybrid_pipe(**kw)
+
+        def forbidden(*args, **kwargs):
+            raise RuntimeError("torch.fft/torch.matmul called on the main "
+                               "path")
+
+        saved = (torch.fft.rfft, torch.fft.ifft, torch.matmul)
+        reset_launch_counts()
+        torch.fft.rfft = torch.fft.ifft = torch.matmul = forbidden
+        try:
+            t0 = time.perf_counter()
+            res = pipe.run(max_blocks=nblocks)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.fft.rfft, torch.fft.ifft, torch.matmul = saved
+        counts = launch_counts()
+        total += counts["megafil"]
+        check(counts["megafil"] == want,
+              f"{name}: megafil launched {counts['megafil']} times, not "
+              f"{want}")
+        check(counts["megastep"] == 0, f"{name}: megastep launched")
+        check(res.profiles.shape == (1, 64, 1, 1024),
+              f"{name} profiles shape {res.profiles.shape}")
+        check(bool(np.isfinite(res.profiles).all()), f"{name} non-finite")
+        per_chan = res.hits.sum(axis=(0, 2))
+        check(bool((per_chan > 0).all()
+                   and (per_chan <= nblocks * pipe.out_per_block).all()),
+              f"{name} hits per channel {per_chan[:4]}")
+        prof = res.normalized()[0, :, 0, :]
+        check(bool((prof.std(axis=1) > 0).all()), f"{name} flat profiles")
+        share = pipe.zapped_share()
+        print(f"{name}: {nblocks} blocks, {counts['megafil']} megafil "
+              f"launches; hits/chan min {int(per_chan.min())} max "
+              f"{int(per_chan.max())} of {nblocks * pipe.out_per_block}; "
+              f"zapped: SK cells {share['sk']}, RFI bins {share['rfi']}; "
+              f"host-fed incl. first-block warm-up "
+              f"{nblocks * pipe.stride_in_samples / wall / 1e6:.1f} Msamp/s "
+              f"[{card}]", flush=True)
+    return total
+
+
+def hybrid_rates(card: str) -> None:
+    """Device-fed rate of ``hybrid_sk`` and ``hybrid_rfi`` (device noise
+    bytes through the front end and the tail, warm) with a breakdown of the
+    kernels' time per block."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+    from dspsr_tpu_torch.ops.fold import compute_anchors
+
+    for name, kw in (("hybrid_sk", HYBRID_SK), ("hybrid_rfi", HYBRID_RFI)):
+        pipe = hybrid_pipe(**kw)
+        nbytes = pipe.block_in_samples * 2
+        phi0, dphi = (torch.from_numpy(a).cuda() for a in compute_anchors(
+            pipe.predictor, pipe.output_start_time(0),
+            1.0 / pipe.obs_out.rate, pipe.out_per_block, pipe.mega_plan.nkeep))
+        if pipe._rfi_resp is not None:
+            pipe._rfi_primed = True
+
+        def step(raw):
+            d, w, wp, _ = pipe._hybrid_block(raw)
+            pipe._profiles, pipe._hits = pipe._fold_tail_d(
+                pipe._profiles, pipe._hits, d, w, wp, phi0, dphi)
+
+        def block(b):
+            step(device_noise_bytes(b * nbytes, nbytes, "cuda"))
+
+        block(0)
+        nb = 6
+        it = iter(range(1, nb + 1))
+        ms = cuda_ms(lambda: block(next(it)), nb)
+        msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
+        raw0 = device_noise_bytes(0, nbytes, "cuda")
+        step_ms = cuda_ms(lambda: step(raw0), nb)
+        print(f"{name} device-fed (device_noise_bytes, front end + tail): "
+              f"{ms:.3f} ms a block, {msps:.1f} Msamp/s; front end + tail "
+              f"alone {step_ms:.3f} ms; real time is 800 Msamp/s [{card}]",
+              flush=True)
+        kernel_breakdown(lambda: step(raw0), card,
+                         label=f" ({name}, front end + tail)", others=True)
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -595,6 +876,7 @@ def main() -> None:
     build_all()
     small_checks()
     small_checks_megafil()
+    small_checks_hybrid()
     small_unequal()
     flag = flagship_block(card)
     launches = main_path(card)
@@ -602,14 +884,19 @@ def main() -> None:
     search = search_block(card)
     search_launches = search_path(card)
     search_rates(card)
+    hybrid = hybrid_block(card)
+    search["max_abs_err"] = max(search["max_abs_err"], hybrid["err"])
+    hybrid_launches = hybrid_path(card)
+    hybrid_rates(card)
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",
          "replaces": REPLACES["megastep"], "launches": launches, **flag},
         {"name": "megafil", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megafil.cu",
-         "replaces": REPLACES["megafil"], "launches": search_launches,
-         **search}]}), flush=True)
+         "replaces": REPLACES["megafil"],
+         "launches": search_launches + hybrid_launches, **search}]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

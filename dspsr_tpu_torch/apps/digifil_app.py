@@ -86,7 +86,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--threads > 1 (time-sharded digifil); see ROADMAP.md Queue 1 "
             "item 10 (multi-GPU)")
-    from dspsr_tpu.io.sources import MultiFile, open_source
+    from ..io.sources import MultiFile, open_source
 
     from ..models.load_to_fil import FilConfig, FilPipeline
 

@@ -4,7 +4,9 @@ The JAX package keeps its chirp in the permuted ``[nchan_in, R1, R2]``
 spectral layout of its TPU kernel (flat bin ``k = k2*R1 + k1``); the port
 keeps it in natural order ``[nchan_in, n_fft]``.  These helpers turn the JAX
 package's numpy arrays into the port's tensors, so its own constants,
-carried fold accumulators and search rescale state can be fed to the port.
+carried fold accumulators (one array, or a tuple of them per source in the
+hybrid engine), carried RFI response and search rescale state can be fed to
+the port.
 """
 
 from __future__ import annotations
@@ -16,27 +18,44 @@ from .ops.megakernel import MegaConstants, MegaPlan, unpack_affine
 from .ops.rescale import RescaleState
 
 
+def _natural(a, plan: MegaPlan) -> np.ndarray:
+    """A JAX-package response plane ``[nchan_in, R1, R2]`` (flat bin ``k =
+    k2*R1 + k1``) in natural bin order ``[nchan_in, n_fft]``, float32."""
+    a = np.asarray(a, np.float32).reshape(plan.nchan_in, plan.R1, plan.R2)
+    return np.ascontiguousarray(a.transpose(0, 2, 1)).reshape(
+        plan.nchan_in, plan.n_fft)
+
+
 def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:
     """The port's ``MegaConstants`` on ``device`` from the JAX package's
     ``MegaConstants`` arrays: ``d["gr"]``/``d["gi"]`` ``[nchan_in, R1, R2]``
     are un-permuted to natural order; ``d["unpack_scale"]`` and
     ``d["unpack_offset"]`` default to ``unpack_affine`` of the plan."""
-    def natural(a):
-        a = np.asarray(a, np.float32).reshape(plan.nchan_in, plan.R1, plan.R2)
-        return np.ascontiguousarray(a.transpose(0, 2, 1)).reshape(
-            plan.nchan_in, plan.n_fft)
-
     scale, offset = unpack_affine(plan.nbit, plan.twos_complement)
     return MegaConstants(
-        gr=natural(d["gr"]), gi=natural(d["gi"]),
+        gr=_natural(d["gr"], plan), gi=_natural(d["gi"], plan),
         unpack_scale=float(d.get("unpack_scale", scale)),
         unpack_offset=float(d.get("unpack_offset", offset)),
     ).to(device)
 
 
+def response_from_numpy(resp, plan: MegaPlan, device):
+    """A JAX hybrid pipeline's carried RFI response ``_rfi_resp`` (the
+    chirp times the zap mask, ``(gr, gi)`` each ``[nchan_in, R1, R2]`` in
+    its kernel's permuted layout) as the port's natural-order float32
+    ``(gr, gi)`` ``[nchan_in, n_fft]`` on ``device``."""
+    return tuple(_tensor(_natural(a, plan), device) for a in resp)
+
+
 def accumulators_from_numpy(profiles, hits, device):
-    """A JAX pipeline's carried ``_profiles [nchan_in, nplane, nsub, nbin]``
-    and ``_hits [nchan_in, nbin]`` as float32 tensors on ``device``."""
+    """A JAX pipeline's carried ``_profiles`` and ``_hits`` as float32
+    tensors on ``device``: ``[nchan_in, nplane, nsub, nbin]`` and
+    ``[nchan_in, nbin]`` on the full engine, ``[nchan, npol, nbin]`` and
+    ``[nchan, nbin]`` on the hybrid engine, or, with several sources, a
+    tuple of those per source (each its own nbin), kept as tuples."""
+    if isinstance(profiles, (tuple, list)):
+        return (tuple(_tensor(p, device) for p in profiles),
+                tuple(_tensor(h, device) for h in hits))
     return _tensor(profiles, device), _tensor(hits, device)
 
 

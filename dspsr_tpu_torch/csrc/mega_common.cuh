@@ -15,8 +15,9 @@
 //   mega_fwd2    per (input channel, window, tile of row pairs {k1, R1-k1}):
 //                length-row_len FFT of both rows, separate the two pols'
 //                spectra from Z[k] and conj Z[2N-k], keep k2 < R2 (Nyquist
-//                dropped), multiply the chirp, store each pol's spectrum in
-//                natural bin order k = k2*R1 + k1.
+//                dropped), optionally add |X|^2 of each pol into the
+//                passband, multiply the chirp, store the spectrum of each
+//                pol the caller keeps in natural bin order k = k2*R1 + k1.
 // launch_forward() sets their shared-memory limits and launches them.
 //
 // Bytes and bounds.  A flagship block (R1 = R2 = 512, 75 windows of 2N =
@@ -72,6 +73,16 @@
 //    with an mbarrier) measured 0.25 against 0.20 ms, and walking the
 //    windows in groups whose cbuf stays in L2 measured 1.2 against 1.0 ms
 //    for the two forward passes, so neither is used.
+//
+// 5. The passband tap (hybrid fold engine: passband integration and the
+//    spectral RFI filter).  |X_a|^2 and |X_b|^2 are taken in mega_fwd2 right
+//    after the pol separation, before the chirp: with an RFI mask the
+//    response has zeros, so they cannot be recovered from the chirped
+//    spectra.  Every window's CTA adds into one float[nchan, npolf, N] sum
+//    with atomicAdd, so the order of the additions, and the last bits of
+//    the passband, change from run to run.  With the tap, PP or QQ
+//    detection transforms both pols (the passband has both) and stores
+//    only the detected pol's spectrum.
 //
 // Each library that includes this header is its own translation unit and
 // shared object, so everything here has internal linkage.
@@ -460,12 +471,15 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   }
 }
 
+// store: bit 0 keeps pol a's spectrum, bit 1 pol b's, in that order in
+// ybuf; pb, when not null, is the zeroed passband float[nchan, npolf, N].
 template <int P>
 __global__ void __maxnreg__(kFwd2Regs)
 mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
           const float* __restrict__ gr, const float* __restrict__ gi,
-          const float* __restrict__ psum, Tables tb, int npolf, int npart,
-          int R1, int R2, int row_len, int tp) {
+          const float* __restrict__ psum, float* __restrict__ pb, Tables tb,
+          int npolf, int store, int npart, int R1, int R2, int row_len,
+          int tp) {
   extern __shared__ float2 sm[];
   const int T = row_len / P;
   const int ld = seq_ld(row_len);
@@ -492,8 +506,10 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   const float unscale =
       npolf == 2 ? ldexpf(1.f, -pol_exponent(psum + 2 * ((long long)c * npart + w)))
                  : 0.f;
-  float2* ya = ybuf + ((long long)c * npolf * npart + w) * n;
-  float2* yb = ya + (long long)npart * n;
+  const int nstore = (store & 1) + (store >> 1);
+  float2* ya = ybuf + ((long long)c * nstore * npart + w) * n;
+  float2* yb = ya + ((store & 1) ? (long long)npart * n : 0LL);
+  float* pbc = pb ? pb + (long long)c * npolf * n : nullptr;
   const float* grc = gr + (long long)c * n;
   const float* gic = gi + (long long)c * n;
   const int nslot = 2 * tp;
@@ -521,10 +537,15 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
     const long long k = (long long)k2 * R1 + k1;
     const float2 g = make_float2(grc[k], gic[k]);
     // X_a = (Z + conj P) / 2, X_b = (Z - conj P) / 2i
-    ya[k] = cmul(make_float2(0.5f * (z.x + p.x), 0.5f * (z.y - p.y)), g);
-    if (npolf == 2)
-      yb[k] = cmul(make_float2(0.5f * (z.y + p.y) * unscale,
-                               -0.5f * (z.x - p.x) * unscale), g);
+    const float2 xa = make_float2(0.5f * (z.x + p.x), 0.5f * (z.y - p.y));
+    const float2 xb = make_float2(0.5f * (z.y + p.y) * unscale,
+                                  -0.5f * (z.x - p.x) * unscale);
+    if (pbc) {
+      atomicAdd(pbc + k, xa.x * xa.x + xa.y * xa.y);
+      if (npolf == 2) atomicAdd(pbc + n + k, xb.x * xb.x + xb.y * xb.y);
+    }
+    if (store & 1) ya[k] = cmul(xa, g);
+    if (npolf == 2 && (store & 2)) yb[k] = cmul(xb, g);
   }
 }
 
@@ -608,19 +629,28 @@ int fwd_smem_bytes(int which, int R1, int row_len, int tile) {
 }
 
 // The forward half on the caller's stream: raw codes -> (psum) -> cbuf
-// float2[nchan, npart, R1, row_len] -> ybuf float2[nchan*npolf, npart,
-// R1*R2], each pol's chirped spectrum in natural bin order.  psum is
-// float[nchan, npart, 2]; tw is the wrapper's table buffer (Tables).
+// float2[nchan, npart, R1, row_len] -> ybuf float2[nchan*nstore, npart,
+// R1*R2], the chirped spectrum of each pol in `store` (bit 0 pol a, bit 1
+// pol b; nstore of them) in natural bin order.  psum is float[nchan, npart,
+// 2]; tw is the wrapper's table buffer (Tables); pb, when not null, gets
+// the passband float[nchan, npolf, R1*R2] (zeroed here).
 cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            const void* tw, void* psum, void* cbuf, void* ybuf,
-                           int nchan, int npol, int pol0, int npolf,
-                           int npart, int R1, int R2, int M, int twos,
-                           float scale, float offset, int nsamp_step, int tc,
-                           int tk, cudaStream_t stream) {
+                           void* pb, int nchan, int npol, int pol0, int npolf,
+                           int store, int npart, int R1, int R2, int M,
+                           int twos, float scale, float offset,
+                           int nsamp_step, int tc, int tk,
+                           cudaStream_t stream) {
   const int row_len = 2 * R2;
   const Tables tb = tables(tw, R1, row_len, M);
   cudaError_t err;
   if (tc > kMaxCols) return cudaErrorInvalidValue;
+  if (store < 1 || store > 3 || (npolf == 1 && store != 1))
+    return cudaErrorInvalidValue;
+  if (pb && (err = cudaMemsetAsync(
+                 pb, 0, (size_t)nchan * npolf * R1 * R2 * sizeof(float),
+                 stream)) != cudaSuccess)
+    return err;
   if (npolf == 2) {
     if ((err = cudaMemsetAsync(psum, 0, (size_t)nchan * npart * 2 * sizeof(float),
                                stream)) != cudaSuccess)
@@ -650,7 +680,8 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
   fwd2<<<dim3(R1 / (2 * tk), npart, nchan),
          transform_threads(1, R1, row_len, M, tk), smem2, stream>>>(
       (const float2*)cbuf, (float2*)ybuf, (const float*)gr, (const float*)gi,
-      (const float*)psum, tb, npolf, npart, R1, R2, row_len, tk);
+      (const float*)psum, (float*)pb, tb, npolf, store, npart, R1, R2,
+      row_len, tk);
   return cudaGetLastError();
 }
 

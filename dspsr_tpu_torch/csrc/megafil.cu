@@ -3,8 +3,12 @@
 // real-sampled 8-bit TFP input.
 //
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megafil in
-// its detected, scalar-chirp form (the digifil path), together with the XLA
-// de-permute that followed it.  The TPU kernel ran every transform as dense
+// its detected, scalar-chirp form, together with the XLA de-permute that
+// followed it: the digifil path, and the hybrid fold engine's front end,
+// which adds the pre-response passband tap (see item 5 of mega_common.cuh)
+// and hands in the chirp (times an RFI mask) on every call.  The tap adds
+// 2 atomicAdds a bin a window to mega_fwd2 and, with PP or QQ detection,
+// the second pol's separation.  The TPU kernel ran every transform as dense
 // DFT matmuls and wrote [R2, R1] time planes that a second XLA pass put back
 // in time order; here the transforms are register-resident FFTs (see
 // mega_common.cuh) and the inverse pass stores each detected sample
@@ -23,7 +27,7 @@
 // Four kernels run in order on the caller's stream:
 //   mega_polpow,   the forward half shared with megastep.cu (see
 //   mega_fwd1,     mega_common.cuh): pol energies; unpack, columns,
-//   mega_fwd2      twiddle; rows, pol separation, chirp.
+//   mega_fwd2      twiddle; rows, pol separation, passband, chirp.
 //   megafil_invdet per (subband s, window w, input channel c):
 //                  length-freq_res inverse FFT of each transformed pol,
 //                  scaled by 1/freq_res; for nfilt_pos <= t < nfilt_pos +
@@ -34,7 +38,8 @@
 //                  (-1)^t factor that every detection product cancels.
 //
 // Every output sample is written exactly once and nothing is summed across
-// blocks, so the result does not depend on scheduling order.  The kernels
+// blocks, so the detected output does not depend on scheduling order (the
+// passband does, in its last bits).  The kernels
 // allocate nothing and do not synchronise.  Each C entry point returns
 // cudaGetLastError() (or the first error met).
 
@@ -101,28 +106,33 @@ int megafil_resources(int kind, int which, int R1, int row_len, int M,
 }
 
 // One fused search front-end step.  Pointers are device pointers; tw is the
-// wrapper's twiddle-table buffer (see Tables in mega_common.cuh); scratch
-// buffers are sized by the wrapper: psum float[nchan, npart, 2], cbuf
-// float2[nchan, npart, R1, row_len], ybuf float2[nchan*npolf, npart,
-// R1*R2]; out float[nchan*nsub, nplane, npart*nkeep].
+// wrapper's twiddle-table buffer (see Tables in mega_common.cuh); the
+// forward transforms npolf pols from pol0 and keeps those in `store` (bit 0
+// the first, bit 1 the second) for the inverse; gr/gi are float[nchan,
+// R1*R2] in natural bin order.  Scratch buffers are sized by the wrapper:
+// psum float[nchan, npart, 2], cbuf float2[nchan, npart, R1, row_len],
+// ybuf float2[nchan*nstore, npart, R1*R2]; out float[nchan*nsub, nplane,
+// npart*nkeep]; pb null or float[nchan, npolf, R1*R2].
 int megafil_launch(const void* raw, const void* gr, const void* gi,
                    const void* tw, void* out, void* psum, void* cbuf,
-                   void* ybuf, int nchan, int npol, int pol0, int npolf,
-                   int npart, int R1, int R2, int nsub, int M, int nfilt_pos,
-                   int nkeep, int nplane, int det, int twos, float scale,
-                   float offset, int nsamp_step, int tc, int tk,
-                   void* stream_ptr) {
+                   void* ybuf, void* pb, int nchan, int npol, int pol0,
+                   int npolf, int store, int npart, int R1, int R2, int nsub,
+                   int M, int nfilt_pos, int nkeep, int nplane, int det,
+                   int twos, float scale, float offset, int nsamp_step,
+                   int tc, int tk, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
   const int row_len = 2 * R2;
-  auto inv = invdet_kernel(M, npolf);
-  const int smem3 = megafil_resources(0, 2, R1, row_len, M, npolf, 0);
+  const int nstore = (store & 1) + (store >> 1);
+  auto inv = invdet_kernel(M, nstore);
+  const int smem3 = megafil_resources(0, 2, R1, row_len, M, nstore, 0);
   if ((err = cudaFuncSetAttribute(inv,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nchan, npol,
-                            pol0, npolf, npart, R1, R2, M, twos, scale,
-                            offset, nsamp_step, tc, tk, stream)) != cudaSuccess)
+  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, pb, nchan,
+                            npol, pol0, npolf, store, npart, R1, R2, M, twos,
+                            scale, offset, nsamp_step, tc, tk,
+                            stream)) != cudaSuccess)
     return (int)err;
   inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),
         smem3, stream>>>(

@@ -204,9 +204,10 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
     return (int)err;
   if ((err = cudaMemsetAsync(hacc, 0, nhits * sizeof(unsigned), stream)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nchan, npol,
-                            pol0, npolf, npart, R1, R2, M, twos, scale,
-                            offset, nsamp_step, tc, tk, stream)) != cudaSuccess)
+  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr,
+                            nchan, npol, pol0, npolf, npolf == 2 ? 3 : 1,
+                            npart, R1, R2, M, twos, scale, offset,
+                            nsamp_step, tc, tk, stream)) != cudaSuccess)
     return (int)err;
 
   inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),

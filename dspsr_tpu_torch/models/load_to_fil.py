@@ -19,15 +19,15 @@ from typing import Optional
 
 import torch
 
-# Observation and Signal are also this module's public names
-from dspsr_tpu.io.sources import Source, open_source
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.ops.dedispersion import Dedispersion
-from dspsr_tpu.ops.response import choose_nfft
-
 from ..device import host_to_device, resolve_device
-from ..io.writers import PsrfitsSearchWriter, SigProcWriter
+from ..io.psrfits import PsrfitsSearchWriter
+from ..io.sigproc import SigProcWriter
+# Observation and Signal are also this module's public names
+from ..io.sources import Source, open_source
+from ..observation import Observation, Signal
+from ..ops.dedispersion import Dedispersion
 from ..ops.filterbank import FilterbankPlan, update_observation
+from ..ops.response import choose_nfft
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, build_megafil, unpack_affine)
 from ..ops.rescale import (

@@ -1,14 +1,24 @@
-"""Fold-mode pipeline on the fused step: load -> (unpack, filterbank with
-chirp, detect, fold in one step) -> archive.
+"""Fold-mode pipeline on the fused kernels: load -> (unpack, filterbank with
+chirp, detect, fold) -> archive.
 
-Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for the configurations
-the JAX package runs with ``mega_mode == "full"``: a convolving filterbank
-(``nchan > nchan_in``) over real-sampled 8-bit input, with any detection
-state but NthPower, optional fourth moments and sample-exact
-sub-integrations.  The host reads raw bytes and computes float64 phase
-anchors per block; one call of the fused step folds the block on the device.
-A configuration that needs the JAX package's hybrid or general engines
-raises ``NotImplementedError`` naming the ROADMAP item that will port it.
+Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for real-sampled 8-bit
+input through a convolving filterbank (``nchan > nchan_in``), in the JAX
+package's two fused engines:
+
+- ``mega_mode == "full"``: one call of the fused fold step
+  (``build_megastep``) folds the block; any detection state but NthPower,
+  optional fourth moments, sample-exact sub-integrations.
+- ``mega_mode == "hybrid"``: the fused front end (``build_megafil``,
+  detected output) followed by the reference's fold tail in plain PyTorch
+  (detection conversion, fourth moments, in-stream spectral kurtosis, the
+  fold of one or more pulsars, dump, passband and pdmp extras), with the
+  spectral RFI filter as a chirp handed to the front end each block.  A
+  configuration the full step cannot take goes hybrid, as in the JAX
+  package (``_mega_full_eligible``).
+
+The host reads raw bytes and computes float64 phase anchors per block.  A
+configuration that needs an engine the port lacks raises
+``NotImplementedError`` naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -22,19 +32,23 @@ import torch
 
 # Observation, Signal and MJD are also this module's public names: a caller
 # builds the input Observation from them without naming dspsr_tpu
-from dspsr_tpu.io.sources import Source, open_source
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.ops.dedispersion import Dedispersion
-from dspsr_tpu.ops.response import choose_nfft
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.par import Ephemeris
-from dspsr_tpu.timing.polyco import FixedPeriodPredictor, Polyco
+from ..io.sources import Source, open_source
+from ..observation import Observation, Signal
+from ..ops.dedispersion import Dedispersion
+from ..ops.response import choose_nfft
+from ..timing.mjd import MJD
+from ..timing.par import Ephemeris
+from ..timing.polyco import FixedPeriodPredictor, Polyco
 
 from ..device import host_to_device, resolve_device
+from ..ops.detection import from_front_planes
 from ..ops.filterbank import FilterbankPlan, update_observation
-from ..ops.fold import FoldPlan, choose_nbin, compute_anchors
+from ..ops.fold import FoldPlan, choose_nbin, compute_anchors, fold_block
+from ..ops.fourth_moment import fourth_moment
 from ..ops.megakernel import (
-    MegaConstants, MegaPlan, build_megastep, unpack_affine)
+    MegaConstants, MegaPlan, build_megafil, build_megastep, unpack_affine)
+from ..ops.rfifilter import median_filter_freq
+from ..ops.spectral_kurtosis import SKPlan, expand_mask, sk_mask
 from ..unpack.unpackers import UnpackPlan, state_counts_from_byte_counts
 
 
@@ -43,7 +57,7 @@ class FoldConfig:
     """The JAX package's ``FoldConfig`` (reference ``LoadToFold::Config``)
     without the settings of features the port lacks; the switches of those
     features stay, and ``FoldPipeline`` raises ``NotImplementedError`` when
-    one is set."""
+    one is set.  Field meanings are the JAX package's."""
 
     # dispersion / channelization
     dispersion_measure: Optional[float] = None
@@ -102,9 +116,25 @@ class FoldConfig:
     ndat_per_weight: int = 512
     cutoff_sigma: float = 3.0
 
-    # RFI excision (not ported: setting either raises)
+    # narrow-band RFI zapping from the median bandpass (reference
+    # RFIFilter): carried (the previous block's mask, the first block
+    # primed with its own) or, with rfi_same_block, two front passes a block
     rfi_filter: bool = False
+    rfi_median_width: int = 21
+    rfi_threshold: float = 4.0
+    rfi_same_block: bool = False
+
+    # spectral kurtosis RFI excision (reference -skz / SKDetector)
     sk_enable: bool = False
+    sk_m: int = 128
+    sk_std_devs: int = 3
+    sk_no_tscr: bool = False
+    sk_no_fscr: bool = False
+    sk_chan_start: int = 0
+    sk_chan_end: int = 0
+    #: -noskz_too: also fold the un-zapped stream, returned as an extra
+    #: FoldResult labelled "nosk"
+    sk_also_unzapped: bool = False
 
     def detection_state(self) -> Signal:
         if self.detection:
@@ -120,8 +150,9 @@ class FoldConfig:
 
 @dataclass
 class FoldResult:
-    """The PhaseSeries equivalent, with the JAX package's field names, so
-    ``dspsr_tpu.io.archive.save_archive`` writes it unchanged."""
+    """The PhaseSeries equivalent, with the JAX package's field names, which
+    ``io.archive.save_archive`` writes.  ``extra_sources`` holds the results
+    of the additional pulsars and of ``-noskz_too`` (``label="nosk"``)."""
 
     profiles: np.ndarray  # [nsub, nchan, npol, nbin]
     hits: np.ndarray  # [nsub, nchan, nbin]
@@ -162,7 +193,7 @@ class FoldResult:
     def dedispersed(self, ref_freq: float | None = None) -> np.ndarray:
         """Normalized profiles with inter-channel dispersion delays rotated
         out by an FFT phase ramp (PSRCHIVE ``Archive::dedisperse``)."""
-        from dspsr_tpu.ops.dedispersion import delay_time
+        from ..ops.dedispersion import delay_time
 
         prof = self.normalized()
         if self.dispersion_measure == 0 or self.folding_period <= 0:
@@ -183,25 +214,16 @@ class FoldResult:
         return out
 
 
-_HYBRID = "ROADMAP.md Queue 1 item 6 (hybrid fold tail, build_megafil)"
+_NEXT = "ROADMAP.md Queue 1 item 6 (what is left of the hybrid fold engine)"
 _GENERAL = "ROADMAP.md Queue 1 item 8 (general chain)"
 
 
 def _unsupported(cfg: FoldConfig) -> Optional[str]:
     """Why ``cfg`` needs an engine the port lacks (None if it does not)."""
     checks = (
-        (cfg.sk_enable, "spectral kurtosis (sk_enable)", _HYBRID),
-        (cfg.rfi_filter, "RFI filter (rfi_filter)", _HYBRID),
-        (cfg.cyclic_nchan, "cyclic folding (cyclic_nchan)", _HYBRID),
+        (cfg.cyclic_nchan, "cyclic folding (cyclic_nchan)", _NEXT),
         (cfg.calibration_path, "Jones calibration (calibration_path)",
-         _HYBRID),
-        (cfg.additional_pulsars, "multi-pulsar folding "
-         "(additional_pulsars)", _HYBRID),
-        (cfg.passband, "passband integration (passband)", _HYBRID),
-        (cfg.dump_path, "detected-stream dump (dump_path)", _HYBRID),
-        (cfg.pdmp_stats, "pdmp moments (pdmp_stats)", _HYBRID),
-        (cfg.detection_state() == Signal.NTHPOWER, "NthPower detection",
-         _HYBRID),
+         _NEXT),
         (not cfg.use_megakernel, "use_megakernel=False", _GENERAL),
         (cfg.use_fft_bench, "measured FFT lengths (use_fft_bench)",
          "ROADMAP.md Queue 1 item 11"),
@@ -216,8 +238,8 @@ def _unsupported(cfg: FoldConfig) -> Optional[str]:
 
 class FoldPipeline:
     """Constructed, prepared fold pipeline over one Source, running the
-    fused step on ``device`` (``"cuda"`` by default; a CPU run must be asked
-    for by name and uses the plain PyTorch step)."""
+    fused kernels on ``device`` (``"cuda"`` by default; a CPU run must be
+    asked for by name and uses their plain PyTorch versions)."""
 
     def __init__(self, source: Source, config: FoldConfig,
                  device="cuda"):
@@ -232,6 +254,42 @@ class FoldPipeline:
 
     # ---- construction (LoadToFold::construct/prepare equivalents) ----
 
+    def _source_dm(self, spec) -> Optional[float]:
+        """DM recorded for an additional source (None = primary DM)."""
+        if isinstance(spec, (int, float)):
+            return None
+        s = str(spec)
+        try:
+            if s.endswith(".par"):
+                return Ephemeris.load(s).dm
+            from ..timing.t2pred import load_predictor
+
+            p = load_predictor(s)
+            if isinstance(p, Polyco) and p.blocks:
+                return p.blocks[0].dm
+        except Exception:
+            return None
+        return None
+
+    def _make_predictor(self, spec):
+        """Predictor from a multi-pulsar spec: a period in seconds, a polyco
+        or TEMPO2 predictor path, or a .par ephemeris path."""
+        obs = self.obs_in
+        if isinstance(spec, (int, float)):
+            return FixedPeriodPredictor(float(spec), obs.start_time)
+        s = str(spec)
+        if s.endswith(".par"):
+            from ..timing.polyco import SpinPredictor
+
+            return SpinPredictor.from_ephemeris(Ephemeris.load(s),
+                                                telescope=obs.telescope)
+        from ..timing.t2pred import T2Predictor, load_predictor
+
+        p = load_predictor(s)
+        if isinstance(p, T2Predictor):
+            p.obsfreq = obs.centre_frequency
+        return p
+
     def _construct(self):
         cfg = self.config
         obs = self.obs_in
@@ -245,13 +303,13 @@ class FoldPipeline:
                 epoch = MJD.from_mjd(float(cfg.reference_epoch))
             self.predictor = FixedPeriodPredictor(cfg.folding_period, epoch)
         elif cfg.polyco_path:
-            from dspsr_tpu.timing.t2pred import T2Predictor, load_predictor
+            from ..timing.t2pred import T2Predictor, load_predictor
 
             self.predictor = load_predictor(cfg.polyco_path)
             if isinstance(self.predictor, T2Predictor):
                 self.predictor.obsfreq = obs.centre_frequency
         elif self.ephemeris is not None:
-            from dspsr_tpu.timing.polyco import SpinPredictor
+            from ..timing.polyco import SpinPredictor
 
             self.predictor = SpinPredictor.from_ephemeris(
                 self.ephemeris, telescope=obs.telescope)
@@ -262,6 +320,17 @@ class FoldPipeline:
         else:
             raise ValueError("need folding_period, polyco_path, "
                              "ephemeris_path, or MODE=CAL with CALFREQ")
+
+        # extra pulsars folded in the same pass (one Fold per source,
+        # LoadToFold1.C:1155-1242); -noskz_too folds the un-zapped stream as
+        # one more source with the primary predictor
+        self.predictors = [self.predictor]
+        for spec in cfg.additional_pulsars or ():
+            self.predictors.append(self._make_predictor(spec))
+        self._presk_index = None
+        if cfg.sk_enable and cfg.sk_also_unzapped:
+            self._presk_index = len(self.predictors)
+            self.predictors.append(self.predictor)
 
         if self.ephemeris is not None and not obs.coordinates:
             raj = self.ephemeris.get("RAJ")
@@ -275,7 +344,7 @@ class FoldPipeline:
         if dm is None and isinstance(self.predictor, Polyco):
             dm = self.predictor.blocks[0].dm
         if dm is None:
-            from dspsr_tpu.timing.t2pred import T2Predictor
+            from ..timing.t2pred import T2Predictor
 
             if isinstance(self.predictor, T2Predictor) \
                     and self.predictor.models:
@@ -297,8 +366,8 @@ class FoldPipeline:
             else 1
         if self.nchan_subband == 1:
             raise NotImplementedError(
-                "no filterbank stage (nchan_subband == 1): the fused fold "
-                f"step needs one; see {_HYBRID}")
+                "no filterbank stage (nchan_subband == 1): the fused "
+                f"engines need one here; see {_NEXT}")
         nchan_out = obs.nchan * self.nchan_subband
         if cfg.coherent and self.dm > 0:
             nfp = Dedispersion._half_smearing_samples(
@@ -362,13 +431,27 @@ class FoldPipeline:
                 raise ValueError("fourth_moment requires npol_out=4 (Stokes)")
             self.obs_out = self.obs_out.replace(npol=14)
 
-        # --- fold plan (Fold::prepare; choose_nbin Fold.C:275-382) ---
-        tsamp_out = 1.0 / self.obs_out.rate
-        self.nbin = choose_nbin(self.predictor.period(obs.start_time),
-                                tsamp_out, cfg.nbin)
-        self.folding_period = self.predictor.period(obs.start_time)
+        # --- spectral kurtosis (SpectralKurtosis.C; after detection) ---
+        self.sk_plan = SKPlan(
+            cfg.sk_m, cfg.sk_std_devs, detect_tscr=not cfg.sk_no_tscr,
+            detect_fscr=not cfg.sk_no_fscr, chan_start=cfg.sk_chan_start,
+            chan_end=cfg.sk_chan_end) if cfg.sk_enable else None
 
-        # --- the fused step's plan, with its rounded overlap adopted ---
+        # --- fold plans (Fold::prepare; choose_nbin Fold.C:275-382): each
+        # source its own nbin from its own period ---
+        tsamp_out = 1.0 / self.obs_out.rate
+        self.nbins = [choose_nbin(p.period(obs.start_time), tsamp_out,
+                                  cfg.nbin) for p in self.predictors]
+        self.nbin = self.nbins[0]
+        self.folding_period = self.predictor.period(obs.start_time)
+        # each source's DM for its archive; the chirp stays at the primary
+        self.source_dms = [None]
+        for spec in cfg.additional_pulsars or ():
+            self.source_dms.append(self._source_dm(spec))
+        if self._presk_index is not None:
+            self.source_dms.append(None)
+
+        # --- the fused plan, with its rounded overlap adopted ---
         det_np, det_tag = self._mega_detection()
         if not ((det_np == 1 or obs.npol == 2)
                 and (self.det_state not in (Signal.PP, Signal.QQ)
@@ -387,7 +470,7 @@ class FoldPipeline:
                 f"filterbank geometry {self.fb_plan} does not factor for the "
                 f"fused step; see {_GENERAL}")
         self.mega_plan = mp
-        self.mega_mode = "full"
+        self.mega_mode = "full" if self._mega_full_eligible() else "hybrid"
         self.fb_plan = FilterbankPlan(
             real_input=mp.real_input, nchan_subband=mp.nsub,
             freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
@@ -398,34 +481,225 @@ class FoldPipeline:
 
         # one phase anchor per overlap-save window of nkeep output samples
         self.fold_plan = FoldPlan(self.nbin, mp.nkeep)
+        self.fold_plans = [FoldPlan(nb, mp.nkeep) for nb in self.nbins]
         scale, offset = unpack_affine(obs.nbit,
                                       self.unpack_plan.twos_complement)
         resp = self.kernel.phasors if self.kernel is not None else None
-        self.constants = MegaConstants.build(
-            mp, resp, unpack_scale=scale, unpack_offset=offset
-        ).to(self.device)
-        self._megastep = build_megastep(mp, self.constants, self.npart)
+        if self.mega_mode == "full":
+            self.constants = MegaConstants.build(
+                mp, resp, unpack_scale=scale, unpack_offset=offset
+            ).to(self.device)
+            self._megastep = build_megastep(mp, self.constants, self.npart)
+        else:
+            self._build_hybrid(resp, scale, offset)
 
-        # --- accumulators: per input channel [nplane, nsub, nbin] ---
-        self._profiles = torch.zeros(
-            (obs.nchan, mp.nplane, mp.nsub, self.nbin), dtype=torch.float32,
-            device=self.device)
-        self._hits = torch.zeros((obs.nchan, self.nbin), dtype=torch.float32,
-                                 device=self.device)
+        # --- accumulators ---
+        if self.mega_mode == "full":
+            # per input channel [nplane, nsub, nbin] and per input channel
+            # hits, broadcast over its subbands at the end
+            self._profiles = torch.zeros(
+                (obs.nchan, mp.nplane, mp.nsub, self.nbin),
+                dtype=torch.float32, device=self.device)
+            self._hits = torch.zeros((obs.nchan, self.nbin),
+                                     dtype=torch.float32, device=self.device)
+        else:
+            # [nchan_out, npol, nbin] per source (a tuple when there are
+            # several, each with its own nbin)
+            nchan, npol = self.obs_out.nchan, self.obs_out.npol
+            profs = tuple(torch.zeros((nchan, npol, nb), dtype=torch.float32,
+                                      device=self.device)
+                          for nb in self.nbins)
+            hits = tuple(torch.zeros((nchan, nb), dtype=torch.float32,
+                                     device=self.device)
+                         for nb in self.nbins)
+            self._profiles, self._hits = ((profs, hits) if len(profs) > 1
+                                          else (profs[0], hits[0]))
         self._subints: list = []
         self._current_div = 0
         self._div_samples = 0.0
         self._first_out_time: Optional[MJD] = None
         self._div_first_time: Optional[MJD] = None
         self._byte_counts = np.zeros(256, np.int64)
+        self._passband = None
+        self._pdmp_stats = None
+        self._pdmp_nsamp = 0
+        #: [zapped, total] SK cells and RFI bins over the run (hybrid)
+        self._zap = {"sk": [0, 0], "rfi": [0, 0]}
 
     def _mega_detection(self):
         """(npol_out planes before fourth moments, kernel detection tag)."""
         np_map = {Signal.INTENSITY: 1, Signal.PP: 1, Signal.QQ: 1,
-                  Signal.PPQQ: 2, Signal.COHERENCE: 4, Signal.STOKES: 4}
+                  Signal.NTHPOWER: 1, Signal.PPQQ: 2, Signal.COHERENCE: 4,
+                  Signal.STOKES: 4}
         tag = {Signal.PP: "pp", Signal.QQ: "qq",
                Signal.COHERENCE: "coherence"}.get(self.det_state, "auto")
         return np_map[self.det_state], tag
+
+    def _mega_full_eligible(self) -> bool:
+        """Can the fused fold step take the whole block
+        (``load_to_fold.py:1127-1144`` of the JAX package)?  Anything the
+        hybrid tail handles sends the configuration to the hybrid engine."""
+        cfg = self.config
+        return (self.sk_plan is None
+                and not cfg.rfi_filter
+                and self.det_state != Signal.NTHPOWER
+                and not cfg.dump_path
+                and not cfg.additional_pulsars
+                and not cfg.passband
+                and not cfg.pdmp_stats)
+
+    def _hybrid_front_mode(self):
+        """(npol_out, detection) of the hybrid front end: the per-pol
+        powers or coherence products the tail needs, which
+        ``ops.detection.from_front_planes`` turns into the target state
+        (``load_to_fold.py:861-884``; its cyclic branch, which needs the
+        voltage output, is not ported)."""
+        if self.obs_in.npol == 1:
+            return 1, "auto"
+        if (self.det_state in (Signal.COHERENCE, Signal.STOKES)
+                or self.config.fourth_moment):
+            return 4, "coherence"
+        # PPQQ planes serve PPQQ, PP, QQ and the SK per-pol powers
+        if (self.det_state in (Signal.PPQQ, Signal.PP, Signal.QQ)
+                or self.sk_plan is not None):
+            return 2, "auto"
+        return 1, "auto"
+
+    def _build_hybrid(self, resp, scale, offset):
+        """The hybrid engine's front end (``_build_hybrid_step`` of the JAX
+        package, unsharded): ``build_megafil`` with the per-window weights,
+        the passband tap when the passband or the RFI filter needs it, and
+        the chirp as an argument when the RFI filter multiplies a mask into
+        it."""
+        cfg = self.config
+        np_out, det_tag = self._hybrid_front_mode()
+        self.front_plan = dataclasses.replace(
+            self.mega_plan, npol_out=np_out, detection=det_tag,
+            fourth_moment=False)
+        self.constants = MegaConstants.build(
+            self.front_plan, resp, unpack_scale=scale, unpack_offset=offset
+        ).to(self.device)
+        rfi = bool(cfg.rfi_filter)
+        self._rfi_2pass = rfi and cfg.rfi_same_block
+        self._front = build_megafil(
+            self.front_plan, self.constants, self.npart, return_weights=True,
+            passband=cfg.passband or rfi, response_as_args=rfi)
+        # the bare chirp the RFI mask multiplies
+        self._bare = (self.constants.gr, self.constants.gi)
+        #: carried RFI response (chirp x mask), natural bin order; the first
+        #: block is primed with its own mask (run)
+        self._rfi_resp = self._bare if rfi and not self._rfi_2pass else None
+        self._rfi_primed = False
+
+    def _zap_response(self, pb: torch.Tensor):
+        """Chirp x zap mask from a block's passband ``[nchan_out, npol,
+        freq_res]`` (``zap_mask_perm`` of the JAX package, in natural bin
+        order): the passband median-filtered across each input channel's
+        band per (input channel, pol); a bin is zapped when any pol
+        exceeds ``rfi_threshold`` times its median."""
+        p = self.front_plan
+        npol = self.obs_in.npol
+        flat = pb.reshape(p.nchan_in, p.nsub, npol, p.freq_res).permute(
+            0, 2, 1, 3).reshape(p.nchan_in, npol, p.n_fft)
+        med = median_filter_freq(flat, self.config.rfi_median_width)
+        good = (flat <= self.config.rfi_threshold
+                * torch.clamp(med, min=1e-30)).to(torch.float32)
+        mask = torch.amin(good, dim=1)  # [nchan_in, n_fft]
+        self._count_zap("rfi", mask)
+        return self._bare[0] * mask, self._bare[1] * mask
+
+    def _count_zap(self, kind: str, keep: torch.Tensor) -> None:
+        z = self._zap[kind]
+        z[0] = z[0] + (keep.numel() - keep.sum())
+        z[1] += keep.numel()
+
+    def zapped_share(self) -> dict:
+        """Share of the SK cells and of the RFI filter's bins zapped over
+        the run so far (``None`` where a filter is off)."""
+        return {k: (float(v[0]) / v[1] if v[1] else None)
+                for k, v in self._zap.items()}
+
+    def _hybrid_block(self, raw: torch.Tensor):
+        """One block through the front end and the per-block half of the
+        tail: ``(d, weights, w_presk, extras)``.
+
+        ``d [nchan_out, npol_out, ndat_out]`` is the target state (with the
+        fourth moments), ``weights`` the fold weights after the SK mask,
+        ``w_presk`` those before it (``-noskz_too``), ``extras`` the dump,
+        passband and pdmp moments of the block.  Advances the carried RFI
+        response."""
+        cfg = self.config
+        p = self.front_plan
+        if self._rfi_2pass:
+            # measure the block's passband with the bare chirp, then zap
+            # this same block (RFIFilter.C's same-interval semantics)
+            resp = self._zap_response(self._front(raw, *self._bare)[-1])
+        else:
+            resp = self._rfi_resp or ()
+        out = self._front(raw, *resp)
+        data, wwin = out[0], out[1]
+        pb = out[2] if len(out) > 2 else None
+        if self._rfi_resp is not None:
+            # this block's mask applies from the next block on
+            self._rfi_resp = self._zap_response(pb)
+        nchan_out, ndat_out = data.shape[0], data.shape[2]
+        # per-window weights over each window's nkeep outputs and over the
+        # input channel's subbands
+        weights = wwin.repeat_interleave(p.nsub, dim=0)[:, :, None].expand(
+            nchan_out, self.npart, p.nkeep).reshape(nchan_out, ndat_out)
+        d = from_front_planes(data, self.det_state, p.npol_out)
+        if cfg.fourth_moment:
+            d = fourth_moment(d)
+        w_presk = weights if self._presk_index is not None else None
+        if self.sk_plan is not None:
+            power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
+            M = self.sk_plan.M
+            skm = sk_mask(power, self.sk_plan, ndat_out // M)
+            self._count_zap("sk", skm)
+            skw = expand_mask(skm, M)
+            if skw.shape[-1] < ndat_out:
+                # the trailing partial SK cell keeps weight 1
+                skw = torch.cat([skw, torch.ones(
+                    (nchan_out, ndat_out - skw.shape[-1]),
+                    dtype=torch.float32, device=skw.device)], dim=-1)
+            weights = weights * skw
+        extras = {}
+        if cfg.dump_path:
+            extras["dump"] = d.permute(2, 0, 1).contiguous()
+        if cfg.passband:
+            extras["passband"] = pb
+        if cfg.pdmp_stats:
+            # pdmp extras: moments S1..S4 of the detected stream per
+            # (chan, pol) (Stats.C)
+            extras["pdmp"] = torch.stack(
+                [torch.sum(d ** k, dim=2) for k in (1, 2, 3, 4)], dim=-1)
+        return d, weights, w_presk, extras
+
+    def _fold_tail_d(self, profiles, hits, d, weights, w_presk, phi0, dphi,
+                     bounds=None):
+        """Fold the block's detected stream into the accumulators of every
+        source (``_fold_tail_d`` of the JAX package, after its per-block
+        half): ``bounds`` ``(lo, hi)`` zero the weights of output samples
+        outside the division's span; the ``-noskz_too`` source folds
+        ``w_presk``.  ``phi0``/``dphi`` are ``[nsrc, nseg]`` with several
+        sources."""
+        if bounds is not None:
+            idx = torch.arange(d.shape[2], device=d.device)
+            span = ((idx >= bounds[0]) & (idx < bounds[1])).to(torch.float32)
+            weights = weights * span[None, :]
+            if w_presk is not None:
+                w_presk = w_presk * span[None, :]
+        if not isinstance(profiles, tuple):
+            return fold_block(profiles, hits, d, weights, phi0, dphi,
+                              self.fold_plan)
+        ps, hs = [], []
+        for s in range(len(profiles)):
+            w = w_presk if s == self._presk_index else weights
+            p_, h_ = fold_block(profiles[s], hits[s], d, w, phi0[s], dphi[s],
+                                self.fold_plans[s])
+            ps.append(p_)
+            hs.append(h_)
+        return tuple(ps), tuple(hs)
 
     def signal_path(self) -> list:
         """Ordered record of the op chain with its resolved parameters
@@ -455,6 +729,13 @@ class FoldPipeline:
             "freq_res": self.fb_plan.freq_res,
             "convolve_when": "During" if self.kernel is not None else "Never",
         })
+        if cfg.rfi_filter:
+            path.append({"op": "RFIFilter",
+                         "median_width": cfg.rfi_median_width,
+                         "threshold": cfg.rfi_threshold})
+        if self.sk_plan is not None:
+            path.append({"op": "SpectralKurtosis", "m": cfg.sk_m,
+                         "std_devs": cfg.sk_std_devs})
         path.append({"op": "Detection", "state": self.det_state.value})
         if cfg.fourth_moment:
             path.append({"op": "FourthMoment"})
@@ -514,12 +795,12 @@ class FoldPipeline:
     def run(self, max_blocks: Optional[int] = None,
             total_seconds: Optional[float] = None,
             seek_seconds: Optional[float] = None) -> FoldResult:
-        """Stream all blocks through the fused step; returns the result.
+        """Stream all blocks through the fused engine; returns the result.
 
         total_seconds limits input consumed (reference -T); seek_seconds
         skips that much input first (reference -S).
         """
-        from dspsr_tpu.utils.report import RunReport
+        from ..utils.report import RunReport
 
         src = self.source
         if seek_seconds is None:
@@ -536,13 +817,14 @@ class FoldPipeline:
         out_off = 0  # global output-sample index of the next block
         tsamp_out = 1.0 / self.obs_out.rate
         nuse = self.out_per_block
+        seg = self.fold_plan.seg_len
 
         # sample-exact sub-integrations (reference TimeDivide/SubFold): a
         # block that spans a boundary is folded once per division with
         # [lo, hi) bounds
         divider = None
         if self.config.subint_seconds > 0 or self.config.subint_turns > 0:
-            from dspsr_tpu.timing.timedivide import TimeDivide
+            from ..timing.timedivide import TimeDivide
 
             lep = self.config.integration_reference_epoch
             divider = TimeDivide(
@@ -554,7 +836,7 @@ class FoldPipeline:
                 reference_phase=self.config.reference_phase,
                 reference_epoch=(MJD.from_mjd(lep) if lep else None),
                 fractional_pulses=self.config.fractional_pulses)
-            if nuse >= (1 << 24):
+            if self.mega_mode == "full" and nuse >= (1 << 24):
                 # the reference's fused kernel compares bounds in f32
                 # (exact below 2^24); keep its limit so results agree
                 raise ValueError(
@@ -572,9 +854,12 @@ class FoldPipeline:
             if self.config.digitizer_stats and self.obs_in.nbit <= 8:
                 self._byte_counts += np.bincount(raw, minlength=256)
             with rep.stage("anchors"):
-                phi0, dphi = compute_anchors(self.predictor, t_out0,
-                                             tsamp_out, nuse,
-                                             self.fold_plan.seg_len)
+                pairs = [compute_anchors(p, t_out0, tsamp_out, nuse, seg)
+                         for p in self.predictors]
+                phi0 = np.stack([a for a, _ in pairs])
+                dphi = np.stack([b for _, b in pairs])
+                if len(pairs) == 1:
+                    phi0, dphi = phi0[0], dphi[0]
             phi0 = (phi0 - self.config.reference_phase) % 1.0
             start += self.stride_in_samples
 
@@ -582,6 +867,16 @@ class FoldPipeline:
                 raw_t = self.to_device(raw)
                 phi0_t = self.to_device(np.ascontiguousarray(phi0, np.float32))
                 dphi_t = self.to_device(np.ascontiguousarray(dphi, np.float32))
+                if self.mega_mode == "hybrid":
+                    if self._rfi_resp is not None and not self._rfi_primed:
+                        # the first block is zapped with its own mask
+                        # (RFIFilter.C:44-102): one front pass with the
+                        # bare chirp measures its passband
+                        self._rfi_resp = self._zap_response(
+                            self._front(raw_t, *self._rfi_resp)[-1])
+                        self._rfi_primed = True
+                    blk = self._hybrid_block(raw_t)
+                    self._take_extras(blk[3])
                 for (lo, hi, dv) in segs:
                     if dv < 0:
                         # data before the first division: discarded
@@ -597,9 +892,14 @@ class FoldPipeline:
                                 out_off + lo)
                         bounds = (lo, hi)
                         self._div_samples += hi - lo
-                    self._profiles, self._hits = self._megastep(
-                        self._profiles, self._hits, raw_t, phi0_t, dphi_t,
-                        bounds)
+                    if self.mega_mode == "full":
+                        self._profiles, self._hits = self._megastep(
+                            self._profiles, self._hits, raw_t, phi0_t,
+                            dphi_t, bounds)
+                    else:
+                        self._profiles, self._hits = self._fold_tail_d(
+                            self._profiles, self._hits, *blk[:3], phi0_t,
+                            dphi_t, bounds)
             rep.add_samples(self.stride_in_samples)
             if self.obs_in.rate > 0:
                 rep.progress(start / self.obs_in.rate,
@@ -616,26 +916,70 @@ class FoldPipeline:
         self._flush_division()
         return self._finish()
 
+    def _take_extras(self, extras: dict) -> None:
+        """Write a block's dump and add its passband and pdmp moments to the
+        run's (float64 on the host, as the JAX package keeps them)."""
+        if "dump" in extras:
+            self._write_dump(extras["dump"].cpu().numpy())
+        if "passband" in extras:
+            pb = extras["passband"].cpu().numpy().astype(np.float64)
+            self._passband = (pb if self._passband is None
+                              else self._passband + pb)
+        if "pdmp" in extras:
+            mm = extras["pdmp"].cpu().numpy().astype(np.float64)
+            self._pdmp_stats = (mm if self._pdmp_stats is None
+                                else self._pdmp_stats + mm)
+            self._pdmp_nsamp += self.out_per_block
+
+    def _write_dump(self, tfp: np.ndarray):
+        """Append TFP float32 samples to the dump DADA file (Dump op)."""
+        import os
+
+        from ..io.dada import format_ascii_header, header_from_observation
+
+        path = self.config.dump_path
+        if not os.path.exists(path):
+            # the detected stream starts at the output-domain epoch (with
+            # the nfilt_pos shift)
+            obs = self.obs_out.replace(nbit=32,
+                                       start_time=self.output_start_time(0))
+            hdr = header_from_observation(obs, extra={"DUMP": "detected"})
+            with open(path, "wb") as f:
+                f.write(format_ascii_header(hdr))
+        with open(path, "ab") as f:
+            f.write(tfp.tobytes())
+
     # ---- sub-integration handling ----
 
     def _flush_division(self):
         if self._div_samples == 0:
             return
-        prof = self._profiles.cpu().numpy()
-        hits = self._hits.cpu().numpy()
-        # [nchan_in, nplane, nsub, nbin] -> archive [nchan_out, npol, nbin];
-        # hits are per input channel and broadcast over its subbands
-        nsub = self.mega_plan.nsub
-        nci = prof.shape[0]
-        prof = np.ascontiguousarray(prof.transpose(0, 2, 1, 3).reshape(
-            nci * nsub, prof.shape[1], self.nbin))
-        hits = np.repeat(hits, nsub, axis=0)
+        if isinstance(self._profiles, tuple):
+            prof = tuple(p.cpu().numpy() for p in self._profiles)
+            hits = tuple(h.cpu().numpy() for h in self._hits)
+        else:
+            prof = self._profiles.cpu().numpy()
+            hits = self._hits.cpu().numpy()
+        if self.mega_mode == "full":
+            # [nchan_in, nplane, nsub, nbin] -> archive [nchan_out, npol,
+            # nbin]; hits are per input channel and broadcast over its
+            # subbands
+            nsub = self.mega_plan.nsub
+            nci = prof.shape[0]
+            prof = np.ascontiguousarray(prof.transpose(0, 2, 1, 3).reshape(
+                nci * nsub, prof.shape[1], self.nbin))
+            hits = np.repeat(hits, nsub, axis=0)
         self._subints.append(
             (prof, hits, self._div_first_time or self._first_out_time,
              self._div_samples / self.obs_out.rate))
         self._div_first_time = None
-        self._profiles = torch.zeros_like(self._profiles)
-        self._hits = torch.zeros_like(self._hits)
+        if isinstance(self._profiles, tuple):
+            self._profiles = tuple(torch.zeros_like(p)
+                                   for p in self._profiles)
+            self._hits = tuple(torch.zeros_like(h) for h in self._hits)
+        else:
+            self._profiles = torch.zeros_like(self._profiles)
+            self._hits = torch.zeros_like(self._hits)
         self._div_samples = 0.0
 
     def _finish(self) -> FoldResult:
@@ -645,32 +989,54 @@ class FoldPipeline:
             self._subints = [
                 s for s in self._subints
                 if s[3] >= self.config.minimum_integration_length]
-        if self._subints:
-            profs = np.stack([s[0] for s in self._subints])
-            hits = np.stack([s[1] for s in self._subints])
-        else:
-            profs = np.zeros((0, self.obs_out.nchan, self.obs_out.npol,
-                              self.nbin))
-            hits = np.zeros((0, self.obs_out.nchan, self.nbin))
         counts = None
         if self.config.digitizer_stats and self.obs_in.nbit <= 8 \
                 and self._byte_counts.any():
             counts = state_counts_from_byte_counts(self._byte_counts,
                                                    self.obs_in.nbit)
-        return FoldResult(
-            profiles=profs,
-            hits=hits,
-            epochs=[s[2] for s in self._subints],
-            integration_length=np.array([s[3] for s in self._subints]),
-            obs=self.obs_out,
-            nbin=self.nbin,
-            folding_period=self.predictor.period(self.obs_in.start_time),
-            dispersion_measure=self.dm,
-            signal_path=self.signal_path(),
-            digitizer_counts=counts,
-            predictor=self.predictor,
-            ephemeris=self.ephemeris,
-        )
+
+        def stacks(s=None):
+            """(profiles, hits) of source ``s`` (None: the only one) over
+            the sub-integrations."""
+            nbin = self.nbins[s or 0]
+            if not self._subints:
+                return (np.zeros((0, self.obs_out.nchan, self.obs_out.npol,
+                                  nbin)),
+                        np.zeros((0, self.obs_out.nchan, nbin)))
+            pick = (lambda x: x) if s is None else (lambda x: x[s])
+            return (np.stack([pick(sub[0]) for sub in self._subints]),
+                    np.stack([pick(sub[1]) for sub in self._subints]))
+
+        def result(profs, hits, predictor, extras=None, nbin=None, dm=None,
+                   label=None):
+            return FoldResult(
+                label=label,
+                profiles=profs,
+                hits=hits,
+                epochs=[s[2] for s in self._subints],
+                integration_length=np.array([s[3] for s in self._subints]),
+                obs=self.obs_out,
+                nbin=self.nbin if nbin is None else nbin,
+                folding_period=predictor.period(self.obs_in.start_time),
+                dispersion_measure=self.dm if dm is None else dm,
+                signal_path=self.signal_path(),
+                digitizer_counts=counts,
+                extra_sources=extras,
+                passband=self._passband,
+                pdmp_stats=self._pdmp_stats,
+                pdmp_nsamp=self._pdmp_nsamp,
+                predictor=predictor,
+                ephemeris=self.ephemeris,
+            )
+
+        if len(self.predictors) == 1:
+            return result(*stacks(), self.predictor)
+        # one FoldResult per source, each with its own nbin and DM
+        extras = [result(*stacks(s), self.predictors[s], nbin=self.nbins[s],
+                         dm=self.source_dms[s],
+                         label="nosk" if s == self._presk_index else None)
+                  for s in range(1, len(self.predictors))]
+        return result(*stacks(0), self.predictor, extras=extras)
 
 
 def load_to_fold(path: str, config: FoldConfig, device="cuda",

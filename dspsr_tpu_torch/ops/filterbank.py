@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from dspsr_tpu.observation import Observation, Signal
+from ..observation import Observation, Signal
 
 
 @dataclass(frozen=True)

@@ -24,8 +24,10 @@ launches the hand-written kernel (``kernels.megastep``); on CPU tensors it
 runs ``megastep_plain``.
 
 The search front end (``megafil_plain``, ``build_megafil``) runs steps 1-5
-and returns the detected samples in time order instead of folding them; its
-kernel is ``kernels.megafil``.  Both plain versions share one front end
+and returns the detected samples in time order instead of folding them,
+optionally with the pre-chirp passband and with the chirp handed in per
+call (the hybrid fold engine's front end); its kernel is
+``kernels.megafil``.  Both plain versions share one front end
 (``_front_plain``).
 
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
@@ -42,7 +44,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .fold import compute_bins
+
 _KERNEL_ITEM = "ROADMAP.md Queue 1 item 7 and Queue 2 item 1"
+_NEXT_SLICE = ("ROADMAP.md Queue 1 item 6 (what is left of the hybrid fold "
+               "engine)")
 
 
 def _pow2(n: int) -> bool:
@@ -255,7 +261,7 @@ def unpack_affine(nbit: int, twos_complement: bool = False) -> Tuple[float, floa
     """(scale, offset) such that value = code * scale + offset reproduces
     the BitTable uniform level map.  Offset binary: the code is the unsigned
     field value; two's complement: the SIGNED field value."""
-    from dspsr_tpu.unpack.bittable import BitTable, CodeType
+    from ..unpack.bittable import BitTable, CodeType
 
     if nbit == 32:
         return 1.0, 0.0
@@ -308,8 +314,7 @@ class MegaConstants:
         reads.  ``jones``, ``window`` and ``twobit`` raise."""
         if jones is not None:
             raise NotImplementedError(
-                "Jones response on the fused step; see ROADMAP.md Queue 1 "
-                "item 6")
+                "Jones response on the fused step; see " + _NEXT_SLICE)
         if window is not None:
             raise NotImplementedError(
                 "apodization on the fused step; see " + _KERNEL_ITEM)
@@ -400,19 +405,19 @@ def fold_bins(plan: MegaPlan, phi0: torch.Tensor,
               dphi: torch.Tensor) -> torch.Tensor:
     """Phase bin of every kept sample, int64 ``[npart, nkeep]``, in float32
     exactly as the reference computes it (one op per rounding)."""
-    i = torch.arange(plan.nkeep, dtype=torch.float32, device=phi0.device)
-    phi = phi0.float()[:, None] + dphi.float()[:, None] * i[None, :]
-    frac = phi - torch.floor(phi)
-    b = torch.floor(frac * float(plan.nbin)).long()
-    return b.clamp_(0, plan.nbin - 1)
+    return compute_bins(phi0, dphi, plan.nkeep, plan.nbin).reshape(
+        phi0.shape[0], plan.nkeep)
 
 
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
-                 npart: int, dtype) -> torch.Tensor:
+                 npart: int, dtype, passband: bool = False, gr=None,
+                 gi=None):
     """The front end both plain steps share: unpack, ``rfft`` of each
-    window (Nyquist dropped), chirp, per-subband ``ifft`` (kept samples
-    only) and detection, in ``dtype``.  Returns ``[nchan_in, nplane, npart,
-    nsub, nkeep]``."""
+    window (Nyquist dropped), chirp (``gr``/``gi``, default the
+    constants'), per-subband ``ifft`` (kept samples only) and detection, in
+    ``dtype``.  Returns ``[nchan_in, nplane, npart, nsub, nkeep]`` and the
+    passband (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the
+    sum over windows of every input pol's ``|X|^2`` before the chirp."""
     p = plan
     check_supported(p)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
@@ -420,14 +425,21 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     codes = raw.view(torch.int8) if p.twos_complement else raw
     x = codes.to(dtype) * cst.unpack_scale + cst.unpack_offset
     x = x.reshape(p.block_ndat(npart), nchan, p.npol).permute(1, 2, 0)
-    x = x[:, list(fold_pols(p))]
+    pols = list(fold_pols(p))
+    if not passband:
+        x = x[:, pols]
     win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, 2N]
     spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
-    chirp = torch.complex(cst.gr, cst.gi).to(cdtype)
-    spec = spec * chirp[:, None, None, :]
+    pb = None
+    if passband:
+        pb = torch.sum(spec.real * spec.real + spec.imag * spec.imag, dim=2)
+        spec = spec[:, pols]
+    gr = cst.gr if gr is None else gr
+    gi = cst.gi if gi is None else gi
+    spec = spec * torch.complex(gr, gi).to(cdtype)[:, None, None, :]
     sub = spec.reshape(nchan, -1, npart, p.nsub, M)
     v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
-    return _detect_plain(v, p)
+    return _detect_plain(v, p), pb
 
 
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -446,7 +458,7 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     npart = phi0.shape[0]
     dtype = profiles.dtype
     nchan = p.nchan_in
-    planes = _front_plain(p, cst, raw, npart, dtype)
+    planes, _ = _front_plain(p, cst, raw, npart, dtype)
 
     lo, hi = bounds_pair(bounds)
     g = torch.arange(npart * p.nkeep, device=raw.device)
@@ -489,21 +501,35 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
 # the search front end (detected filterbank, no fold)
 # --------------------------------------------------------------------------
 
-_HYBRID_ITEM = "ROADMAP.md Queue 1 item 6 (hybrid fold tail)"
+def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
+    """Passband ``[nchan_in, npol, n_fft]`` in natural bin order ->
+    ``[nchan_in*nsub, npol, freq_res]`` by output channel (the JAX
+    package's ``_depermute_pb`` for real input)."""
+    p = plan
+    npol = pb.shape[1]
+    return pb.reshape(p.nchan_in, npol, p.nsub, p.freq_res).permute(
+        0, 2, 1, 3).reshape(p.nchan_in * p.nsub, npol, p.freq_res)
 
 
 def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
-                  npart: int, dtype=torch.float32) -> torch.Tensor:
+                  npart: int, dtype=torch.float32, passband: bool = False,
+                  gr=None, gi=None):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
     in ``dtype`` (float32 or float64): raw uint8 flat TFP bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
-    (output channel ``c*nsub + s``)."""
+    (output channel ``c*nsub + s``); with ``passband`` also the pre-chirp
+    passband ``[nchan_in*nsub, npol, freq_res]`` of every input pol, summed
+    over the block's windows.  ``gr``/``gi`` replace the constants' chirp
+    (float ``[nchan_in, n_fft]``, natural bin order)."""
     p = plan
-    planes = _front_plain(p, cst, raw, npart, dtype)
+    planes, pb = _front_plain(p, cst, raw, npart, dtype, passband, gr, gi)
     # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
     # nkeep]: time order within each output channel
-    return planes.permute(0, 3, 1, 2, 4).reshape(
+    data = planes.permute(0, 3, 1, 2, 4).reshape(
         p.nchan_in * p.nsub, p.nplane, npart * p.nkeep)
+    if not passband:
+        return data
+    return data, passband_layout(p, pb)
 
 
 def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
@@ -511,40 +537,67 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
                   return_weights: bool = False,
                   response_as_args: bool = False,
                   jones_as_args: bool = False):
-    """The fused search front end for ``npart`` windows a block:
-    ``step(raw) -> float32[nchan_in*nsub, nplane, npart*nkeep]`` of
-    detected, time-ordered filterbank samples (the JAX package's
-    ``build_megafil`` with its default keywords).  On CUDA tensors it
-    launches the hand-written kernel (``kernels.megafil.megafil_cuda``); on
-    CPU tensors it runs :func:`megafil_plain`.  ``cst`` holds tensors on the
-    step's device.
+    """The fused search front end for ``npart`` windows a block (the JAX
+    package's ``build_megafil``, detected output).  ``step(raw)``, or
+    ``step(raw, gr, gi)`` with ``response_as_args``, returns
+    ``data[, wgt][, pb]``:
 
-    The voltage output, the passband tap, the JA98 weights and the traced
-    response and Jones arguments serve the hybrid fold engine and raise
+    - ``data``: float32 ``[nchan_in*nsub, nplane, npart*nkeep]`` detected,
+      time-ordered filterbank samples;
+    - ``wgt`` (``return_weights``): per-window excision weights ``[nchan_in,
+      npart]``, all ones (8-bit input has no JA98 excision);
+    - ``pb`` (``passband``): the pre-chirp passband ``[nchan_in*nsub, npol,
+      freq_res]`` of every input pol, summed over the block's windows.
+
+    ``gr``/``gi`` are the chirp (times, say, an RFI zap mask) float32
+    ``[nchan_in, n_fft]`` in natural bin order.  The JAX package keeps its
+    response in the permuted ``[k1, k2]`` layout of its TPU kernel and
+    permutes every traced mask to match (``permute_response``); here the
+    chirp and the passband are both in natural order, so a mask multiplies
+    the chirp as it is and no permutation exists.
+
+    On CUDA tensors the step launches the hand-written kernel
+    (``kernels.megafil.megafil_cuda``); on CPU tensors it runs
+    :func:`megafil_plain`.  ``cst`` holds tensors on the step's device.
+    The voltage output and the traced Jones planes raise
     ``NotImplementedError``, as do fourth moments (the JAX kernel refuses
     them too)."""
     if output not in ("detected", "voltage"):
         raise ValueError(f"unknown output mode: {output}")
     uncovered = (
-        (output == "voltage", "output='voltage'"),
-        (passband, "passband=True"),
-        (return_weights, "return_weights=True"),
-        (response_as_args, "response_as_args=True"),
-        (jones_as_args, "jones_as_args=True"),
-        (plan.fourth_moment, "fourth moments (applied after the front end)"),
+        (output == "voltage", "output='voltage'", _NEXT_SLICE),
+        (jones_as_args, "jones_as_args=True", _NEXT_SLICE),
+        (plan.fourth_moment, "fourth moments (applied after the front end)",
+         "ROADMAP.md Queue 1 item 6 (the hybrid tail applies them)"),
     )
-    for bad, what in uncovered:
+    for bad, what, item in uncovered:
         if bad:
             raise NotImplementedError(
-                f"{what} on the fused search front end; see " + _HYBRID_ITEM)
+                f"{what} on the fused search front end; see {item}")
     plan.validate()
     check_supported(plan)
 
-    def step(raw):
+    def step(raw, *resp):
+        if len(resp) != (2 if response_as_args else 0):
+            raise TypeError("step(raw, gr, gi) with response_as_args, else "
+                            "step(raw)")
+        gr, gi = resp if resp else (None, None)
         if raw.is_cuda:
             from ..kernels.megafil import megafil_cuda
 
-            return megafil_cuda(plan, cst, raw, npart)
-        return megafil_plain(plan, cst, raw, npart)
+            res = megafil_cuda(plan, cst, raw, npart, passband, gr, gi)
+        else:
+            res = megafil_plain(plan, cst, raw, npart, passband=passband,
+                                gr=gr, gi=gi)
+        if not (passband or return_weights):
+            return res
+        data, pb = res if passband else (res, None)
+        out = [data]
+        if return_weights:
+            out.append(torch.ones((plan.nchan_in, npart), dtype=torch.float32,
+                                  device=raw.device))
+        if passband:
+            out.append(pb)
+        return tuple(out)
 
     return step

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from dspsr_tpu.observation import Observation, Signal
+from ..observation import Observation, Signal
 
 
 def tscrunch(x: torch.Tensor, factor: int) -> torch.Tensor:

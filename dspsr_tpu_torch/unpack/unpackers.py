@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dspsr_tpu.observation import Observation
+from ..observation import Observation
 
 #: Instrument-specific unpack options (reference ``Unpacker_registry.C``,
 #: keyed on the machine name), as in the JAX package.

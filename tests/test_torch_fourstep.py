@@ -218,14 +218,19 @@ def fwd1(g, raw, tb, psum, tc):
     return cbuf, e
 
 
-def fwd2(g, cbuf, e, tb, chirp, tp):
-    """``mega_fwd2`` over every tile of ``tp`` row pairs: ybuf [nchan*npolf,
-    npart, N], and how often each bin was written."""
+def fwd2(g, cbuf, e, tb, chirp, tp, store=None, tap=False):
+    """``mega_fwd2`` over every tile of ``tp`` row pairs: ybuf [nchan*nstore,
+    npart, N] of the pols in ``store`` (bit 0 the first transformed pol, bit
+    1 the second; default all), how often each bin was written, and with
+    ``tap`` the passband [nchan, npolf, N] summed over the windows."""
     R1, R2, L = g.R1, g.R2, g.row_len
     P = fft_points(L)
     T = L // P
     npolf = len(g.pols)
-    ybuf = np.full((g.nchan * npolf, g.npart, g.n), np.nan, complex)
+    store = (3 if npolf == 2 else 1) if store is None else store
+    nstore = (store & 1) + (store >> 1)
+    ybuf = np.full((g.nchan * nstore, g.npart, g.n), np.nan, complex)
+    pb = np.zeros((g.nchan, npolf, g.n)) if tap else None
     writes = np.zeros(g.n, int)
     j = np.arange(T)
     unscale = np.ldexp(1.0, -e)  # [nchan, npart]
@@ -261,11 +266,18 @@ def fwd2(g, cbuf, e, tb, chirp, tp):
         gch = np.moveaxis(chirp[:, k], 1, 0)[..., None]  # [nq, nchan, 1]
         xa = 0.5 * (z + np.conj(p))
         for c in range(g.nchan):
-            ybuf[c * npolf, :, k] = xa[:, c] * gch[:, c]
+            xs = [xa[:, c]]
             if npolf == 2:
-                xb = -0.5j * (z[:, c] - np.conj(p[:, c])) * unscale[c][None, :]
-                ybuf[c * npolf + 1, :, k] = xb * gch[:, c]
-    return ybuf, writes
+                xs.append(-0.5j * (z[:, c] - np.conj(p[:, c]))
+                          * unscale[c][None, :])
+            slot = c * nstore
+            for q, x in enumerate(xs):
+                if tap:
+                    pb[c, q, k] += (np.abs(x) ** 2).sum(-1)
+                if store >> q & 1:
+                    ybuf[slot, :, k] = x * gch[:, c]
+                    slot += 1
+    return (ybuf, writes, pb) if tap else (ybuf, writes)
 
 
 def inverse(g, ybuf, tb, nsub):
@@ -285,11 +297,12 @@ def inverse(g, ybuf, tb, nsub):
     return out
 
 
-def mirror_forward(g, raw, chirp, tp, tc=TILE_CAPS[0]):
+def mirror_forward(g, raw, chirp, tp, tc=TILE_CAPS[0], store=None,
+                   tap=False):
     tb = tables64(g)
     psum = polpow(g, raw) if len(g.pols) == 2 else None
     cbuf, e = fwd1(g, raw, tb, psum, min(tc, g.row_len))
-    return fwd2(g, cbuf, e, tb, chirp, tp)
+    return fwd2(g, cbuf, e, tb, chirp, tp, store, tap)
 
 
 # --------------------------------------------------------------------------
@@ -462,8 +475,49 @@ def test_front_mirror_matches_plain(kw):
     v = v[..., plan.nfilt_pos:plan.nfilt_pos + plan.nkeep]
     got = tmk._detect_plain(torch.from_numpy(v), plan).numpy()
     want = tmk._front_plain(plan, cst, torch.from_numpy(raw), NPART,
-                            torch.float64).numpy()
+                            torch.float64)[0].numpy()
     assert got.shape == want.shape
     for p in range(plan.nplane):  # each plane against its own maximum
         err = np.abs(got[:, p] - want[:, p]).max() / np.abs(want[:, p]).max()
         assert err < TOL, (p, err)
+
+
+@pytest.mark.parametrize("detection,store", [("pp", 1), ("qq", 2),
+                                             ("auto", 3)])
+@pytest.mark.parametrize("nchan", [1, 2])
+def test_passband_tap_mirror(detection, store, nchan):
+    """The passband tap (hybrid front end): both pols transformed, |X|^2 of
+    each summed over the windows before the chirp, only the detected pols'
+    spectra kept; against the port's float64 plain front end with
+    ``passband=True`` and a chirp that zeroes some bins."""
+    npol_out = 2 if detection == "auto" else 1
+    fb = FilterbankPlan(real_input=True, nchan_subband=NSUB,
+                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
+    jplan = jmk.MegaPlan.from_filterbank(fb, nbin=2, npol=2, nchan_in=nchan,
+                                         npol_out=npol_out,
+                                         detection=detection)
+    plan = tmk.MegaPlan(**dataclasses.asdict(jplan))
+    rng = np.random.default_rng(store)
+    g = Geom(R1=plan.R1, R2=plan.R2, M=plan.freq_res, nchan=nchan, npol=2,
+             pols=(0, 1), npart=NPART, step=plan.nsamp_step)
+    raw = _raw(g, rng)
+    resp = np.exp(1j * rng.uniform(-3, 3, (nchan * NSUB, FREQ_RES)))
+    resp[:, ::7] = 0.0  # zapped bins: the tap reads the spectra before them
+    cst = tmk.MegaConstants.build(plan, resp, g.scale, g.offset).to("cpu")
+    chirp = cst.gr.double().numpy() + 1j * cst.gi.double().numpy()
+    ybuf, writes, pb = mirror_forward(g, raw, chirp, min(8, plan.R1 // 2),
+                                      store=store, tap=True)
+    assert (writes == 1).all() and np.isfinite(ybuf).all()
+    kept = [q for q in (0, 1) if store >> q & 1]
+    assert ybuf.shape[0] == nchan * len(kept)
+    for q, pol in enumerate(kept):
+        x = values(g, raw, pol)
+        for w in range(g.npart):
+            win = x[:, w * g.step:w * g.step + 2 * g.n]
+            want = np.fft.rfft(win, axis=-1)[:, :g.n] * chirp
+            got = ybuf[np.arange(nchan) * len(kept) + q, w]
+            assert np.abs(got - want).max() / np.abs(want).max() < TOL
+    _, want = tmk.megafil_plain(plan, cst, torch.from_numpy(raw), NPART,
+                                torch.float64, passband=True)
+    got = tmk.passband_layout(plan, torch.from_numpy(pb)).numpy()
+    assert np.abs(got - want.numpy()).max() / want.numpy().max() < TOL

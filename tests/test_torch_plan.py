@@ -3,7 +3,8 @@
 MegaPlan fields, the chirp the port keeps (bitwise, after undoing the JAX
 package's [k1, k2] permutation), FilterbankPlan, FoldPlan, choose_nbin,
 compute_anchors, unpack_affine, window_weight_spans and the device noise
-generator.
+generator.  Each side builds its Observation, Source and predictor from its
+own package's classes, with the same arguments.
 """
 
 import dataclasses
@@ -12,33 +13,38 @@ import numpy as np
 import pytest
 import torch
 
-from dspsr_tpu.io.sources import DummySource
 from dspsr_tpu.io.sources import device_noise_bytes as jax_noise
-from dspsr_tpu.observation import Observation, Signal
 from dspsr_tpu.ops import filterbank as jfb
 from dspsr_tpu.ops import fold as jfold
 from dspsr_tpu.ops import megakernel as jmk
-from dspsr_tpu.timing.mjd import MJD
 from dspsr_tpu.timing.polyco import FixedPeriodPredictor
 
 from dspsr_tpu_torch import convert
 from dspsr_tpu_torch.io.sources import device_noise_bytes
+from dspsr_tpu_torch.timing import polyco as tpolyco
 from dspsr_tpu_torch.ops import filterbank as tfb
 from dspsr_tpu_torch.ops import fold as tfold
 from dspsr_tpu_torch.ops import megakernel as tmk
+from test_torch_pipeline import PKGS, plain
 
 torch.set_num_threads(2)
 
 NSUB, FREQ_RES, NPOL, NBIN = 4, 64, 2, 32
 
 
-def _flagship_obs():
-    return Observation(
+def _flagship_obs(pkg="jax"):
+    """The flagship input's Observation, from package ``pkg``'s classes."""
+    _, obs, mjd = PKGS[pkg]
+    return obs.Observation(
         nchan=1, npol=2, ndim=1, nbit=8, centre_frequency=1382.0,
         bandwidth=-400.0, rate=800e6,
-        start_time=MJD.from_utc("2010-04-13-02:05:45"),
-        state=Signal.NYQUIST, source="J0437-4715", telescope="PKS",
+        start_time=mjd.MJD.from_utc("2010-04-13-02:05:45"),
+        state=obs.Signal.NYQUIST, source="J0437-4715", telescope="PKS",
         instrument="DUMMY").replace(ndat=1 << 40)
+
+
+def _flagship_source(pkg="jax"):
+    return PKGS[pkg][0].DummySource(_flagship_obs(pkg))
 
 
 FLAGSHIP = dict(folding_period=0.00575745, dispersion_measure=2.64,
@@ -52,8 +58,8 @@ def flagship():
     from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
     from dspsr_tpu_torch.models import load_to_fold as tl
 
-    jpipe = FoldPipeline(DummySource(_flagship_obs()), FoldConfig(**FLAGSHIP))
-    tpipe = tl.FoldPipeline(DummySource(_flagship_obs()),
+    jpipe = FoldPipeline(_flagship_source(), FoldConfig(**FLAGSHIP))
+    tpipe = tl.FoldPipeline(_flagship_source("port"),
                             tl.FoldConfig(**FLAGSHIP), device="cpu")
     return jpipe, tpipe
 
@@ -64,8 +70,7 @@ def _geometry(name):
     if name == "flagship":
         from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
 
-        pipe = FoldPipeline(DummySource(_flagship_obs()),
-                            FoldConfig(**FLAGSHIP))
+        pipe = FoldPipeline(_flagship_source(), FoldConfig(**FLAGSHIP))
         return pipe.mega_plan, pipe.kernel.phasors
     nchan_in = 2 if name == "two_channel" else 1
     fb = jfb.FilterbankPlan(real_input=True, nchan_subband=NSUB,
@@ -130,7 +135,7 @@ def test_flagship_pipeline_geometry(flagship):
         assert getattr(tpipe, attr) == getattr(jpipe, attr), attr
     assert tpipe.fold_plan == tfold.FoldPlan(jpipe.fold_plan.nbin,
                                              jpipe.fold_plan.seg_len)
-    assert tpipe.obs_out == jpipe.obs_out
+    assert plain(tpipe.obs_out) == plain(jpipe.obs_out)
     assert (tpipe.mega_plan.nsub, tpipe.mega_plan.freq_res,
             tpipe.mega_plan.R1, tpipe.npart, tpipe.out_per_block) == \
         (64, 4096, 512, 75, 264000)
@@ -147,8 +152,8 @@ def test_filterbank_plan(real_input, nsub, freq_res, nfp, nfn):
     for ndat in (0, 100, 1 << 20, 33865728):
         assert t.npart(ndat) == j.npart(ndat)
     assert t.block_ndat(75) == j.block_ndat(75)
-    obs = _flagship_obs()
-    assert tfb.update_observation(obs, t) == jfb.update_observation(obs, j)
+    assert plain(tfb.update_observation(_flagship_obs("port"), t)) == \
+        plain(jfb.update_observation(_flagship_obs(), j))
 
 
 @pytest.mark.parametrize("period,tsamp,req", [
@@ -161,11 +166,13 @@ def test_choose_nbin(period, tsamp, req):
 
 @pytest.mark.parametrize("offset_s,seg", [(0.0, 3520), (1234.5678, 32)])
 def test_compute_anchors_bitwise(offset_s, seg):
-    t0 = _flagship_obs().start_time
-    pred = FixedPeriodPredictor(0.00575745, t0 + 0.37)
-    start = t0 + offset_s
-    a = jfold.compute_anchors(pred, start, 1.6e-7, 75 * seg, seg)
-    b = tfold.compute_anchors(pred, start, 1.6e-7, 75 * seg, seg)
+    args = []
+    for pkg, fp in (("jax", FixedPeriodPredictor),
+                    ("port", tpolyco.FixedPeriodPredictor)):
+        t0 = _flagship_obs(pkg).start_time
+        args.append((fp(0.00575745, t0 + 0.37), t0 + offset_s))
+    a = jfold.compute_anchors(*args[0], 1.6e-7, 75 * seg, seg)
+    b = tfold.compute_anchors(*args[1], 1.6e-7, 75 * seg, seg)
     for x, y in zip(a, b):
         assert x.dtype == y.dtype == np.float32
         assert np.array_equal(x.view(np.uint32), y.view(np.uint32))

@@ -8,7 +8,8 @@ engines (``tests/test_search.py:441-445``): the rescale sums are taken in
 another order, so a sample may round the other way at a tie: max diff 1,
 at least 99% exact.  Float32 output agrees to 2e-4 relative
 (``tests/test_search.py:401``).  Geometry, output observation and the
-SIGPROC header are equal.
+SIGPROC header are equal.  Each side reads through its own package's
+``Source`` and ``Observation`` (``test_torch_pipeline.raw_source``).
 """
 
 import dataclasses
@@ -19,17 +20,18 @@ import pytest
 import torch
 
 from dspsr_tpu.io.sigproc import read_sigproc_header
-from dspsr_tpu.io.sources import RawFileSource
 from dspsr_tpu.models import load_to_fil as jl
-from dspsr_tpu.observation import Signal
+from dspsr_tpu.observation import Signal as JSignal
 from dspsr_tpu.ops import rescale as jr
 from dspsr_tpu.ops import scrunch as js
 
 from dspsr_tpu_torch import convert
 from dspsr_tpu_torch.models import load_to_fil as tl
 from dspsr_tpu_torch.ops import rescale as tr
+from dspsr_tpu_torch.observation import Signal as TSignal
 from dspsr_tpu_torch.ops import scrunch as ts
 from test_megakernel import _obs, _write_raw
+from test_torch_pipeline import make_obs, plain, raw_source
 
 torch.set_num_threads(2)
 
@@ -62,8 +64,8 @@ def _assert_data_close(a: np.ndarray, b: np.ndarray, nbits: int) -> None:
 
 def _pipes(path, **kw):
     cfg = dict(BASE, **kw)
-    jp = jl.FilPipeline(RawFileSource(path, _obs()), jl.FilConfig(**cfg))
-    tp = tl.FilPipeline(RawFileSource(path, _obs()), tl.FilConfig(**cfg),
+    jp = jl.FilPipeline(raw_source("jax", path), jl.FilConfig(**cfg))
+    tp = tl.FilPipeline(raw_source("port", path), tl.FilConfig(**cfg),
                         device="cpu")
     assert jp.megafil_plan is not None
     return jp, tp
@@ -86,7 +88,7 @@ def _assert_same_geometry(jp, tp):
         dataclasses.asdict(tp.megafil_plan)
     assert (jp.npart, jp.block_in_samples, jp.stride_in_samples) == \
         (tp.npart, tp.block_in_samples, tp.stride_in_samples)
-    assert jp.obs_out == tp.obs_out
+    assert plain(jp.obs_out) == plain(tp.obs_out)
 
 
 @pytest.mark.parametrize("kw", [
@@ -114,7 +116,7 @@ def test_pipeline_matches_jax(tmp_path, kw):
 def test_rescale_interval_matches_jax(tmp_path):
     """-I: scales held between interval updates, every update mode met."""
     path = _write_raw(tmp_path, 1 << 16)
-    probe = tl.FilPipeline(RawFileSource(path, _obs()),
+    probe = tl.FilPipeline(raw_source("port", path),
                            tl.FilConfig(**BASE, **D), device="cpu")
     out_per_block = probe.npart * probe.megafil_plan.nkeep
     seconds = 2.5 * out_per_block / probe.obs_out.rate
@@ -282,15 +284,16 @@ def test_scrunch_ops_match_jax():
         np.testing.assert_allclose(tf(t, *args).numpy(),
                                    np.asarray(jf(jnp.asarray(x), *args)),
                                    rtol=1e-6, atol=1e-6)
-    for state in (Signal.STOKES, Signal.PPQQ):
+    for state in ("STOKES", "PPQQ"):
         np.testing.assert_allclose(
-            ts.pscrunch_state(t, state).numpy(),
-            np.asarray(js.pscrunch_state(jnp.asarray(x), state)), rtol=1e-6)
-    obs = _obs()
-    assert ts.update_observation_tscrunch(obs, 4) == \
-        js.update_observation_tscrunch(obs, 4)
-    assert ts.update_observation_fscrunch(obs.replace(nchan=8), 2) == \
-        js.update_observation_fscrunch(obs.replace(nchan=8), 2)
+            ts.pscrunch_state(t, TSignal[state]).numpy(),
+            np.asarray(js.pscrunch_state(jnp.asarray(x), JSignal[state])),
+            rtol=1e-6)
+    jo, to = _obs(), make_obs("port")
+    assert plain(ts.update_observation_tscrunch(to, 4)) == \
+        plain(js.update_observation_tscrunch(jo, 4))
+    assert plain(ts.update_observation_fscrunch(to.replace(nchan=8), 2)) == \
+        plain(js.update_observation_fscrunch(jo.replace(nchan=8), 2))
 
 
 class _Skip:
@@ -309,13 +312,13 @@ def test_resume_from_jax_rescale_state(tmp_path):
     block 1 writes block 2's bytes (convert.rescale_state_from_numpy)."""
     path = _write_raw(tmp_path, 1 << 16)
     cfg = dict(BASE, **D)
-    jp2 = jl.FilPipeline(RawFileSource(path, _obs()), jl.FilConfig(**cfg))
+    jp2 = jl.FilPipeline(raw_source("jax", path), jl.FilConfig(**cfg))
     jp2.run(str(tmp_path / "j2.fil"), max_blocks=2)
-    jp1 = jl.FilPipeline(RawFileSource(path, _obs()), jl.FilConfig(**cfg))
+    jp1 = jl.FilPipeline(raw_source("jax", path), jl.FilConfig(**cfg))
     jp1.run(str(tmp_path / "j1.fil"), max_blocks=1)
 
     skip = jp1.stride_in_samples
-    tp = tl.FilPipeline(_Skip(RawFileSource(path, _obs()), skip),
+    tp = tl.FilPipeline(_Skip(raw_source("port", path), skip),
                         tl.FilConfig(**cfg), device="cpu")
     assert tp.npart == jp1.npart
     state, mean, inv = convert.rescale_state_from_numpy(
@@ -340,24 +343,24 @@ def test_resume_from_jax_rescale_state(tmp_path):
 def test_xla_chain_configs_raise(tmp_path, kw):
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="item 8"):
-        tl.FilPipeline(RawFileSource(path, _obs()),
+        tl.FilPipeline(raw_source("port", path),
                        tl.FilConfig(**{**BASE, **D, **kw}), device="cpu")
 
 
 @pytest.mark.parametrize("obs_kw", [
-    dict(nbit=2, nchan=2), dict(nbit=4), dict(ndim=2, state=Signal.ANALYTIC)],
+    dict(nbit=2, nchan=2), dict(nbit=4), dict(ndim=2, state="ANALYTIC")],
     ids=["2bit", "4bit", "complex"])
 def test_unported_input_raises(tmp_path, obs_kw):
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="item 7"):
-        tl.FilPipeline(RawFileSource(path, _obs().replace(**obs_kw)),
+        tl.FilPipeline(raw_source("port", path, **obs_kw),
                        tl.FilConfig(**BASE, **D), device="cpu")
 
 
 def test_align_without_dm_raises(tmp_path):
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(ValueError, match="-K"):
-        tl.FilPipeline(RawFileSource(path, _obs()),
+        tl.FilPipeline(raw_source("port", path),
                        tl.FilConfig(**BASE, frequency_resolution=64,
                                     interchannel_align=True), device="cpu")
 
@@ -367,4 +370,4 @@ def test_cuda_without_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        tl.FilPipeline(RawFileSource(path, _obs()), tl.FilConfig(**BASE, **D))
+        tl.FilPipeline(raw_source("port", path), tl.FilConfig(**BASE, **D))
