@@ -4,13 +4,16 @@
 
 Builds the hand-written kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch version
-on the card, drives the port's main paths on the flagship input (DUMMY
-8-bit dual-pol real input at 800 Msamp/s, DM 2.64, 64 channels) for a few
-blocks each, checks the results, and prints timings:
+on the card (real, complex and CASPSR variants), drives the port's main
+paths on the flagship input (DUMMY 8-bit dual-pol real input at 800
+Msamp/s, DM 2.64, 64 channels) for a few blocks each, checks the results,
+and prints timings:
 
 - the fold path (``mega_real_8bit``: 1024 bins, kernel ``megastep``);
+- the same fold on complex (analytic) input at 400 Msamp/s
+  (``mega_analytic_8bit``) and on CASPSR-layout bytes (INSTRUMENT=CASPSR);
 - the search path (``megafil_search``: the digifil workflow to an 8-bit
-  SIGPROC file, kernel ``megafil``);
+  SIGPROC file, kernel ``megafil``), on real and on complex input;
 - the hybrid fold engine (``hybrid_sk``: in-stream spectral kurtosis with
   1024-sample cells; ``hybrid_rfi``: the spectral RFI filter): kernel
   ``megafil`` with the passband tap and the chirp handed in per block, then
@@ -83,32 +86,52 @@ def card_facts() -> str:
     return card
 
 
-def flagship_obs():
+#: the input variants: real-sampled TFP (the flagship), complex (analytic)
+#: TFP, real-sampled in the CASPSR byte layout
+KINDS = ("real", "complex", "caspsr")
+
+
+def flagship_obs(kind: str = "real"):
+    """The flagship input (``bench.py:373-385``); ``complex`` is
+    ``mega_analytic_8bit``'s (``bench.py:420``: the same band, complex at
+    400 Msamp/s), ``caspsr`` the flagship with INSTRUMENT=CASPSR (8-bit two's
+    complement in the CASPSR byte layout)."""
     from dspsr_tpu_torch.models.load_to_fold import MJD, Observation, Signal
 
+    cplx = kind == "complex"
     return Observation(
-        nchan=1, npol=2, ndim=1, nbit=8, centre_frequency=1382.0,
-        bandwidth=-400.0, rate=800e6,
+        nchan=1, npol=2, ndim=2 if cplx else 1, nbit=8,
+        centre_frequency=1382.0, bandwidth=-400.0,
+        rate=400e6 if cplx else 800e6,
         start_time=MJD.from_utc("2010-04-13-02:05:45"),
-        state=Signal.NYQUIST, source="J0437-4715", telescope="PKS",
-        instrument="DUMMY").replace(ndat=1 << 40)
+        state=Signal.ANALYTIC if cplx else Signal.NYQUIST,
+        source="J0437-4715", telescope="PKS",
+        instrument="CASPSR" if kind == "caspsr" else "DUMMY").replace(
+            ndat=1 << 40)
 
 
-def flagship_cfg(**kw):
+def block_samples(kind: str) -> int:
+    """``min_block_samples`` of the flagship cells: 2^25, halved for
+    complex input (``bench.py:475-479``), which gives the same 75 windows
+    and 42.24 ms of sky a block."""
+    return 1 << (24 if kind == "complex" else 25)
+
+
+def flagship_cfg(kind: str = "real", **kw):
     from dspsr_tpu_torch.models.load_to_fold import FoldConfig
 
     # mega_real_8bit, with J0437-4715's period in place of its polyco
     return FoldConfig(folding_period=0.00575745, dispersion_measure=2.64,
                       nchan=64, nbin=1024, block_parts=8, npol_out=1,
-                      min_block_samples=1 << 25, **kw)
+                      min_block_samples=block_samples(kind), **kw)
 
 
-def search_cfg():
+def search_cfg(kind: str = "real"):
     from dspsr_tpu_torch.models.load_to_fil import FilConfig
 
     # megafil_search (bench.py:445-446)
     return FilConfig(nchan=64, dispersion_measure=2.64, nbits=8,
-                     min_block_samples=1 << 25, block_parts=8)
+                     min_block_samples=block_samples(kind), block_parts=8)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -116,17 +139,59 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def small_checks() -> None:
-    """Kernel (f32) against plain (f64) at the test geometry, every
-    detection branch, two input channels, two's complement and bounds."""
+class NoLibraryFFT:
+    """Within the block, ``torch.fft`` (rfft, fft, ifft, fftshift) and
+    ``torch.matmul`` raise: the main path must run the kernels, never the
+    plain step's library calls."""
+
+    NAMES = ((torch.fft, "rfft"), (torch.fft, "fft"), (torch.fft, "ifft"),
+             (torch.fft, "fftshift"), (torch, "matmul"))
+
+    def __enter__(self):
+        def forbidden(*args, **kwargs):
+            raise RuntimeError("torch.fft/torch.matmul called on the main "
+                               "path")
+
+        self.saved = [getattr(m, n) for m, n in self.NAMES]
+        for m, n in self.NAMES:
+            setattr(m, n, forbidden)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.NAMES, self.saved):
+            setattr(m, n, f)
+        return False
+
+
+def small_plan(kind: str, nbin: int, **kw):
+    """The test geometry (nsub 4, freq_res 64, nfilt 5/6) for ``kind``, or
+    None where the variant does not exist (CASPSR is one input channel)."""
     from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
+    from dspsr_tpu_torch.ops.megakernel import MegaPlan
+
+    if kind == "caspsr":
+        if kw.get("nchan_in", 1) > 1:
+            return None
+        kw["interleave"] = "caspsr"
+    fb = FilterbankPlan(real_input=kind != "complex", nchan_subband=4,
+                        freq_res=64, nfilt_pos=5, nfilt_neg=6)
+    return MegaPlan.from_filterbank(fb, nbin=nbin, **kw)
+
+
+def small_raw(plan, npart: int, rng) -> torch.Tensor:
+    """Random bytes of one block of ``plan`` on the card."""
+    n = plan.block_ndat(npart) * plan.nchan_in * plan.npol * plan.ndim
+    return torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).cuda()
+
+
+def small_checks(kind: str = "real") -> None:
+    """Kernel (f32) against plain (f64) at the test geometry, every
+    detection branch, two input channels, two's complement and bounds, with
+    a random-phase chirp (a wrong bin order cannot pass)."""
     from dspsr_tpu_torch.ops.megakernel import (
-        MegaConstants, MegaPlan, build_megastep, megastep_plain,
-        unpack_affine)
+        MegaConstants, build_megastep, megastep_plain, unpack_affine)
 
     nsub, freq_res, npol, nbin, npart = 4, 64, 2, 32, 3
-    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
-                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
     cases = [
         dict(npol_out=1), dict(npol_out=2), dict(npol_out=4),
         dict(npol_out=4, detection="coherence"),
@@ -135,19 +200,23 @@ def small_checks() -> None:
         dict(npol_out=1, twos_complement=True),
         dict(npol_out=4, nchan_in=2),
     ]
+    if kind != "real":
+        cases.append(dict(npol_out=1, npol=1))
     rng = np.random.default_rng(0)
     for kw in cases:
-        plan = MegaPlan.from_filterbank(fb, nbin=nbin, npol=npol, **kw)
+        kw = dict(dict(npol=npol), **kw)
+        plan = small_plan(kind, nbin, **kw)
+        if plan is None:
+            continue
         nci = plan.nchan_in
-        raw = torch.from_numpy(rng.integers(
-            0, 256, plan.block_ndat(npart) * nci * npol, dtype=np.uint8))
+        raw = small_raw(plan, npart, rng)
         resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
         phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32))
         dphi = torch.full((npart,), 0.013, dtype=torch.float32)
         scale, offset = unpack_affine(8, plan.twos_complement)
         cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
         step = build_megastep(plan, cst, npart)
-        args = [raw.cuda(), phi0.cuda(), dphi.cuda()]
+        args = [raw, phi0.cuda(), dphi.cuda()]
         for bounds in (None, (7, 70)):
             shp = (nci, plan.nplane, nsub, nbin)
             pk, hk = step(torch.zeros(shp, device="cuda"),
@@ -161,13 +230,13 @@ def small_checks() -> None:
             torch.cuda.synchronize()
             err = rel_err(pk, pp)
             hdiff = float((hk.double() - hp).abs().max())
-            print(f"small {kw} bounds={bounds}: rel err {err:.3e}, "
+            print(f"small {kind} {kw} bounds={bounds}: rel err {err:.3e}, "
                   f"hits diff {hdiff}", flush=True)
             check(bool(torch.isfinite(pk).all()), f"finite profiles {kw}")
-            check(err < TOL_SMALL, f"small geometry {kw}: {err} >= "
+            check(err < TOL_SMALL, f"small geometry {kind} {kw}: {err} >= "
                   f"{TOL_SMALL}")
-            check(hdiff == 0, f"small geometry hits {kw}")
-            check(float(hk.sum()) > 0, f"hits folded {kw}")
+            check(hdiff == 0, f"small geometry hits {kind} {kw}")
+            check(float(hk.sum()) > 0, f"hits folded {kind} {kw}")
 
 
 def unequal_raw(plan, npart: int, rng) -> torch.Tensor:
@@ -241,21 +310,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def flagship_block(card: str) -> dict:
-    """One flagship block: kernel against plain (both f32) on device
-    noise, then both timed."""
+def block_bytes(pipe) -> int:
+    """Raw bytes of one block of ``pipe``."""
+    obs = pipe.obs_in
+    return pipe.block_in_samples * obs.nchan * obs.npol * obs.ndim
+
+
+def flagship_block(card: str, kind: str = "real") -> dict:
+    """One flagship block of ``kind``: kernel against plain (both f32) on
+    device noise, then both timed."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
     from dspsr_tpu_torch.ops.fold import compute_anchors
-    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+    from dspsr_tpu_torch.ops.megakernel import fold_pols, megastep_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pipe = FoldPipeline(DummySource(flagship_obs()), flagship_cfg(),
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
                         device="cuda")
     plan = pipe.mega_plan
-    nbytes = pipe.block_in_samples * 2
-    raw = device_noise_bytes(0, nbytes, "cuda")
+    check(plan.real_input == (kind != "complex")
+          and plan.interleave == ("caspsr" if kind == "caspsr" else "tfp"),
+          f"flagship {kind} plan {plan}")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
     phi0, dphi = compute_anchors(pipe.predictor, pipe.output_start_time(0),
                                  1.0 / pipe.obs_out.rate,
                                  pipe.out_per_block, plan.nkeep)
@@ -270,12 +347,16 @@ def flagship_block(card: str) -> dict:
     err = rel_err(pk, pp)
     abs_err = float((pk - pp).abs().max())
     hdiff = float((hk - hp).abs().max())
-    print(f"flagship block: rel err {err:.3e} (abs {abs_err:.3e}), hits "
+    print(f"flagship {kind} block (nsub {plan.nsub} freq_res {plan.freq_res}"
+          f" R1 {plan.R1} R2 {plan.R2}, npart {pipe.npart}, raw "
+          f"{raw.numel()} B): rel err {err:.3e} (abs {abs_err:.3e}), hits "
           f"diff {hdiff}, hits sum {float(hk.sum())}", flush=True)
-    check(bool(torch.isfinite(pk).all()), "finite flagship profiles")
-    check(err < TOL_FLAGSHIP, f"flagship rel err {err} >= {TOL_FLAGSHIP}")
-    check(hdiff == 0, "flagship hits differ")
-    check(float(hk.sum()) == plan.nkeep * pipe.npart, "flagship hit total")
+    check(bool(torch.isfinite(pk).all()), f"finite flagship {kind} profiles")
+    check(err < TOL_FLAGSHIP, f"flagship {kind} rel err {err} >= "
+          f"{TOL_FLAGSHIP}")
+    check(hdiff == 0, f"flagship {kind} hits differ")
+    check(float(hk.sum()) == plan.nkeep * pipe.npart,
+          f"flagship {kind} hit total")
 
     kernel_ms = cuda_ms(
         lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), 10)
@@ -283,19 +364,18 @@ def flagship_block(card: str) -> dict:
         lambda: megastep_plain(plan, pipe.constants, prof0, hits0, raw,
                                phi0, dphi), 3)
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
-    print(f"kernel per flagship block: {kernel_ms:.3f} ms; plain: "
-          f"{plain_ms:.3f} ms; block = {sky_ms:.2f} ms of sky [{card}]",
-          flush=True)
-    kernel_breakdown(lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi),
-                     card)
-    from dspsr_tpu_torch.ops.megakernel import fold_pols
-
     nf = len(fold_pols(plan))
     nbytes = (raw.numel() + 8 * pipe.constants.gr.numel()
               + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
+    bound = bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf))
+    print(f"kernel per flagship {kind} block: {kernel_ms:.3f} ms; plain: "
+          f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); block = {sky_ms:.2f} ms of sky [{card}]",
+          flush=True)
+    kernel_breakdown(lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi),
+                     card, label=f" ({kind} fold)")
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
-                **bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf)),
-                library_ms=None)
+                **bound, library_ms=None)
 
 
 def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
@@ -339,46 +419,44 @@ def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
     return times
 
 
-def main_path(card: str) -> int:
-    """The port's main path at the flagship size; returns the megastep
-    launches of the first (unsplit) run."""
+def main_path(card: str, kind: str = "real") -> int:
+    """The port's fold main path at the flagship size on ``kind`` input;
+    returns the megastep launches of the first (unsplit) run.  For real
+    input it then checks sub-integrations whose boundaries fall
+    mid-block."""
     from dspsr_tpu_torch import launch_counts, reset_launch_counts
     from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
 
     nblocks = 3
-    reset_launch_counts()
-    pipe = FoldPipeline(DummySource(flagship_obs()), flagship_cfg(),
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
                         device="cuda")
-
-    def forbidden(*args, **kwargs):
-        raise RuntimeError("torch.fft/torch.matmul called on the main path")
-
-    # the main path must run the kernel, never the plain step's library calls
-    saved = (torch.fft.rfft, torch.fft.ifft, torch.matmul)
-    torch.fft.rfft = torch.fft.ifft = torch.matmul = forbidden
-    try:
+    reset_launch_counts()
+    with NoLibraryFFT():
         t0 = time.perf_counter()
         res = pipe.run(max_blocks=nblocks)
         wall = time.perf_counter() - t0
-    finally:
-        torch.fft.rfft, torch.fft.ifft, torch.matmul = saved
     launches = launch_counts()["megastep"]
-    check(pipe.mega_mode == "full", "mega_mode is not full")
-    check(launches == nblocks, f"megastep launched {launches} times")
+    check(pipe.mega_mode == "full", f"{kind}: mega_mode is not full")
+    check(launches == nblocks, f"{kind}: megastep launched {launches} times")
     check(res.profiles.shape == (1, 64, 1, 1024),
-          f"profiles shape {res.profiles.shape}")
-    check(bool(np.isfinite(res.profiles).all()), "non-finite profiles")
+          f"{kind}: profiles shape {res.profiles.shape}")
+    check(bool(np.isfinite(res.profiles).all()), f"{kind}: non-finite")
     per_chan = res.hits.sum(axis=(0, 2))
     check(bool((per_chan == nblocks * pipe.out_per_block).all()),
-          f"hits per channel {per_chan[:4]} != {nblocks} x "
+          f"{kind}: hits per channel {per_chan[:4]} != {nblocks} x "
           f"{pipe.out_per_block}")
     prof = res.normalized()[0, :, 0, :]
-    check(bool((prof.std(axis=1) > 0).all()), "flat profiles")
+    check(bool((prof.std(axis=1) > 0).all()), f"{kind}: flat profiles")
     msps = nblocks * pipe.stride_in_samples / wall / 1e6
-    print(f"main path: {nblocks} blocks, {launches} megastep launches, "
-          f"hits/chan {int(per_chan[0])}; host-fed incl. first-block "
-          f"warm-up {msps:.1f} Msamp/s [{card}]", flush=True)
+    print(f"main path ({kind}, {pipe.mega_plan.interleave}, "
+          f"{pipe.obs_in.rate / 1e6:.0f} Msamp/s): {nblocks} blocks, "
+          f"{launches} megastep launches, hits/chan {int(per_chan[0])}; "
+          f"host-fed incl. first-block warm-up {msps:.1f} Msamp/s, "
+          f"{msps / (pipe.obs_in.rate / 1e6):.4f} x real time [{card}]",
+          flush=True)
+    if kind != "real":
+        return launches
 
     # sub-integrations whose boundary falls mid-block (60 ms divisions,
     # 42.24 ms blocks): boundary blocks fold once per span with bounds
@@ -402,14 +480,15 @@ def main_path(card: str) -> int:
     return launches
 
 
-def pipeline_rates(card: str) -> None:
-    """Host-fed and device-fed rates of the flagship pipeline (warm)."""
+def pipeline_rates(card: str, kind: str = "real") -> None:
+    """Host-fed and device-fed rates of the flagship fold pipeline (warm),
+    in Msamp/s and as a real-time factor (seconds of sky per second)."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
     from dspsr_tpu_torch.ops.fold import compute_anchors
 
     nblocks = 3
-    pipe = FoldPipeline(DummySource(flagship_obs()), flagship_cfg(),
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
                         device="cuda")
     t0 = time.perf_counter()
     pipe.run(max_blocks=nblocks)
@@ -417,7 +496,7 @@ def pipeline_rates(card: str) -> None:
     host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
 
     plan = pipe.mega_plan
-    nbytes = pipe.block_in_samples * 2
+    nbytes = block_bytes(pipe)
     prof = torch.zeros(1, plan.nplane, plan.nsub, plan.nbin, device="cuda")
     hits = torch.zeros(1, plan.nbin, device="cuda")
 
@@ -434,36 +513,37 @@ def pipeline_rates(card: str) -> None:
     it = iter(range(1, nb + 1))
     ms = cuda_ms(lambda: block(next(it)), nb)
     dev_msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
-    print(f"pipeline host-fed (DummySource bytes, pinned copy): "
-          f"{host_msps:.1f} Msamp/s; device-fed (device_noise_bytes): "
-          f"{dev_msps:.1f} Msamp/s; real time is 800 Msamp/s [{card}]",
-          flush=True)
+    rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s
+    print(f"pipeline ({kind}) host-fed (DummySource bytes, pinned copy): "
+          f"{host_msps:.1f} Msamp/s ({host_msps / rt:.4f} x real time); "
+          f"device-fed (device_noise_bytes): {ms:.3f} ms a block, "
+          f"{dev_msps:.1f} Msamp/s ({dev_msps / rt:.3f} x real time); real "
+          f"time is {rt:.0f} Msamp/s [{card}]", flush=True)
 
 
-def small_checks_megafil() -> None:
+def small_checks_megafil(kind: str = "real") -> None:
     """Search front-end kernel (f32) against plain (f64) at the test
     geometry: two input pols (DET_SUM), one (DET_ONE), PP/QQ, PPQQ, Stokes,
     two's complement and two input channels."""
-    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
     from dspsr_tpu_torch.ops.megakernel import (
-        MegaConstants, MegaPlan, build_megafil, megafil_plain, unpack_affine)
+        MegaConstants, build_megafil, megafil_plain, unpack_affine)
 
     nsub, freq_res, npart = 4, 64, 3
-    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
-                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
     cases = [
         dict(npol=2), dict(npol=1), dict(npol=2, detection="pp"),
         dict(npol=2, detection="qq"), dict(npol=2, npol_out=2),
         dict(npol=2, npol_out=4), dict(npol=2, twos_complement=True),
         dict(npol=2, nchan_in=2), dict(npol=1, nchan_in=2),
     ]
+    if kind != "real":
+        cases.append(dict(npol=2, npol_out=4, detection="coherence"))
     rng = np.random.default_rng(1)
     for kw in cases:
-        plan = MegaPlan.from_filterbank(fb, nbin=2, **kw)
-        nci, npol = plan.nchan_in, plan.npol
-        raw = torch.from_numpy(rng.integers(
-            0, 256, plan.block_ndat(npart) * nci * npol,
-            dtype=np.uint8)).cuda()
+        plan = small_plan(kind, 2, **kw)
+        if plan is None:
+            continue
+        nci = plan.nchan_in
+        raw = small_raw(plan, npart, rng)
         resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
         scale, offset = unpack_affine(8, plan.twos_complement)
         cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
@@ -471,122 +551,118 @@ def small_checks_megafil() -> None:
         want = megafil_plain(plan, cst, raw, npart, dtype=torch.float64)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        print(f"small megafil {kw}: rel err {err:.3e}", flush=True)
-        check(got.shape == want.shape, f"megafil shape {kw}")
-        check(bool(torch.isfinite(got).all()), f"finite megafil {kw}")
-        check(err < TOL_SMALL, f"small megafil {kw}: {err} >= {TOL_SMALL}")
+        print(f"small megafil {kind} {kw}: rel err {err:.3e}", flush=True)
+        check(got.shape == want.shape, f"megafil shape {kind} {kw}")
+        check(bool(torch.isfinite(got).all()), f"finite megafil {kind} {kw}")
+        check(err < TOL_SMALL, f"small megafil {kind} {kw}: {err} >= "
+              f"{TOL_SMALL}")
 
 
-def search_block(card: str) -> dict:
-    """One flagship search block: the megafil kernel against plain (both
-    f32) on device noise, then both timed."""
+def search_block(card: str, kind: str = "real") -> dict:
+    """One flagship search block of ``kind``: the megafil kernel against
+    plain (both f32) on device noise, then both timed."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
-    from dspsr_tpu_torch.ops.megakernel import megafil_plain
+    from dspsr_tpu_torch.ops.megakernel import fold_pols, megafil_plain
 
-    pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
                        device="cuda")
     plan = pipe.megafil_plan
-    raw = device_noise_bytes(0, pipe.block_in_samples * 2, "cuda")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
     got = pipe._megafil(raw)
     want = megafil_plain(plan, pipe.constants, raw, pipe.npart)
     torch.cuda.synchronize()
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
-    print(f"flagship search block: plan nsub {plan.nsub} freq_res "
+    print(f"flagship {kind} search block: plan nsub {plan.nsub} freq_res "
           f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} nkeep {plan.nkeep}, "
           f"npart {pipe.npart}; output {tuple(got.shape)}; rel err "
           f"{err:.3e} (abs {abs_err:.3e})", flush=True)
     check(tuple(got.shape) == (64, 1, pipe.npart * plan.nkeep),
           f"search block shape {tuple(got.shape)}")
-    check(bool(torch.isfinite(got).all()), "finite search block")
-    check(err < TOL_FLAGSHIP, f"search block rel err {err} >= "
+    check(bool(torch.isfinite(got).all()), f"finite {kind} search block")
+    check(err < TOL_FLAGSHIP, f"{kind} search block rel err {err} >= "
           f"{TOL_FLAGSHIP}")
     kernel_ms = cuda_ms(lambda: pipe._megafil(raw), 10)
     plain_ms = cuda_ms(
         lambda: megafil_plain(plan, pipe.constants, raw, pipe.npart), 3)
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
-    print(f"megafil kernel per flagship search block: {kernel_ms:.3f} ms; "
-          f"plain: {plain_ms:.3f} ms; block = {sky_ms:.2f} ms of sky "
-          f"[{card}]", flush=True)
-    kernel_breakdown(lambda: pipe._megafil(raw), card)
-    from dspsr_tpu_torch.ops.megakernel import fold_pols
-
     nf = len(fold_pols(plan))
     nbytes = raw.numel() + 8 * pipe.constants.gr.numel() + 4 * got.numel()
+    bound = bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf))
+    print(f"megafil kernel per flagship {kind} search block: "
+          f"{kernel_ms:.3f} ms; plain: {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); block = "
+          f"{sky_ms:.2f} ms of sky [{card}]", flush=True)
+    kernel_breakdown(lambda: pipe._megafil(raw), card,
+                     label=f" ({kind} search)")
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
-                **bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf)),
-                library_ms=None)
+                **bound, library_ms=None)
 
 
-def search_path(card: str) -> int:
-    """The port's search main path at the megafil_search width, through
-    ``FilPipeline.run`` to a SIGPROC file; returns the megafil launches."""
+def search_path(card: str, kind: str = "real") -> int:
+    """The port's search main path at the megafil_search width on ``kind``
+    input, through ``FilPipeline.run`` to a SIGPROC file; returns the
+    megafil launches."""
     from dspsr_tpu_torch import launch_counts, reset_launch_counts
     from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.io.sigproc import read_sigproc_header
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
-    block_bytes = 16_896_000  # 64 chans x 264,000 samples x 8 bits
+    file_block = 16_896_000  # 64 chans x 264,000 samples x 8 bits
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "search.fil")
-        reset_launch_counts()
-        pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+        pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
                            device="cuda")
-
-        def forbidden(*args, **kwargs):
-            raise RuntimeError("torch.fft/torch.matmul called on the main "
-                               "path")
-
-        saved = (torch.fft.rfft, torch.fft.ifft, torch.matmul)
-        torch.fft.rfft = torch.fft.ifft = torch.matmul = forbidden
-        try:
+        reset_launch_counts()
+        with NoLibraryFFT():
             t0 = time.perf_counter()
             pipe.run(out, max_blocks=nblocks)
             wall = time.perf_counter() - t0
-        finally:
-            torch.fft.rfft, torch.fft.ifft, torch.matmul = saved
         counts = launch_counts()
         items, hdr = read_sigproc_header(out)
         size = os.path.getsize(out)
         data = np.fromfile(out, np.uint8, offset=hdr)
     check(counts["megafil"] == nblocks,
-          f"megafil launched {counts['megafil']} times")
+          f"{kind}: megafil launched {counts['megafil']} times")
     check(counts["megastep"] == 0,
-          f"megastep launched {counts['megastep']} times")
-    check(size == hdr + nblocks * block_bytes,
-          f"file size {size} != {hdr} + {nblocks} x {block_bytes}")
+          f"{kind}: megastep launched {counts['megastep']} times")
+    check(size == hdr + nblocks * file_block,
+          f"{kind}: file size {size} != {hdr} + {nblocks} x {file_block}")
     check(int(items["nchans"]) == 64 and int(items["nbits"]) == 8,
           f"header nchans {items['nchans']} nbits {items['nbits']}")
     check(abs(items["tsamp"] * 6.25e6 - 1.0) < 1e-12,
           f"header tsamp {items['tsamp']} != 1/6.25 MHz")
     # detected noise levelled to mean 0, sigma 1 and digitized at 127.5 +
     # 32 z: a Gamma(2) intensity, clipped at 255 (0.4%), gives mean 127.39
-    # and standard deviation 31.49 counts
+    # and standard deviation 31.49 counts (two pols of complex Gaussian
+    # voltages, for real and for complex input alike)
     mean, std = float(data.mean()), float(data.std())
     clipped = float((data == 255).mean())
-    print(f"search path: {nblocks} blocks, {counts['megafil']} megafil and "
-          f"{counts['megastep']} megastep launches; file {size} B (header "
-          f"{hdr}); nchans {items['nchans']} nbits {items['nbits']} tsamp "
-          f"{items['tsamp']}; bytes mean {mean:.4f} std {std:.4f} at 255 "
-          f"{clipped:.5f}; host-fed incl. first-block warm-up "
-          f"{nblocks * pipe.stride_in_samples / wall / 1e6:.1f} Msamp/s "
-          f"[{card}]", flush=True)
+    msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    print(f"search path ({kind}): {nblocks} blocks, {counts['megafil']} "
+          f"megafil and {counts['megastep']} megastep launches; file {size} "
+          f"B (header {hdr}); nchans {items['nchans']} nbits "
+          f"{items['nbits']} tsamp {items['tsamp']}; bytes mean {mean:.4f} "
+          f"std {std:.4f} at 255 {clipped:.5f}; host-fed incl. first-block "
+          f"warm-up {msps:.1f} Msamp/s, "
+          f"{msps / (pipe.obs_in.rate / 1e6):.4f} x real time [{card}]",
+          flush=True)
     check(126.5 < mean < 128.5, f"byte mean {mean} outside (126.5, 128.5)")
     check(30.0 < std < 33.0, f"byte std {std} outside (30, 33)")
     check(clipped < 0.01, f"{clipped} of the bytes clipped at 255")
     return counts["megafil"]
 
 
-def search_rates(card: str) -> None:
+def search_rates(card: str, kind: str = "real") -> None:
     """Host-fed and device-fed rates of the search pipeline (warm)."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.io.sigproc import SigProcWriter
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
-    pipe = FilPipeline(DummySource(flagship_obs()), search_cfg(),
+    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
                        device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         with SigProcWriter(os.path.join(tmp, "r.fil"), pipe.obs_out,
@@ -597,7 +673,7 @@ def search_rates(card: str) -> None:
             wall = time.perf_counter() - t0
     host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
 
-    nbytes = pipe.block_in_samples * 2
+    nbytes = block_bytes(pipe)
     state = (pipe._rescale_state, pipe._mean, pipe._inv)
 
     def block(b):
@@ -613,22 +689,27 @@ def search_rates(card: str) -> None:
         block(b)
     wall = time.perf_counter() - t0
     dev_msps = nb * pipe.stride_in_samples / wall / 1e6
-    print(f"search pipeline host-fed (DummySource bytes, pinned copy, "
-          f"SIGPROC write): {host_msps:.1f} Msamp/s; device-fed "
+    rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s
+    print(f"search pipeline ({kind}) host-fed (DummySource bytes, pinned "
+          f"copy, SIGPROC write): {host_msps:.1f} Msamp/s "
+          f"({host_msps / rt:.4f} x real time); device-fed "
           f"(device_noise_bytes, step, rescale, digitize, bytes to host): "
-          f"{dev_msps:.1f} Msamp/s; real time is 800 Msamp/s [{card}]",
-          flush=True)
+          f"{dev_msps:.1f} Msamp/s ({dev_msps / rt:.3f} x real time); real "
+          f"time is {rt:.0f} Msamp/s [{card}]", flush=True)
 
 
 def front_ops(plan, npart: int, nfwd: int, nstore: int) -> float:
     """float32 operations of the fused front end over one block: per window
-    and input channel the packed forward FFT of 2N points (5 L log2 L for
-    L = 2N), the pol separation, passband and chirp (16 a bin for each pol
-    kept), each kept pol's nsub inverse FFTs of freq_res points, and the
+    and input channel the forward FFTs (real input: one packed transform of
+    L = 2N points; complex input: one of N points per transformed pol; 5 L
+    log2 L each), the pol separation, passband and chirp (16 a bin for each
+    pol kept), each kept pol's nsub inverse FFTs of freq_res points, and the
     detection (4 a kept sample and plane).  ``nfwd`` pols are transformed,
     ``nstore`` of them inverted."""
-    L, M = 2 * plan.n_fft, plan.freq_res
-    per = (5 * L * math.log2(L) + 16 * plan.n_fft * max(nfwd, nstore)
+    N, M = plan.n_fft, plan.freq_res
+    fwd = (5 * 2 * N * math.log2(2 * N) if plan.real_input
+           else nfwd * 5 * N * math.log2(N))
+    per = (fwd + 16 * N * max(nfwd, nstore)
            + nstore * plan.nsub * 5 * M * math.log2(M)
            + 4 * plan.nsub * plan.nkeep * plan.nplane)
     return plan.nchan_in * npart * per
@@ -650,18 +731,15 @@ def masked_chirp(cst, rng) -> tuple:
     return cst.gr * m, cst.gi * m
 
 
-def small_checks_hybrid() -> None:
+def small_checks_hybrid(kind: str = "real") -> None:
     """The hybrid front end's kernel variants (passband tap, chirp handed
     in: chirp times a random mask) against the plain version (f64) at the
     test geometry: data and passband within TOL_SMALL.  PP and QQ transform
     both pols for the tap and keep one."""
-    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
     from dspsr_tpu_torch.ops.megakernel import (
-        MegaConstants, MegaPlan, build_megafil, megafil_plain, unpack_affine)
+        MegaConstants, build_megafil, megafil_plain, unpack_affine)
 
     nsub, freq_res, npart = 4, 64, 3
-    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
-                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
     cases = [
         dict(npol=2), dict(npol=2, detection="pp"),
         dict(npol=2, detection="qq"), dict(npol=2, npol_out=2),
@@ -670,11 +748,11 @@ def small_checks_hybrid() -> None:
     ]
     rng = np.random.default_rng(4)
     for kw in cases:
-        plan = MegaPlan.from_filterbank(fb, nbin=2, **kw)
+        plan = small_plan(kind, 2, **kw)
+        if plan is None:
+            continue
         nci, npol = plan.nchan_in, plan.npol
-        raw = torch.from_numpy(rng.integers(
-            0, 256, plan.block_ndat(npart) * nci * npol,
-            dtype=np.uint8)).cuda()
+        raw = small_raw(plan, npart, rng)
         resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
         scale, offset = unpack_affine(8, plan.twos_complement)
         cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
@@ -687,17 +765,19 @@ def small_checks_hybrid() -> None:
                                   gi=gi.double())
         torch.cuda.synchronize()
         err, perr = rel_err(data, want), rel_err(pb, wpb)
-        print(f"small hybrid megafil {kw}: rel err data {err:.3e}, "
+        print(f"small hybrid megafil {kind} {kw}: rel err data {err:.3e}, "
               f"passband {perr:.3e}", flush=True)
         check(data.shape == want.shape and pb.shape == wpb.shape,
-              f"hybrid megafil shapes {kw}")
-        check(pb.shape == (nci * nsub, npol, freq_res), f"passband {kw}")
+              f"hybrid megafil shapes {kind} {kw}")
+        check(pb.shape == (nci * nsub, npol, freq_res),
+              f"passband {kind} {kw}")
         check(bool(torch.isfinite(data).all() and torch.isfinite(pb).all()),
-              f"finite hybrid megafil {kw}")
+              f"finite hybrid megafil {kind} {kw}")
         check(max(err, perr) < TOL_SMALL,
-              f"small hybrid megafil {kw}: {err}, {perr} >= {TOL_SMALL}")
+              f"small hybrid megafil {kind} {kw}: {err}, {perr} >= "
+              f"{TOL_SMALL}")
         check(bool((w == 1).all()) and w.shape == (nci, npart),
-              f"weights {kw}")
+              f"weights {kind} {kw}")
 
 
 def hybrid_pipe(**kw):
@@ -724,7 +804,7 @@ def hybrid_block(card: str) -> dict:
 
     pipe = hybrid_pipe(**HYBRID_RFI)
     plan, cst = pipe.front_plan, pipe.constants
-    raw = device_noise_bytes(0, pipe.block_in_samples * 2, "cuda")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
     gr, gi = masked_chirp(cst, np.random.default_rng(6))
     data, _, pb = pipe._front(raw, gr, gi)
     want, wpb = megafil_plain(plan, cst, raw, pipe.npart, passband=True,
@@ -771,20 +851,11 @@ def hybrid_path(card: str) -> int:
     for name, kw, want in (("hybrid_sk", HYBRID_SK, nblocks),
                            ("hybrid_rfi", HYBRID_RFI, nblocks + 1)):
         pipe = hybrid_pipe(**kw)
-
-        def forbidden(*args, **kwargs):
-            raise RuntimeError("torch.fft/torch.matmul called on the main "
-                               "path")
-
-        saved = (torch.fft.rfft, torch.fft.ifft, torch.matmul)
         reset_launch_counts()
-        torch.fft.rfft = torch.fft.ifft = torch.matmul = forbidden
-        try:
+        with NoLibraryFFT():
             t0 = time.perf_counter()
             res = pipe.run(max_blocks=nblocks)
             wall = time.perf_counter() - t0
-        finally:
-            torch.fft.rfft, torch.fft.ifft, torch.matmul = saved
         counts = launch_counts()
         total += counts["megafil"]
         check(counts["megafil"] == want,
@@ -820,7 +891,7 @@ def hybrid_rates(card: str) -> None:
 
     for name, kw in (("hybrid_sk", HYBRID_SK), ("hybrid_rfi", HYBRID_RFI)):
         pipe = hybrid_pipe(**kw)
-        nbytes = pipe.block_in_samples * 2
+        nbytes = block_bytes(pipe)
         phi0, dphi = (torch.from_numpy(a).cuda() for a in compute_anchors(
             pipe.predictor, pipe.output_start_time(0),
             1.0 / pipe.obs_out.rate, pipe.out_per_block, pipe.mega_plan.nkeep))
@@ -863,31 +934,52 @@ def build_all() -> None:
         kernel = "?"
         for line in log.splitlines():
             m = re.search(r"entry function '.*?(mega\w+?)"
-                          r"(?:I((?:Li\d+E)+)EEv|E)", line)
+                          r"(?:I((?:Li\d+E|Lb\d+E)+)EEv|E)", line)
             if m:
-                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas {kernel}: {line.strip()}", flush=True)
 
 
+def small_all() -> None:
+    """Every kernel variant against its plain version at the test
+    geometry."""
+    for kind in KINDS:
+        small_checks(kind)
+        small_checks_megafil(kind)
+        small_checks_hybrid(kind)
+    small_unequal()
+
+
 def main() -> None:
     card = card_facts()
     build_all()
-    small_checks()
-    small_checks_megafil()
-    small_checks_hybrid()
-    small_unequal()
+    small_all()
     flag = flagship_block(card)
     launches = main_path(card)
     pipeline_rates(card)
     search = search_block(card)
     search_launches = search_path(card)
     search_rates(card)
+    # complex (analytic) input: mega_analytic_8bit, and its search
+    flag_c = flagship_block(card, "complex")
+    launches += main_path(card, "complex")
+    pipeline_rates(card, "complex")
+    search_c = search_block(card, "complex")
+    search_launches += search_path(card, "complex")
+    search_rates(card, "complex")
+    # CASPSR bytes: the flagship fold and search step, the fold main path
+    flag_k = flagship_block(card, "caspsr")
+    search_k = search_block(card, "caspsr")
+    launches += main_path(card, "caspsr")
     hybrid = hybrid_block(card)
-    search["max_abs_err"] = max(search["max_abs_err"], hybrid["err"])
     hybrid_launches = hybrid_path(card)
     hybrid_rates(card)
+    flag["max_abs_err"] = max(f["max_abs_err"] for f in (flag, flag_c, flag_k))
+    search["max_abs_err"] = max(search["max_abs_err"],
+                                search_c["max_abs_err"],
+                                search_k["max_abs_err"], hybrid["err"])
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",

@@ -6,13 +6,14 @@ never ``jax``, nor anything of ``dspsr_tpu``: it keeps its own copies of the
 JAX-free modules it needs (observation metadata, timing, readers and
 writers, the dedispersion chirp, bit tables, SK limits, the run report).
 
-Covered so far, for real-sampled 8-bit input: the fold main path on the
-fused fold kernel (``mega_mode == "full"``, ``models.load_to_fold``), the
-hybrid fold engine on the fused front end plus a plain PyTorch tail
-(``mega_mode == "hybrid"``: in-stream SK, the RFI filter, passband, pdmp,
-dump, several pulsars) and the search path on the fused search front end
-(digifil: ``models.load_to_fil``, ``apps.digifil_app``).  See ROADMAP.md for
-what follows.
+Covered so far, for 8-bit input (real-sampled or complex, in TFP order or
+the CASPSR layout): the fold main path on the fused fold kernel
+(``mega_mode == "full"``, ``models.load_to_fold``), the hybrid fold engine
+on the fused front end plus a plain PyTorch tail (``mega_mode ==
+"hybrid"``: in-stream SK, the RFI filter, passband, pdmp, dump, several
+pulsars) and the search path on the fused search front end (digifil:
+``models.load_to_fil``, ``apps.digifil_app``).  See ROADMAP.md for what
+follows.
 """
 
 from .device import launch_counts, reset_launch_counts, resolve_device

@@ -20,10 +20,16 @@ from .ops.rescale import RescaleState
 
 def _natural(a, plan: MegaPlan) -> np.ndarray:
     """A JAX-package response plane ``[nchan_in, R1, R2]`` (flat bin ``k =
-    k2*R1 + k1``) in natural bin order ``[nchan_in, n_fft]``, float32."""
+    k2*R1 + k1``) in natural bin order ``[nchan_in, n_fft]``, float32.  For
+    complex input the JAX package also rolled the natural order by ``-N/2``
+    (its kernel's spectra are not ``fftshift``-ed); that roll is undone
+    here, so bin ``j`` is the centred natural bin."""
     a = np.asarray(a, np.float32).reshape(plan.nchan_in, plan.R1, plan.R2)
-    return np.ascontiguousarray(a.transpose(0, 2, 1)).reshape(
+    flat = np.ascontiguousarray(a.transpose(0, 2, 1)).reshape(
         plan.nchan_in, plan.n_fft)
+    if plan.real_input:
+        return flat
+    return np.ascontiguousarray(np.roll(flat, plan.n_fft // 2, axis=1))
 
 
 def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:

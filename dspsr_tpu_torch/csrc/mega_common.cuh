@@ -2,10 +2,10 @@
 // search front end (megafil.cu): register-resident FFTs, the forward half of
 // the four-step transform, and detection.
 //
-// The forward transform of one overlap-save window of 2N real samples
-// (N = nsub * freq_res = R1 * R2, row_len = 2 * R2) is a four-step FFT with
-// n = n1*row_len + m and k = k2*R1 + k1.  It runs in two passes through
-// device memory, once per (input channel, window):
+// Real-sampled input.  The forward transform of one overlap-save window of
+// 2N real samples (N = nsub * freq_res = R1 * R2, row_len = 2 * R2) is a
+// four-step FFT with n = n1*row_len + m and k = k2*R1 + k1.  It runs in two
+// passes through device memory, once per (input channel, window):
 //   mega_polpow  (two pols only) per-window energy of each pol, from which
 //                both passes derive a power-of-two scale for pol b.
 //   mega_fwd1    per (input channel, window, tile of S columns m): unpack
@@ -18,7 +18,33 @@
 //                dropped), optionally add |X|^2 of each pol into the
 //                passband, multiply the chirp, store the spectrum of each
 //                pol the caller keeps in natural bin order k = k2*R1 + k1.
-// launch_forward() sets their shared-memory limits and launches them.
+//
+// Complex (analytic) input.  Each pol is already a complex sequence of N
+// samples, so nothing is packed and there is no mega_polpow: row_len = R2,
+// and the passes run once per (input channel, pol, window):
+//   mega_fwd1<P, kComplexTfp>  per (channel, pol, window, tile of columns
+//                m < R2):
+//                load each sample's (re, im) byte pair (2 bytes per pol, 4
+//                per time sample with two pols), length-R1 FFT over n1,
+//                twiddle exp(-2 pi i m k1 / N), store C[k1, m].
+//   mega_fwd2c   per (channel, pol, window, tile of rows k1): length-R2 FFT
+//                of each row, every column kept; bin k = k2*R1 + k1 goes to
+//                the centred natural index j = ((k2 + R2/2) mod R2)*R1 + k1
+//                (fftshift: natural bin j is FFT bin (j + N/2) mod N, the
+//                JAX package's order), where the passband tap and the chirp
+//                are read too.  Subband s is then the slice [s*M, (s+1)*M)
+//                of the stored spectrum, as for real input, so the inverse
+//                kernels read it unchanged.
+// Both forms compute the inter-stage twiddle exp(-2 pi i m k1 / (R1 *
+// row_len)) from the same tables: R1 * row_len is 2N for real input and N
+// for complex input.
+//
+// Byte layouts (real input).  TFP: sample (t, c, pol) at (t*nchan + c)*npol
+// + pol.  CASPSR (one channel): four consecutive samples of each pol
+// together, sample (t, pol) at (t/4)*npol*4 + pol*4 + t%4; mega_polpow and
+// mega_fwd1<P, kRealCaspsr> read that index directly, so the layout costs
+// no pass.
+// launch_forward() sets the shared-memory limits and launches the passes.
 //
 // Bytes and bounds.  A flagship block (R1 = R2 = 512, 75 windows of 2N =
 // 2^19 samples, two pols, one input channel) reads 79 MB of codes twice
@@ -307,6 +333,17 @@ __device__ __forceinline__ float unpack(uint8_t byte, int twos, float scale,
   return code * scale + offset;
 }
 
+// Byte layouts of the raw codes: real TFP, real CASPSR, complex TFP (the
+// wrappers' layout codes, and a template parameter of mega_fwd1, so that
+// its unrolled loads carry no branch).
+enum Layout { kRealTfp = 0, kRealCaspsr = 1, kComplexTfp = 2 };
+
+// Byte of real sample (t, pol) in the CASPSR layout (one input channel).
+__device__ __forceinline__ long long caspsr_byte(long long t, int pol,
+                                                 int npol) {
+  return (t >> 2) * npol * 4 + pol * 4 + (t & 3);
+}
+
 // Exponent e of pol b's scale 2^e in a window, from the two pols' energies
 // (psum[0], psum[1]): the power of two nearest to |x_a| / |x_b|, 0 when
 // either pol is silent.  fwd1 and fwd2 read the same sums, so they agree.
@@ -319,11 +356,12 @@ __device__ __forceinline__ int pol_exponent(const float* psum) {
 }
 
 // Energy of both pols over each window (grid: chunks of the window, window,
-// input channel), added into psum[c, w, 2] (zeroed by the caller).
+// input channel), added into psum[c, w, 2] (zeroed by the caller).  Real
+// input, pols 0 and 1, TFP or (caspsr != 0) CASPSR bytes.
 __global__ void __launch_bounds__(kThreads)
 mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
             int nchan, int npol, int npart, int nsamp_step, int two_n,
-            int twos, float scale, float offset) {
+            int twos, float scale, float offset, int caspsr) {
   __shared__ float red[2][kThreads / 32];
   const int w = blockIdx.y;
   const int c = blockIdx.z;
@@ -332,7 +370,9 @@ mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
   float sa = 0.f, sb = 0.f;
   if (nchan == 1 && chunk % 8 == 0 && (t0 & 7) == 0 &&
       ((uintptr_t)raw & 15) == 0) {
-    // one input channel: 8 samples of both pols in one 16-byte load
+    // one input channel: 8 samples of both pols in one 16-byte load (the
+    // same 16 bytes in both layouts: TFP words hold a b a b, CASPSR words
+    // a a a a, b b b b, a a a a, b b b b)
     const uint4* src = (const uint4*)(raw + 2 * t0);
     for (int i = threadIdx.x; i < chunk / 8; i += blockDim.x) {
       const uint4 q = src[i];
@@ -340,18 +380,21 @@ mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float a = unpack((uint8_t)(words[k] >> (16 * h)), twos, scale, offset);
-          const float b = unpack((uint8_t)(words[k] >> (16 * h + 8)), twos, scale, offset);
-          sa += a * a;
-          sb += b * b;
+        for (int h = 0; h < 4; ++h) {
+          const float v = unpack((uint8_t)(words[k] >> (8 * h)), twos, scale, offset);
+          if (caspsr ? (k & 1) : (h & 1))
+            sb += v * v;
+          else
+            sa += v * v;
         }
     }
   } else {
     for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-      const long long off = ((t0 + i) * nchan + c) * npol;
+      const long long t = t0 + i;
+      const long long off =
+          caspsr ? caspsr_byte(t, 0, npol) : (t * nchan + c) * npol;
       const float a = unpack(raw[off], twos, scale, offset);
-      const float b = unpack(raw[off + 1], twos, scale, offset);
+      const float b = unpack(raw[off + (caspsr ? 4 : 1)], twos, scale, offset);
       sa += a * a;
       sb += b * b;
     }
@@ -384,9 +427,10 @@ constexpr int kMaxCols = 16;
 
 // Offsets of the wrapper's twiddle tables (float2, one buffer): the
 // length-R1, length-row_len and length-M FFT tables (L entries each, laid
-// out per pass as fft_seqs reads them), then the inter-stage lo[e] =
-// exp(-2 pi i e / 2N), e < 2^lo_bits, hi[e] = exp(-2 pi i e 2^lo_bits / 2N),
-// and col[k1*kMaxCols + c] = exp(-2 pi i c k1 / 2N), c < kMaxCols.
+// out per pass as fft_seqs reads them), then the inter-stage factors over
+// the window length W = R1 * row_len (2N real, N complex): lo[e] =
+// exp(-2 pi i e / W), e < 2^lo_bits, hi[e] = exp(-2 pi i e 2^lo_bits / W),
+// and col[k1*kMaxCols + c] = exp(-2 pi i c k1 / W), c < kMaxCols.
 struct Tables {
   const float2* r1;
   const float2* row;
@@ -411,56 +455,78 @@ Tables tables(const void* base, int R1, int row_len, int M) {
   return t;
 }
 
-template <int P>
+// Real input: blockIdx.z is the input channel c, and pols pol0 (and pol0 + 1
+// when npolf == 2) are packed.  Complex input: blockIdx.z = c * npolf + q,
+// the sequence of pol pol0 + q.  cbuf is float2[nchan * (complex ? npolf :
+// 1), npart, R1, row_len].
+template <int P, int LAYOUT>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
           const float* __restrict__ psum, Tables tb, int nchan, int npol,
           int pol0, int npolf, int npart, int R1, int row_len,
           int nsamp_step, int S, int twos, float scale, float offset) {
+  constexpr bool CPLX = LAYOUT == kComplexTfp;
+  constexpr int ndim = CPLX ? 2 : 1;
   extern __shared__ float2 sm[];
   const int T = R1 / P;
   const int col = threadIdx.x & (S - 1);
   const int j = threadIdx.x / S;
   const int m = blockIdx.x * S + col;
   const int w = blockIdx.y;
-  const int c = blockIdx.z;
+  const int c = CPLX ? blockIdx.z / npolf : blockIdx.z;
+  const int pol = pol0 + (CPLX ? blockIdx.z - c * npolf : 0);
   const float sb =
-      npolf == 2 ? ldexpf(1.f, pol_exponent(psum + 2 * ((long long)c * npart + w)))
-                 : 0.f;
-  const long long t0 = (long long)w * nsamp_step + m;
+      !CPLX && npolf == 2
+          ? ldexpf(1.f, pol_exponent(psum + 2 * ((long long)c * npart + w)))
+          : 0.f;
+  // this thread's first sample; its samples are T rows (T * row_len
+  // samples) apart
+  const long long t0 = (long long)w * nsamp_step + m + (long long)j * row_len;
   float2 v[P];
-  // both pols' bytes of a sample in one 16-bit load (pol 0 at an even
-  // offset) when the buffer allows it
-  const bool pairs = npolf == 2 && ((uintptr_t)raw & 1) == 0;
-  const long long row_bytes = (long long)row_len * nchan * npol;
-  const uint8_t* src = raw + (t0 * nchan + c) * npol + pol0 + j * row_bytes;
+  // two bytes in one 16-bit load (at an even offset) when the buffer
+  // allows it: a complex sample's (re, im), or both pols of a real TFP
+  // sample
+  const bool pairs = (CPLX || npolf == 2) && ((uintptr_t)raw & 1) == 0;
+  const long long stride = (long long)T * row_len * nchan * npol * ndim;
+  const uint8_t* src = raw + ((t0 * nchan + c) * npol + pol) * ndim;
   auto load = [&](int, float2(&x)[P]) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const uint8_t* p = src + i * T * row_bytes;
       uint8_t ca, cb = 0;
-      if (pairs) {
-        const unsigned short both = *(const unsigned short*)p;
-        ca = (uint8_t)both;
-        cb = (uint8_t)(both >> 8);
+      if constexpr (LAYOUT == kRealCaspsr) {
+        const long long t = t0 + (long long)i * T * row_len;
+        ca = raw[caspsr_byte(t, pol, npol)];
+        if (npolf == 2) cb = raw[caspsr_byte(t, pol + 1, npol)];
       } else {
-        ca = p[0];
-        if (npolf == 2) cb = p[1];
+        const uint8_t* p = src + i * stride;
+        if (pairs) {
+          const unsigned short both = *(const unsigned short*)p;
+          ca = (uint8_t)both;
+          cb = (uint8_t)(both >> 8);
+        } else {
+          ca = p[0];
+          if (CPLX || npolf == 2) cb = p[1];
+        }
       }
       const float a = unpack(ca, twos, scale, offset);
-      const float b = npolf == 2 ? unpack(cb, twos, scale, offset) : 0.f;
-      x[i] = make_float2(a, b * sb);
+      if constexpr (CPLX) {
+        x[i] = make_float2(a, unpack(cb, twos, scale, offset));
+      } else {
+        const float b = npolf == 2 ? unpack(cb, twos, scale, offset) : 0.f;
+        x[i] = make_float2(a, b * sb);
+      }
     }
   };
   fft_seqs<P, 1, -1, true>(v, load, sm + col * seq_ld(R1), 0, j, R1,
                            __ffs(R1) - 1, tb.r1);
-  // exp(-2 pi i m k1 / 2N) = exp(-2 pi i m0 k1 / 2N) exp(-2 pi i col k1 / 2N):
-  // the first factor is the same across a half-warp (one k1, all columns),
-  // the second is read from the column table in 128-byte lines
+  // exp(-2 pi i m k1 / (R1 row_len)) = exp(-2 pi i m0 k1 / (R1 row_len))
+  // exp(-2 pi i col k1 / (R1 row_len)): the first factor is the same across
+  // a half-warp (one k1, all columns), the second is read from the column
+  // table in 128-byte lines
   const int m0 = m - col;
   const int mask = (1 << tb.log2n) - 1;
   const int lo_mask = (1 << tb.lo_bits) - 1;
-  float2* dst = cbuf + ((long long)c * npart + w) * R1 * row_len + m;
+  float2* dst = cbuf + ((long long)blockIdx.z * npart + w) * R1 * row_len + m;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int k1 = j + T * i;
@@ -549,6 +615,59 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   }
 }
 
+// The complex-input row pass: blockIdx.z = c * npolf + q (the sequence of
+// mega_fwd1<P, kComplexTfp>), a tile of tr rows k1 = a .. a + tr - 1, one row a
+// slot.  store bit q keeps sequence q's chirped spectrum (in that order in
+// ybuf); pb, when not null, is the zeroed passband float[nchan, npolf, N].
+// Every index into ybuf, the chirp and the passband is the centred natural
+// bin j.
+template <int P>
+__global__ void __launch_bounds__(kMaxThreads)
+mega_fwd2c(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
+           const float* __restrict__ gr, const float* __restrict__ gi,
+           float* __restrict__ pb, Tables tb, int npolf, int store, int npart,
+           int R1, int R2, int tr) {
+  extern __shared__ float2 sm[];
+  const int T = R2 / P;
+  const int ld = seq_ld(R2);
+  const int i = threadIdx.x / T;  // row of the tile
+  const int j = threadIdx.x - i * T;
+  const int a = blockIdx.x * tr;
+  const int w = blockIdx.y;
+  const int c = blockIdx.z / npolf;
+  const int q = blockIdx.z - c * npolf;
+  const float2* src =
+      cbuf + (((long long)blockIdx.z * npart + w) * R1 + a + i) * R2;
+  float2 v[P];
+  auto load = [&](int, float2(&x)[P]) {
+#pragma unroll
+    for (int ii = 0; ii < P; ++ii) x[ii] = src[j + T * ii];
+  };
+  // slot i holds row a + i in natural order after
+  fft_seqs<P, 1, -1, false>(v, load, sm + i * ld, 0, j, R2, __ffs(R2) - 1,
+                            tb.row);
+
+  const long long n = (long long)R1 * R2;
+  const bool keep = (store >> q) & 1;
+  const int nstore = (store & 1) + (store >> 1);
+  const int slot = (q == 1 && (store & 1)) ? 1 : 0;
+  float2* y = ybuf + ((long long)(c * nstore + slot) * npart + w) * n;
+  float* pbc = pb ? pb + ((long long)c * npolf + q) * n : nullptr;
+  const float* grc = gr + (long long)c * n;
+  const float* gic = gi + (long long)c * n;
+  const int lg = __ffs(tr) - 1;
+  const int half = R2 / 2;
+  // consecutive threads on consecutive k1 (runs of tr bins)
+  for (int t = threadIdx.x; t < tr * R2; t += blockDim.x) {
+    const int k2 = t >> lg;
+    const int r = t & (tr - 1);
+    const float2 x = sm[r * ld + sidx(k2)];
+    const long long k = (long long)((k2 + half) & (R2 - 1)) * R1 + a + r;
+    if (pbc) atomicAdd(pbc + k, x.x * x.x + x.y * x.y);
+    if (keep) y[k] = cmul(x, make_float2(grc[k], gic[k]));
+  }
+}
+
 enum Det { kDetOne = 0, kDetSum = 1, kDetPPQQ = 2, kDetCoh = 3, kDetStokes = 4 };
 
 // Detected planes of one output sample from the (1/freq_res-scaled) voltages
@@ -610,7 +729,8 @@ __device__ __forceinline__ void inverse_subband(
 }
 
 // Threads of each transform kernel: which 0 = mega_fwd1 (tile of `tile`
-// columns), 1 = mega_fwd2 (tile of `tile` row pairs), 2 = the inverse.
+// columns), 1 = mega_fwd2 (tile of `tile` row pairs; mega_fwd2c: `tile`
+// rows, the same count), 2 = the inverse.
 int transform_threads(int which, int R1, int row_len, int M, int tile) {
   if (which == 0) return tile * (R1 / fft_points(R1));
   if (which == 1) return tile * (row_len / fft_points(row_len));
@@ -622,36 +742,41 @@ int inv_smem_bytes(int M, int npolf) {
   return npolf * seq_ld(M) * (int)sizeof(float2);
 }
 
-// Shared-memory bytes of the forward passes (which as above).
-int fwd_smem_bytes(int which, int R1, int row_len, int tile) {
+// Shared-memory bytes of the forward passes (which as above; for complex
+// input the tile of mega_fwd2c is `tile` rows, one sequence each).
+int fwd_smem_bytes(int which, int R1, int row_len, int tile, int cplx) {
   if (which == 0) return tile * seq_ld(R1) * (int)sizeof(float2);
-  return 2 * tile * seq_ld(row_len) * (int)sizeof(float2);
+  return (cplx ? 1 : 2) * tile * seq_ld(row_len) * (int)sizeof(float2);
 }
 
 // The forward half on the caller's stream: raw codes -> (psum) -> cbuf
-// float2[nchan, npart, R1, row_len] -> ybuf float2[nchan*nstore, npart,
-// R1*R2], the chirped spectrum of each pol in `store` (bit 0 pol a, bit 1
-// pol b; nstore of them) in natural bin order.  psum is float[nchan, npart,
-// 2]; tw is the wrapper's table buffer (Tables); pb, when not null, gets
-// the passband float[nchan, npolf, R1*R2] (zeroed here).
+// float2[nchan * nseq, npart, R1, row_len] (nseq 1 for real input, npolf
+// for complex) -> ybuf float2[nchan*nstore, npart, R1*R2], the chirped
+// spectrum of each pol in `store` (bit 0 the first transformed pol, bit 1
+// the second; nstore of them) in natural bin order (centred for complex
+// input).  psum is float[nchan, npart, 2]; tw is the wrapper's table buffer
+// (Tables); pb, when not null, gets the passband float[nchan, npolf, R1*R2]
+// (zeroed here).  layout is a Layout (row_len = R2 for kComplexTfp).
 cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            const void* tw, void* psum, void* cbuf, void* ybuf,
                            void* pb, int nchan, int npol, int pol0, int npolf,
                            int store, int npart, int R1, int R2, int M,
                            int twos, float scale, float offset,
-                           int nsamp_step, int tc, int tk,
+                           int nsamp_step, int tc, int tk, int layout,
                            cudaStream_t stream) {
-  const int row_len = 2 * R2;
+  const bool cplx = layout == kComplexTfp;
+  const int row_len = cplx ? R2 : 2 * R2;
   const Tables tb = tables(tw, R1, row_len, M);
   cudaError_t err;
   if (tc > kMaxCols) return cudaErrorInvalidValue;
   if (store < 1 || store > 3 || (npolf == 1 && store != 1))
     return cudaErrorInvalidValue;
+  if (layout < kRealTfp || layout > kComplexTfp) return cudaErrorInvalidValue;
   if (pb && (err = cudaMemsetAsync(
                  pb, 0, (size_t)nchan * npolf * R1 * R2 * sizeof(float),
                  stream)) != cudaSuccess)
     return err;
-  if (npolf == 2) {
+  if (!cplx && npolf == 2) {
     if ((err = cudaMemsetAsync(psum, 0, (size_t)nchan * npart * 2 * sizeof(float),
                                stream)) != cudaSuccess)
       return err;
@@ -659,26 +784,41 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     const int chunks = two_n >= 8192 ? two_n / 8192 : 1;
     mega_polpow<<<dim3(chunks, npart, nchan), kThreads, 0, stream>>>(
         (const uint8_t*)raw, (float*)psum, nchan, npol, npart, nsamp_step,
-        two_n, twos, scale, offset);
+        two_n, twos, scale, offset, layout == kRealCaspsr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  auto fwd1 = R1 >= 16 ? &mega_fwd1<16> : &mega_fwd1<8>;
-  auto fwd2 = row_len >= 16 ? &mega_fwd2<16> : &mega_fwd2<8>;
-  const int smem1 = fwd_smem_bytes(0, R1, row_len, tc);
-  const int smem2 = fwd_smem_bytes(1, R1, row_len, tk);
+  auto fwd1 = R1 >= 16 ? &mega_fwd1<16, kRealTfp> : &mega_fwd1<8, kRealTfp>;
+  if (cplx)
+    fwd1 = R1 >= 16 ? &mega_fwd1<16, kComplexTfp> : &mega_fwd1<8, kComplexTfp>;
+  else if (layout == kRealCaspsr)
+    fwd1 = R1 >= 16 ? &mega_fwd1<16, kRealCaspsr> : &mega_fwd1<8, kRealCaspsr>;
+  const int nseq = cplx ? npolf : 1;
+  const int smem1 = fwd_smem_bytes(0, R1, row_len, tc, cplx);
+  const int smem2 = fwd_smem_bytes(1, R1, row_len, tk, cplx);
   if ((err = cudaFuncSetAttribute(fwd1,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem1)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(fwd2,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem2)) != cudaSuccess)
-    return err;
-  fwd1<<<dim3(row_len / tc, npart, nchan),
+  fwd1<<<dim3(row_len / tc, npart, nchan * nseq),
          transform_threads(0, R1, row_len, M, tc), smem1, stream>>>(
       (const uint8_t*)raw, (float2*)cbuf, (const float*)psum, tb, nchan, npol,
       pol0, npolf, npart, R1, row_len, nsamp_step, tc, twos, scale, offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fwd2<<<dim3(R1 / (2 * tk), npart, nchan),
-         transform_threads(1, R1, row_len, M, tk), smem2, stream>>>(
+  const int threads2 = transform_threads(1, R1, row_len, M, tk);
+  if (cplx) {
+    auto fwd2 = row_len >= 16 ? &mega_fwd2c<16> : &mega_fwd2c<8>;
+    if ((err = cudaFuncSetAttribute(fwd2,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem2)) != cudaSuccess)
+      return err;
+    fwd2<<<dim3(R1 / tk, npart, nchan * npolf), threads2, smem2, stream>>>(
+        (const float2*)cbuf, (float2*)ybuf, (const float*)gr,
+        (const float*)gi, (float*)pb, tb, npolf, store, npart, R1, R2, tk);
+    return cudaGetLastError();
+  }
+  auto fwd2 = row_len >= 16 ? &mega_fwd2<16> : &mega_fwd2<8>;
+  if ((err = cudaFuncSetAttribute(fwd2,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem2)) != cudaSuccess)
+    return err;
+  fwd2<<<dim3(R1 / (2 * tk), npart, nchan), threads2, smem2, stream>>>(
       (const float2*)cbuf, (float2*)ybuf, (const float*)gr, (const float*)gi,
       (const float*)psum, (float*)pb, tb, npolf, store, npart, R1, R2,
       row_len, tk);

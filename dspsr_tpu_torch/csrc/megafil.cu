@@ -1,6 +1,7 @@
 // Fused search front end for Hopper (sm_90a): unpack -> forward FFT ->
 // chirp -> per-subband inverse FFT -> detect, stored in time order, for
-// real-sampled 8-bit TFP input.
+// 8-bit input: real-sampled (TFP or CASPSR bytes) or complex (analytic,
+// TFP; the forward passes of mega_common.cuh per pol, see there).
 //
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megafil in
 // its detected, scalar-chirp form, together with the XLA de-permute that
@@ -95,13 +96,15 @@ const char* megafil_error_string(int err) {
 }
 
 // Shared-memory bytes (kind 0) or threads (kind 1) of the three transform
-// kernels: which 0 and 1 are the forward passes (tile of `tile` columns or
-// row pairs), 2 the inverse.  The Python wrapper checks them against the
+// kernels: which 0 and 1 are the forward passes (tile of `tile` columns, or
+// of row pairs for real input and rows for complex input, layout
+// kComplexTfp), 2 the inverse.  The Python wrapper checks them against the
 // card's limits before launching.
 int megafil_resources(int kind, int which, int R1, int row_len, int M,
-                      int npolf, int tile) {
+                      int npolf, int tile, int layout) {
   if (kind == 1) return transform_threads(which, R1, row_len, M, tile);
-  if (which < 2) return fwd_smem_bytes(which, R1, row_len, tile);
+  if (which < 2)
+    return fwd_smem_bytes(which, R1, row_len, tile, layout == kComplexTfp);
   return inv_smem_bytes(M, npolf);
 }
 
@@ -109,29 +112,31 @@ int megafil_resources(int kind, int which, int R1, int row_len, int M,
 // wrapper's twiddle-table buffer (see Tables in mega_common.cuh); the
 // forward transforms npolf pols from pol0 and keeps those in `store` (bit 0
 // the first, bit 1 the second) for the inverse; gr/gi are float[nchan,
-// R1*R2] in natural bin order.  Scratch buffers are sized by the wrapper:
-// psum float[nchan, npart, 2], cbuf float2[nchan, npart, R1, row_len],
-// ybuf float2[nchan*nstore, npart, R1*R2]; out float[nchan*nsub, nplane,
-// npart*nkeep]; pb null or float[nchan, npolf, R1*R2].
+// R1*R2] in natural bin order (centred for complex input).  layout is the
+// raw bytes' Layout (see mega_common.cuh).  Scratch buffers are sized by
+// the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan * nseq,
+// npart, R1, row_len] (complex input: nseq npolf, row_len R2; real: 1 and
+// 2*R2), ybuf float2[nchan*nstore, npart, R1*R2]; out float[nchan*nsub,
+// nplane, npart*nkeep]; pb null or float[nchan, npolf, R1*R2].
 int megafil_launch(const void* raw, const void* gr, const void* gi,
                    const void* tw, void* out, void* psum, void* cbuf,
                    void* ybuf, void* pb, int nchan, int npol, int pol0,
                    int npolf, int store, int npart, int R1, int R2, int nsub,
                    int M, int nfilt_pos, int nkeep, int nplane, int det,
                    int twos, float scale, float offset, int nsamp_step,
-                   int tc, int tk, void* stream_ptr) {
+                   int tc, int tk, int layout, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
-  const int row_len = 2 * R2;
+  const int row_len = layout == kComplexTfp ? R2 : 2 * R2;
   const int nstore = (store & 1) + (store >> 1);
   auto inv = invdet_kernel(M, nstore);
-  const int smem3 = megafil_resources(0, 2, R1, row_len, M, nstore, 0);
+  const int smem3 = megafil_resources(0, 2, R1, row_len, M, nstore, 0, layout);
   if ((err = cudaFuncSetAttribute(inv,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
   if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, pb, nchan,
                             npol, pol0, npolf, store, npart, R1, R2, M, twos,
-                            scale, offset, nsamp_step, tc, tk,
+                            scale, offset, nsamp_step, tc, tk, layout,
                             stream)) != cudaSuccess)
     return (int)err;
   inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),

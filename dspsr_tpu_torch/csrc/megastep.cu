@@ -1,5 +1,6 @@
 // Fused fold step for Hopper (sm_90a): unpack -> forward FFT -> chirp ->
-// per-subband inverse FFT -> detect -> fold, for real-sampled 8-bit TFP input.
+// per-subband inverse FFT -> detect -> fold, for 8-bit input: real-sampled
+// (TFP or CASPSR bytes) or complex (analytic, TFP).
 //
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megastep.
 // The TPU kernel expressed every transform as a dense DFT matmul (the shape
@@ -20,7 +21,11 @@
 // Five kernels run in order on the caller's stream (plus two memsets):
 //   mega_polpow, the forward half shared with megafil.cu (see
 //   mega_fwd1,   mega_common.cuh): pol energies; unpack, columns, twiddle;
-//   mega_fwd2    rows, pol separation, chirp.
+//   mega_fwd2    rows, pol separation, chirp.  Complex input runs
+//                mega_fwd1<P, kComplexTfp> and mega_fwd2c per pol instead
+//                and has no mega_polpow; its spectra land in the same
+//                natural (centred) order, so the kernels below do not
+//                change.
 //   mega_invfold per (subband, window, input channel): length-freq_res
 //                inverse FFT of each needed pol (scaled by 1/freq_res), keep
 //                nfilt_pos <= t < nfilt_pos + nkeep, detect, fold into a
@@ -165,21 +170,25 @@ const char* megastep_error_string(int err) {
 
 // Shared-memory bytes (kind 0) or threads (kind 1) of the three transform
 // kernels: which 0 = mega_fwd1 (tile of `tile` columns), 1 = mega_fwd2
-// (tile of `tile` row pairs), 2 = mega_invfold.  The Python wrapper checks
+// (tile of `tile` row pairs; complex input, layout kComplexTfp:
+// mega_fwd2c, `tile` rows), 2 = mega_invfold.  The Python wrapper checks
 // them against the card's limits before launching.
 int megastep_resources(int kind, int which, int R1, int row_len, int M,
-                       int npolf, int nplane, int nbin, int tile) {
+                       int npolf, int nplane, int nbin, int tile, int layout) {
   if (kind == 1) return transform_threads(which, R1, row_len, M, tile);
-  if (which < 2) return fwd_smem_bytes(which, R1, row_len, tile);
+  if (which < 2)
+    return fwd_smem_bytes(which, R1, row_len, tile, layout == kComplexTfp);
   return inv_smem_bytes(M, npolf) + (nplane * nbin + nbin) * 4;
 }
 
 // One fused fold step.  Pointers are device pointers; tw is the wrapper's
 // twiddle-table buffer (see Tables in mega_common.cuh); scratch buffers are
-// sized by the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan,
-// npart, R1, row_len], ybuf float2[nchan*npolf, npart, R1*R2], pacc
-// float[nchan, nplane, nsub, nbin], hacc uint32[nchan, nbin].  Output
-// samples g of the block fold only when lo <= g < hi.
+// sized by the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan *
+// nseq, npart, R1, row_len] (nseq npolf for complex input, else 1), ybuf
+// float2[nchan*npolf, npart, R1*R2], pacc float[nchan, nplane, nsub, nbin],
+// hacc uint32[nchan, nbin].  layout is the raw bytes' Layout (see
+// mega_common.cuh); row_len is R2 for complex input and 2*R2 for real
+// input.  Output samples g of the block fold only when lo <= g < hi.
 int megastep_launch(const void* raw, const void* phi0, const void* dphi,
                     const void* gr, const void* gi, const void* tw,
                     const void* prof_in, const void* hits_in, void* prof_out,
@@ -189,12 +198,13 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
                     int nfilt_pos, int nkeep, int nbin, int nplane, int det,
                     int fourth, int twos, float scale, float offset,
                     int nsamp_step, int tc, int tk, int lo, int hi,
-                    void* stream_ptr) {
+                    int layout, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
-  const int row_len = 2 * R2;
+  const int row_len = layout == kComplexTfp ? R2 : 2 * R2;
   auto inv = invfold_kernel(M, npolf);
-  const int smem3 = megastep_resources(0, 2, R1, row_len, M, npolf, nplane, nbin, 0);
+  const int smem3 =
+      megastep_resources(0, 2, R1, row_len, M, npolf, nplane, nbin, 0, layout);
   if ((err = cudaFuncSetAttribute(inv,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
@@ -207,7 +217,8 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
   if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr,
                             nchan, npol, pol0, npolf, npolf == 2 ? 3 : 1,
                             npart, R1, R2, M, twos, scale, offset,
-                            nsamp_step, tc, tk, stream)) != cudaSuccess)
+                            nsamp_step, tc, tk, layout,
+                            stream)) != cudaSuccess)
     return (int)err;
 
   inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),

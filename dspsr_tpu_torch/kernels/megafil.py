@@ -23,12 +23,13 @@ from ..ops.megakernel import (
     passband_layout)
 from . import build
 from .megastep import (
-    check_resources, check_tensor, device_tables, forward_tiles, smem_limit)
+    cbuf_seqs, check_resources, check_tensor, device_tables, forward_tiles,
+    layout_code, smem_limit)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 9 + [_i] * 15 + [_f, _f] + [_i] * 3 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 9 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_c]
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,7 +37,7 @@ def _lib() -> ctypes.CDLL:
     if lib.megafil_launch.argtypes is None:
         lib.megafil_launch.argtypes = _LAUNCH_ARGTYPES
         lib.megafil_launch.restype = _i
-        lib.megafil_resources.argtypes = [_i] * 7
+        lib.megafil_resources.argtypes = [_i] * 8
         lib.megafil_resources.restype = _i
         lib.megafil_error_string.argtypes = [_i]
         lib.megafil_error_string.restype = ctypes.c_char_p
@@ -61,7 +62,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     nchan = p.nchan_in
     f32 = torch.float32
     check_tensor(raw, "raw", torch.uint8,
-                 (p.block_ndat(npart) * nchan * p.npol,), dev)
+                 (p.block_ndat(npart) * nchan * p.npol * p.ndim,), dev)
     gr = cst.gr if gr is None else gr
     gi = cst.gi if gi is None else gi
     check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
@@ -81,7 +82,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
     def res(kind, which, tile):
         return lib.megafil_resources(kind, which, p.R1, p.row_len,
-                                     p.freq_res, npolf, tile)
+                                     p.freq_res, npolf, tile,
+                                     layout_code(p))
 
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit)
@@ -91,8 +93,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                       device=dev)
     tw = device_tables(p, dev)
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
-    cbuf = torch.empty((nchan, npart, p.R1, p.row_len, 2), dtype=f32,
-                       device=dev)
+    cbuf = torch.empty((nchan * cbuf_seqs(p, npolf), npart, p.R1,
+                        p.row_len, 2), dtype=f32, device=dev)
     ybuf = torch.empty((nchan * len(pols), npart, p.n_fft, 2), dtype=f32,
                        device=dev)
     pb = (torch.empty((nchan, npolf, p.n_fft), dtype=f32, device=dev)
@@ -106,7 +108,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
             nchan, p.npol, fwd[0], npolf, store, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nplane, detection_code(p),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, stream)
+            p.nsamp_step, tc, tk, layout_code(p), stream)
     if rc != 0:
         msg = lib.megafil_error_string(rc).decode()
         raise RuntimeError(f"megafil launch failed: CUDA error {rc}: {msg}")

@@ -26,12 +26,13 @@ from . import build
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 15 + [_i] * 16 + [_f, _f] + [_i] * 5 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 15 + [_i] * 16 + [_f, _f] + [_i] * 6 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
 MAX_THREADS = 512
 #: largest tiles tried: columns of ``mega_fwd1``, row pairs of ``mega_fwd2``
-TILE_CAPS = (8, 4)
+#: (real input), rows of ``mega_fwd2c`` (complex input)
+TILE_CAPS = (8, 4, 8)
 
 
 def _lib() -> ctypes.CDLL:
@@ -39,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     if lib.megastep_launch.argtypes is None:
         lib.megastep_launch.argtypes = _LAUNCH_ARGTYPES
         lib.megastep_launch.restype = _i
-        lib.megastep_resources.argtypes = [_i] * 9
+        lib.megastep_resources.argtypes = [_i] * 10
         lib.megastep_resources.restype = _i
         lib.megastep_error_string.argtypes = [_i]
         lib.megastep_error_string.restype = ctypes.c_char_p
@@ -84,10 +85,12 @@ def twiddle_tables(R1: int, row_len: int, M: int,
     - for L = R1, row_len and M, L entries: for each pass s >= 1 of the
       length-L FFT in turn (radix R, Ns = product of the earlier radices),
       ``exp(-2 pi i k r / (Ns R))`` at ``(r-1)*Ns + k``, then zeros;
-    - ``lo[e] = exp(-2 pi i e / 2N)``, ``e < 2^lo_bits``, and ``hi[e] =
-      exp(-2 pi i e 2^lo_bits / 2N)``, ``e < 2N / 2^lo_bits``, with 2N =
-      R1 * row_len and lo_bits = (log2(2N) + 1) // 2;
-    - ``col[k1*16 + c] = exp(-2 pi i c k1 / 2N)``, ``k1 < R1``, ``c < 16``.
+    - over the window length W = R1 * row_len (2N real samples for real
+      input, where row_len = 2 R2; N complex samples for complex input,
+      where row_len = R2): ``lo[e] = exp(-2 pi i e / W)``, ``e <
+      2^lo_bits``, and ``hi[e] = exp(-2 pi i e 2^lo_bits / W)``, ``e < W /
+      2^lo_bits``, with lo_bits = (log2(W) + 1) // 2;
+    - ``col[k1*16 + c] = exp(-2 pi i c k1 / W)``, ``k1 < R1``, ``c < 16``.
 
     Computed in float64 and rounded once to ``dtype`` (complex64 for the
     kernels)."""
@@ -131,8 +134,9 @@ def device_tables(plan: MegaPlan, dev: torch.device) -> torch.Tensor:
 
 
 def forward_tiles(res, plan: MegaPlan, limit: int) -> tuple[int, int]:
-    """Tiles (columns of ``mega_fwd1``, row pairs of ``mega_fwd2``): the
-    largest powers of two up to ``TILE_CAPS`` (and row_len, R1/2) whose
+    """Tiles (columns of ``mega_fwd1``; row pairs of ``mega_fwd2`` for real
+    input, rows of ``mega_fwd2c`` for complex input): the largest powers of
+    two up to ``TILE_CAPS`` (and row_len; R1/2 pairs or R1 rows) whose
     shared memory ``res(0, which, tile)`` fits in ``limit`` and whose
     threads ``res(1, which, tile)`` fit in a block."""
     def tile(which: int, start: int) -> int:
@@ -142,8 +146,24 @@ def forward_tiles(res, plan: MegaPlan, limit: int) -> tuple[int, int]:
             t //= 2
         return t
 
-    return (tile(0, min(TILE_CAPS[0], plan.row_len)),
-            tile(1, min(TILE_CAPS[1], plan.R1 // 2)))
+    rows = (min(TILE_CAPS[1], plan.R1 // 2) if plan.real_input
+            else min(TILE_CAPS[2], plan.R1))
+    return tile(0, min(TILE_CAPS[0], plan.row_len)), tile(1, rows)
+
+
+def layout_code(plan: MegaPlan) -> int:
+    """The raw bytes' layout as the kernels' ``Layout``
+    (``csrc/mega_common.cuh``): 0 real TFP, 1 real CASPSR, 2 complex
+    TFP."""
+    if not plan.real_input:
+        return 2
+    return 1 if plan.interleave == "caspsr" else 0
+
+
+def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:
+    """Stage-1 sequences a (channel, window): one packed sequence for real
+    input, one per transformed pol for complex input."""
+    return 1 if plan.real_input else npolf
 
 
 def check_resources(res, plan: MegaPlan, tiles, limit: int) -> None:
@@ -175,8 +195,8 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     npart = phi0.shape[0]
     nchan = p.nchan_in
     f32 = torch.float32
-    check_tensor(raw, "raw", torch.uint8,
-                 (p.block_ndat(npart) * nchan * p.npol,), dev)
+    nbytes = p.block_ndat(npart) * nchan * p.npol * p.ndim
+    check_tensor(raw, "raw", torch.uint8, (nbytes,), dev)
     check_tensor(phi0, "phi0", f32, (npart,), dev)
     check_tensor(dphi, "dphi", f32, (npart,), dev)
     check_tensor(profiles, "profiles", f32,
@@ -184,8 +204,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     check_tensor(hits, "hits", f32, (nchan, p.nbin), dev)
     check_tensor(cst.gr, "cst.gr", f32, (nchan, p.n_fft), dev)
     check_tensor(cst.gi, "cst.gi", f32, (nchan, p.n_fft), dev)
-    if p.block_ndat(npart) * nchan * p.npol >= 1 << 31 \
-            or npart * p.nkeep >= 1 << 31:
+    if nbytes >= 1 << 31 or npart * p.nkeep >= 1 << 31:
         raise NotImplementedError("blocks of 2^31 bytes or output samples")
 
     lib = _lib()
@@ -195,7 +214,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     def res(kind, which, tile):
         return lib.megastep_resources(kind, which, p.R1, p.row_len,
                                       p.freq_res, npolf, p.nplane, p.nbin,
-                                      tile)
+                                      tile, layout_code(p))
 
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit)
@@ -205,8 +224,8 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     hits_out = torch.empty_like(hits)
     tw = device_tables(p, dev)
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
-    cbuf = torch.empty((nchan, npart, p.R1, p.row_len, 2), dtype=f32,
-                       device=dev)
+    cbuf = torch.empty((nchan * cbuf_seqs(p, npolf), npart, p.R1,
+                        p.row_len, 2), dtype=f32, device=dev)
     ybuf = torch.empty((nchan * npolf, npart, p.n_fft, 2), dtype=f32,
                        device=dev)
     pacc = torch.empty_like(profiles)
@@ -224,7 +243,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, lo, hi, stream)
+            p.nsamp_step, tc, tk, lo, hi, layout_code(p), stream)
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()
         raise RuntimeError(f"megastep launch failed: CUDA error {rc}: {msg}")

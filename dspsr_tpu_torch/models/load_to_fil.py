@@ -5,8 +5,8 @@ requantize -> SIGPROC or PSRFITS search file (the ``digifil`` workflow).
 Counterpart of ``dspsr_tpu/models/load_to_fil.py`` for the configurations
 the JAX package runs on its fused search front end (``build_megafil``): a
 convolving filterbank (``freq_res > 1``: ``-D`` or ``-x``), Intensity, over
-real-sampled 8-bit input, with ``-K``, ``-t``, ``-f``, ``-c``, ``-I``, ``-s``
-and output nbits 1/2/4/8/32.  The host reads raw bytes and writes packed
+8-bit input (real-sampled or complex, TFP or CASPSR bytes), with ``-K``,
+``-t``, ``-f``, ``-c``, ``-I``, ``-s`` and output nbits 1/2/4/8/32.  The host reads raw bytes and writes packed
 bytes; everything between runs on the device, one fused step a block.  A
 configuration that needs the JAX package's XLA chain raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
@@ -149,7 +149,7 @@ class FilPipeline:
         obs = self.obs_in
         real_input = obs.state == Signal.NYQUIST
 
-        # raises for anything but real 8-bit TFP input
+        # raises for anything but 8-bit input in TFP or CASPSR order
         self.unpack_plan = UnpackPlan(obs,
                                       twos_complement=cfg.twos_complement)
         self.nchan_subband = max(1, cfg.nchan // obs.nchan)

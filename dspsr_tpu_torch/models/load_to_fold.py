@@ -1,9 +1,9 @@
 """Fold-mode pipeline on the fused kernels: load -> (unpack, filterbank with
 chirp, detect, fold) -> archive.
 
-Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for real-sampled 8-bit
-input through a convolving filterbank (``nchan > nchan_in``), in the JAX
-package's two fused engines:
+Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for 8-bit input
+(real-sampled or complex, TFP or CASPSR bytes) through a convolving
+filterbank (``nchan > nchan_in``), in the JAX package's two fused engines:
 
 - ``mega_mode == "full"``: one call of the fused fold step
   (``build_megastep``) folds the block; any detection state but NthPower,
@@ -356,7 +356,7 @@ class FoldPipeline:
             dm = obs.dispersion_measure
         self.dm = float(dm or 0.0)
 
-        # --- unpacker (raises for anything but real 8-bit TFP) ---
+        # --- unpacker (raises for anything but 8-bit TFP or CASPSR) ---
         self.unpack_plan = UnpackPlan(obs,
                                       twos_complement=cfg.twos_complement)
 

@@ -4,9 +4,13 @@ Counterpart of ``dspsr_tpu/ops/megakernel.py``.  One call folds a whole
 block of raw bytes into carried ``profiles [nchan_in, nplane, nsub, nbin]``
 and ``hits [nchan_in, nbin]``:
 
-1. unpack the 8-bit codes (``code * scale + offset``);
-2. forward FFT of each overlap-save window of ``2N`` real samples, keeping
-   bins ``0..N-1`` (Nyquist dropped), ``N = nsub * freq_res``;
+1. unpack the 8-bit codes (``code * scale + offset``), from TFP order or
+   from the CASPSR layout (``unpack.unpackers.reorder_bytes_tfp``);
+2. forward FFT of each overlap-save window: real input, ``2N`` samples,
+   bins ``0..N-1`` kept (Nyquist dropped); complex (analytic) input, ``N``
+   complex samples ``re + i im``, all bins kept, ``fftshift``-ed so that
+   natural bin ``j`` is FFT bin ``(j + N/2) mod N`` (the JAX package's
+   order).  ``N = nsub * freq_res``;
 3. multiply the input channel's dedispersion chirp (natural bin order);
 4. inverse FFT of each subband's ``freq_res`` bins, scaled by
    ``1/freq_res``, keeping ``nfilt_pos <= t < nfilt_pos + nkeep``;
@@ -33,6 +37,10 @@ call (the hybrid fold engine's front end); its kernel is
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
 they existed for the TPU's matrix unit, and the Hopper kernels run
 register-resident FFTs with twiddle tables built by their wrapper instead.
+The JAX package also folds the complex input's ``fftshift`` into its chirp
+(a ``-N/2`` roll) and its inverse matrix; here the chirp, the passband and
+the spectra between the kernels' passes are all in natural (centred) bin
+order, so no roll exists outside ``convert``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..unpack.unpackers import reorder_bytes_tfp
 from .fold import compute_bins
 
 _KERNEL_ITEM = "ROADMAP.md Queue 1 item 7 and Queue 2 item 1"
@@ -243,18 +252,12 @@ class MegaPlan:
 
 def check_supported(plan: MegaPlan) -> None:
     """Raise ``NotImplementedError`` for a plan outside this slice: the
-    port's step covers real-sampled 8-bit TFP input only."""
+    port's step covers 8-bit input, real-sampled or complex, in TFP order or
+    in the CASPSR layout."""
     if plan.nbit != 8 or plan.npw:
         raise NotImplementedError(
             f"nbit={plan.nbit}, npw={plan.npw}: the fused step is ported for "
             "8-bit input only; see " + _KERNEL_ITEM)
-    if not plan.real_input:
-        raise NotImplementedError(
-            "analytic (complex) input on the fused step; see " + _KERNEL_ITEM)
-    if plan.interleave != "tfp":
-        raise NotImplementedError(
-            f"{plan.interleave} byte layout on the fused step; see "
-            + _KERNEL_ITEM)
 
 
 def unpack_affine(nbit: int, twos_complement: bool = False) -> Tuple[float, float]:
@@ -294,9 +297,11 @@ class MegaConstants:
     """What the fused step reads besides the data: the per-input-channel
     chirp and the unpack map.
 
-    ``gr``/``gi`` are float32 ``[nchan_in, n_fft]`` in natural bin order;
-    they equal the JAX package's ``MegaConstants.gr/gi`` bitwise after
-    undoing its ``[k1, k2]`` permutation (``convert.constants_from_numpy``).
+    ``gr``/``gi`` are float32 ``[nchan_in, n_fft]`` in natural bin order
+    (for complex input the centred order of ``fftshift``); they equal the
+    JAX package's ``MegaConstants.gr/gi`` bitwise after undoing its ``[k1,
+    k2]`` permutation and, for complex input, its ``-N/2`` roll
+    (``convert.constants_from_numpy``).
     Built by :meth:`build` as numpy arrays; :meth:`to` gives tensors.
     """
 
@@ -412,24 +417,32 @@ def fold_bins(plan: MegaPlan, phi0: torch.Tensor,
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
                  gi=None):
-    """The front end both plain steps share: unpack, ``rfft`` of each
-    window (Nyquist dropped), chirp (``gr``/``gi``, default the
-    constants'), per-subband ``ifft`` (kept samples only) and detection, in
-    ``dtype``.  Returns ``[nchan_in, nplane, npart, nsub, nkeep]`` and the
-    passband (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the
-    sum over windows of every input pol's ``|X|^2`` before the chirp."""
+    """The front end both plain steps share: unpack (CASPSR bytes through
+    the plain reorder), the spectrum of each window (real input: ``rfft``,
+    Nyquist dropped; complex input: ``fft`` then ``fftshift``, natural
+    centred order), chirp (``gr``/``gi``, default the constants'),
+    per-subband ``ifft`` (kept samples only) and detection, in ``dtype``.
+    Returns ``[nchan_in, nplane, npart, nsub, nkeep]`` and the passband
+    (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the sum over
+    windows of every input pol's ``|X|^2`` before the chirp."""
     p = plan
     check_supported(p)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     nchan, M = p.nchan_in, p.freq_res
+    raw = reorder_bytes_tfp(raw, p.interleave, p.npol)
     codes = raw.view(torch.int8) if p.twos_complement else raw
     x = codes.to(dtype) * cst.unpack_scale + cst.unpack_offset
-    x = x.reshape(p.block_ndat(npart), nchan, p.npol).permute(1, 2, 0)
+    x = x.reshape(p.block_ndat(npart), nchan, p.npol, p.ndim).permute(
+        1, 2, 0, 3)
+    x = x[..., 0] if p.real_input else torch.complex(x[..., 0], x[..., 1])
     pols = list(fold_pols(p))
     if not passband:
         x = x[:, pols]
-    win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, 2N]
-    spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
+    win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, L]
+    if p.real_input:
+        spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
+    else:
+        spec = torch.fft.fftshift(torch.fft.fft(win, dim=-1), dim=-1)
     pb = None
     if passband:
         pb = torch.sum(spec.real * spec.real + spec.imag * spec.imag, dim=2)
@@ -450,9 +463,9 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     phase is float32 whatever that dtype.
 
     profiles ``[nchan_in, nplane, nsub, nbin]``, hits ``[nchan_in, nbin]``,
-    raw uint8 flat TFP bytes of one block, phi0/dphi ``[npart]`` per-window
-    anchors, bounds ``None`` or ``(lo, hi)``.  Returns new
-    ``(profiles, hits)``.
+    raw uint8 flat bytes of one block in the plan's layout, phi0/dphi
+    ``[npart]`` per-window anchors, bounds ``None`` or ``(lo, hi)``.
+    Returns new ``(profiles, hits)``.
     """
     p = plan
     npart = phi0.shape[0]
@@ -502,9 +515,9 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
 # --------------------------------------------------------------------------
 
 def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
-    """Passband ``[nchan_in, npol, n_fft]`` in natural bin order ->
-    ``[nchan_in*nsub, npol, freq_res]`` by output channel (the JAX
-    package's ``_depermute_pb`` for real input)."""
+    """Passband ``[nchan_in, npol, n_fft]`` in natural bin order (centred
+    for complex input) -> ``[nchan_in*nsub, npol, freq_res]`` by output
+    channel (the JAX package's ``_depermute_pb``)."""
     p = plan
     npol = pb.shape[1]
     return pb.reshape(p.nchan_in, npol, p.nsub, p.freq_res).permute(
@@ -515,7 +528,7 @@ def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                   npart: int, dtype=torch.float32, passband: bool = False,
                   gr=None, gi=None):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
-    in ``dtype`` (float32 or float64): raw uint8 flat TFP bytes of one block
+    in ``dtype`` (float32 or float64): raw uint8 flat bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
     (output channel ``c*nsub + s``); with ``passband`` also the pre-chirp
     passband ``[nchan_in*nsub, npol, freq_res]`` of every input pol, summed

@@ -1,9 +1,11 @@
-"""Unpack description (host side).
+"""Unpack description (host side) and the plain byte reorder.
 
-Counterpart of ``dspsr_tpu/unpack/unpackers.py:212-294``.  The fused kernel
-unpacks in its first pass, so here only the plan lives: which byte layout and
-code type a stream has.  This slice covers 8-bit TFP codes, offset-binary or
-two's complement, real-sampled.  Every other stream raises
+Counterpart of ``dspsr_tpu/unpack/unpackers.py:212-294``.  The fused kernels
+unpack in their first pass, so here live only the plan (which byte layout
+and code type a stream has) and the plain PyTorch version of the CASPSR
+reorder that the plain fused step uses.  This slice covers 8-bit codes,
+offset-binary or two's complement, real-sampled or complex (analytic), in
+TFP order or in the CASPSR layout.  Every other stream raises
 ``NotImplementedError``.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..observation import Observation
 
@@ -44,10 +47,23 @@ def state_counts_from_byte_counts(byte_counts, nbit: int) -> np.ndarray:
     return out
 
 
+def reorder_bytes_tfp(raw: torch.Tensor, layout: str,
+                      npol: int) -> torch.Tensor:
+    """An instrument's 8-bit byte stream in TFP sample order (the JAX
+    package's ``reorder_bytes_tfp``).  CASPSR packs four consecutive
+    samples of each pol together, ``[tblk, pol, 4]``: TFP sample ``(t,
+    pol)`` is byte ``(t // 4)*npol*4 + pol*4 + t % 4``."""
+    if layout == "tfp":
+        return raw
+    if layout == "caspsr":
+        return raw.reshape(-1, npol, 4).transpose(1, 2).reshape(-1)
+    raise ValueError(f"unknown byte layout: {layout}")
+
+
 @dataclass
 class UnpackPlan:
     """How a stream is unpacked.  Raises ``NotImplementedError`` for any
-    stream but real-sampled 8-bit TFP."""
+    stream but 8-bit codes (real or complex) in TFP or CASPSR order."""
 
     obs: Observation
     twos_complement: bool = False
@@ -63,13 +79,12 @@ class UnpackPlan:
                                             self.twos_complement)
         if self.obs.nbit != 8:
             raise NotImplementedError(
-                f"NBIT={self.obs.nbit}: only 8-bit input is ported; see "
-                + _UNPACK_ITEM)
-        if self.layout != "tfp":
+                f"NBIT={self.obs.nbit}: only 8-bit input is ported (JA98 "
+                "2-bit and 1/2/4/32-bit are not); see " + _UNPACK_ITEM)
+        if self.layout not in ("tfp", "caspsr"):
             raise NotImplementedError(
-                f"byte layout {self.layout!r}: only TFP is ported; see "
-                + _UNPACK_ITEM)
-        if self.obs.ndim != 1:
-            raise NotImplementedError(
-                "complex (analytic) input: only real-sampled input is "
+                f"byte layout {self.layout!r}: only TFP and CASPSR are "
                 "ported; see " + _UNPACK_ITEM)
+        if self.layout == "caspsr" and (
+                self.obs.nchan != 1 or self.obs.ndim != 1):
+            raise ValueError("CASPSR layout is 8-bit real single-channel")

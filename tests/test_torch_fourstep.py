@@ -1,6 +1,7 @@
 """A float64 numpy mirror of the CUDA forward half and inverse
 (``dspsr_tpu_torch/csrc/mega_common.cuh``), held against ``numpy.fft.rfft``
-and the port's plain front end (``ops.megakernel._front_plain``).
+(real input), ``numpy.fft.fftshift(numpy.fft.fft(.))`` (complex input) and
+the port's plain front end (``ops.megakernel._front_plain``).
 
 The CUDA code cannot run on the CPU, so its index algebra is checked here:
 the register-resident Stockham FFT (``fft_regs``: pass radices, thread
@@ -8,7 +9,9 @@ pattern ``j + T*i``, butterfly placement, table twiddles, the in-register
 radix-2 DFT and its bit reversal), the packing of two real pols into one
 complex sequence with the power-of-two scale of pol b, the row pairs
 {k1, R1 - k1} with the self-paired rows 0 and R1/2, the partner columns and
-the separation, the tile walk, and the wrapper's twiddle-table layout
+the separation, the tile walk, the CASPSR byte index, the complex forward
+half (one sequence per pol, the twiddle divisor N, one row a slot, the
+centred store index), and the wrapper's twiddle-table layout
 (``kernels.megastep.twiddle_tables``, built here in float64 so that the
 mirror can be held to 1e-12).
 """
@@ -133,23 +136,25 @@ class Geom:
     twos: bool = False
     scale: float = 1.0
     offset: float = -127.5
+    cplx: bool = False  # complex (analytic) input: 2 bytes a pol sample
+    caspsr: bool = False  # real input in the CASPSR byte layout
 
     @property
     def row_len(self):
-        return 2 * self.R2
+        return self.R2 if self.cplx else 2 * self.R2
 
     @property
     def n(self):
         return self.R1 * self.R2
 
     def ndat(self):
-        return (self.npart - 1) * self.step + 2 * self.n
+        return (self.npart - 1) * self.step + self.R1 * self.row_len
 
 
 def tables64(g):
     """The wrapper's table buffer, in float64, split as ``Tables``."""
     buf = twiddle_tables(g.R1, g.row_len, g.M, dtype=np.complex128)
-    log2n = (2 * g.n).bit_length() - 1
+    log2n = (g.R1 * g.row_len).bit_length() - 1
     lo_bits = (log2n + 1) // 2
     o = np.cumsum([0, g.R1, g.row_len, g.M, 1 << lo_bits,
                    1 << (log2n - lo_bits), 16 * g.R1])
@@ -159,11 +164,25 @@ def tables64(g):
                 lo_bits=lo_bits)
 
 
+def byte_index(g, t, c, pol):
+    """Byte of real sample (t, c, pol): TFP, or the CASPSR layout
+    (``caspsr_byte``); for complex input the byte of the real part."""
+    if g.caspsr:
+        return (t >> 2) * g.npol * 4 + pol * 4 + (t & 3)
+    return ((t * g.nchan + c) * g.npol + pol) * (2 if g.cplx else 1)
+
+
 def values(g, raw, pol):
-    """Unpacked float64 samples of one pol, [nchan, ndat]."""
+    """Unpacked float64 samples of one pol, [nchan, ndat] (complex for
+    complex input), straight from the TFP view of the bytes."""
     codes = raw.view(np.int8) if g.twos else raw
-    x = codes.reshape(g.ndat(), g.nchan, g.npol)[:, :, pol].T
-    return x.astype(np.float64) * g.scale + g.offset
+    if g.caspsr:  # the JAX package's reorder
+        codes = codes.reshape(-1, g.npol, 4).transpose(0, 2, 1).reshape(-1)
+    ndim = 2 if g.cplx else 1
+    x = codes.reshape(g.ndat(), g.nchan, g.npol, ndim)[:, :, pol].astype(
+        np.float64) * g.scale + g.offset
+    x = x[..., 0] + 1j * x[..., 1] if g.cplx else x[..., 0]
+    return x.T
 
 
 def pol_exponent(ea, eb):
@@ -200,9 +219,9 @@ def fwd1(g, raw, tb, psum, tc):
     v = np.empty((P, T, g.nchan, g.npart, g.row_len), complex)
     for i in range(P):
         t = w * g.step + (j + T * i) * g.row_len + m
-        off = (t * g.nchan + c) * g.npol + g.pols[0]
-        a = codes[off] * g.scale + g.offset
-        b = (codes[off + 1] * g.scale + g.offset) * sb if npolf == 2 else 0.0
+        a = codes[byte_index(g, t, c, g.pols[0])] * g.scale + g.offset
+        b = (codes[byte_index(g, t, c, g.pols[0] + 1)] * g.scale
+             + g.offset) * sb if npolf == 2 else 0.0
         v[i] = a + 1j * b
     v = fft_regs(v, g.R1, -1, tb["r1"])
     cbuf = np.empty((g.nchan, g.npart, g.R1, g.row_len), complex)
@@ -297,9 +316,93 @@ def inverse(g, ybuf, tb, nsub):
     return out
 
 
+def fwd1_complex(g, raw, tb, tc):
+    """``mega_fwd1<P, kComplexTfp>`` over every (channel, pol, window,
+    column) in tiles of ``tc`` columns: one sequence per transformed pol,
+    the (re, im) bytes of each sample, twiddle exp(-2 pi i m k1 / N).  cbuf
+    [nchan, npolf, npart, R1, R2]."""
+    P = fft_points(g.R1)
+    T = g.R1 // P
+    npolf = len(g.pols)
+    j = np.arange(T)[:, None, None, None, None]
+    c = np.arange(g.nchan)[None, :, None, None, None]
+    q = np.arange(npolf)[None, None, :, None, None]
+    w = np.arange(g.npart)[None, None, None, :, None]
+    m = np.arange(g.row_len)[None, None, None, None, :]
+    codes = raw.view(np.int8) if g.twos else raw
+    v = np.empty((P, T, g.nchan, npolf, g.npart, g.row_len), complex)
+    for i in range(P):
+        t = w * g.step + (j + T * i) * g.row_len + m
+        off = byte_index(g, t, c, g.pols[0] + q)
+        v[i] = ((codes[off] * g.scale + g.offset)
+                + 1j * (codes[off + 1] * g.scale + g.offset))
+    v = fft_regs(v, g.R1, -1, tb["r1"])
+    cbuf = np.empty((g.nchan, npolf, g.npart, g.R1, g.row_len), complex)
+    mask = (1 << tb["log2n"]) - 1
+    col = m % tc
+    for i in range(P):
+        k1 = (np.arange(T) + T * i)[:, None, None, None, None]
+        ex = ((m - col) * k1) & mask
+        tw = (tb["hi"][ex >> tb["lo_bits"]]
+              * tb["lo"][ex & ((1 << tb["lo_bits"]) - 1)]
+              * tb["col"][k1 * 16 + col])
+        cbuf[:, :, :, k1[:, 0, 0, 0, 0], :] = np.moveaxis(v[i] * tw, 0, 3)
+    return cbuf
+
+
+def fwd2_complex(g, cbuf, tb, chirp, tr, store=None, tap=False):
+    """``mega_fwd2c`` over every tile of ``tr`` rows: the length-R2 FFT of
+    each row, every column kept, bin k = k2*R1 + k1 stored at the centred
+    natural index ((k2 + R2/2) mod R2)*R1 + k1 of ybuf [nchan*nstore, npart,
+    N], where the chirp and the passband are read; also how often each
+    index was written and, with ``tap``, the passband [nchan, npolf, N]."""
+    R1, R2 = g.R1, g.R2
+    P = fft_points(R2)
+    T = R2 // P
+    npolf = len(g.pols)
+    store = (3 if npolf == 2 else 1) if store is None else store
+    nstore = (store & 1) + (store >> 1)
+    ybuf = np.full((g.nchan * nstore, g.npart, g.n), np.nan, complex)
+    pb = np.zeros((g.nchan, npolf, g.n)) if tap else None
+    writes = np.zeros(g.n, int)
+    j = np.arange(T)
+    lg = tr.bit_length() - 1
+    for a in range(0, R1, tr):
+        rows = a + np.arange(tr)
+        # v[ii, j, r, c, q, w]
+        v = np.empty((P, T, tr, g.nchan, npolf, g.npart), complex)
+        for ii in range(P):
+            v[ii] = cbuf[:, :, :, rows][..., j + T * ii].transpose(4, 3, 0, 1,
+                                                                  2)
+        v = fft_regs(v, R2, -1, tb["row"])
+        sm = np.empty((tr, R2, g.nchan, npolf, g.npart), complex)
+        for ii in range(P):
+            sm[:, j + T * ii] = v[ii].transpose(1, 0, 2, 3, 4)
+        t = np.arange(tr * R2)
+        k2, r = t >> lg, t & (tr - 1)
+        x = sm[r, k2]  # [tr*R2, nchan, npolf, npart]
+        k = ((k2 + R2 // 2) & (R2 - 1)) * R1 + a + r
+        np.add.at(writes, k, 1)
+        for c in range(g.nchan):
+            slot = c * nstore
+            for q in range(npolf):
+                if tap:
+                    pb[c, q, k] += (np.abs(x[:, c, q]) ** 2).sum(-1)
+                if store >> q & 1:
+                    # (slot, k) index first: [tr*R2, npart]
+                    ybuf[slot, :, k] = x[:, c, q] * chirp[c, k][:, None]
+                    slot += 1
+    return (ybuf, writes, pb) if tap else (ybuf, writes)
+
+
 def mirror_forward(g, raw, chirp, tp, tc=TILE_CAPS[0], store=None,
                    tap=False):
+    """The forward half: ``tp`` row pairs (real input) or rows (complex)
+    a tile of the row pass, ``tc`` columns of the column pass."""
     tb = tables64(g)
+    if g.cplx:
+        cbuf = fwd1_complex(g, raw, tb, min(tc, g.row_len))
+        return fwd2_complex(g, cbuf, tb, chirp, tp, store, tap)
     psum = polpow(g, raw) if len(g.pols) == 2 else None
     cbuf, e = fwd1(g, raw, tb, psum, min(tc, g.row_len))
     return fwd2(g, cbuf, e, tb, chirp, tp, store, tap)
@@ -310,6 +413,9 @@ def mirror_forward(g, raw, chirp, tp, tc=TILE_CAPS[0], store=None,
 # --------------------------------------------------------------------------
 
 def _raw(g, rng, unequal=False):
+    if g.cplx:
+        return rng.integers(0, 256, size=g.ndat() * g.nchan * g.npol * 2,
+                            dtype=np.uint8)
     raw = rng.integers(0, 256, size=(g.ndat(), g.nchan, g.npol), dtype=np.uint8)
     if unequal:
         raw[:, :, -1] = rng.integers(127, 129, size=(g.ndat(), g.nchan))
@@ -440,7 +546,80 @@ def test_unequal_pols_keep_their_precision(nchan):
         assert np.abs(got - want).max() / np.abs(want).max() < TOL
 
 
+COMPLEX_CASES = [
+    dict(R1=R1, R2=R2, npol=npol, pols=pols, nchan=nchan, tr=tr, tc=tc)
+    for R1 in (8, 16, 64) for R2 in (8, 32)
+    for (npol, pols) in ((2, (0, 1)), (1, (0,)), (2, (1,)))
+    for nchan in (1, 2)
+    for tr, tc in ((1, 16), (min(TILE_CAPS[2], R1), TILE_CAPS[0]),
+                   (min(2, R1), 4))
+    if (nchan == 1 or npol == 2) and (tr == 1 or pols == (0, 1))
+]
+
+
+@pytest.mark.parametrize("case", COMPLEX_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()).replace(" ", ""))
+def test_complex_forward_mirror_matches_fft(case):
+    """Complex input: every bin of every pol, window and channel is written
+    once, at its centred natural index, and equals fftshift(fft) * chirp of
+    that pol's window of N complex samples."""
+    R1, R2 = case["R1"], case["R2"]
+    g = Geom(R1=R1, R2=R2, M=R1, nchan=case["nchan"], npol=case["npol"],
+             pols=case["pols"], npart=2, step=R1 * R2 - 2 * R2, cplx=True)
+    rng = np.random.default_rng(R1 * 100 + R2 + 7)
+    raw = _raw(g, rng)
+    chirp = np.exp(1j * rng.uniform(-3, 3, (g.nchan, g.n)))
+    ybuf, writes = mirror_forward(g, raw, chirp, case["tr"], case["tc"])
+    assert (writes == 1).all()
+    assert np.isfinite(ybuf).all()
+    npolf = len(g.pols)
+    for q, pol in enumerate(g.pols):
+        x = values(g, raw, pol)
+        for w in range(g.npart):
+            win = x[:, w * g.step:w * g.step + g.n]
+            want = np.fft.fftshift(np.fft.fft(win, axis=-1), axes=-1) * chirp
+            got = ybuf[np.arange(g.nchan) * npolf + q, w]
+            assert np.abs(got - want).max() / np.abs(want).max() < TOL
+
+
+@pytest.mark.parametrize("R1,R2", [(8, 8), (64, 32)])
+@pytest.mark.parametrize("pols", [(0, 1), (0,), (1,)])
+def test_caspsr_forward_mirror_matches_rfft(R1, R2, pols):
+    """Real input in the CASPSR byte layout: the kernels' byte index gives
+    the spectra of the reordered (TFP) stream."""
+    g = Geom(R1=R1, R2=R2, M=R1, nchan=1, npol=2, pols=pols, npart=2,
+             step=2 * R1 * R2 - 4 * R2, twos=True, caspsr=True)
+    g.scale, g.offset = tmk.unpack_affine(8, True)
+    rng = np.random.default_rng(R1 + R2)
+    raw = _raw(g, rng)
+    chirp = np.exp(1j * rng.uniform(-3, 3, (1, g.n)))
+    ybuf, writes = mirror_forward(g, raw, chirp, min(4, R1 // 2))
+    assert (writes == 1).all()
+    for q, pol in enumerate(pols):
+        x = values(g, raw, pol)
+        for w in range(g.npart):
+            win = x[:, w * g.step:w * g.step + 2 * g.n]
+            want = np.fft.rfft(win, axis=-1)[:, :g.n] * chirp
+            assert np.abs(ybuf[q, w] - want[0]).max() / np.abs(want).max() \
+                < TOL
+
+
 NSUB, FREQ_RES, NPART = 4, 64, 3
+
+
+def _geom(plan, raw_kw=None):
+    """The mirror's geometry for a port plan."""
+    g = Geom(R1=plan.R1, R2=plan.R2, M=plan.freq_res, nchan=plan.nchan_in,
+             npol=plan.npol, pols=tmk.fold_pols(plan), npart=NPART,
+             step=plan.nsamp_step, twos=plan.twos_complement,
+             cplx=not plan.real_input, caspsr=plan.interleave == "caspsr")
+    g.scale, g.offset = tmk.unpack_affine(8, plan.twos_complement)
+    return g
+
+
+def _row_tile(plan):
+    """Row pairs (real input) or rows (complex) of the mirror's row pass."""
+    return min(8, plan.R1 // 2) if plan.real_input else min(8, plan.R1)
 
 
 @pytest.mark.parametrize("kw", [
@@ -449,28 +628,34 @@ NSUB, FREQ_RES, NPART = 4, 64, 3
     dict(npol=2, npol_out=4, twos_complement=True),
     dict(npol=2, npol_out=2, unequal=True),
     dict(npol=2, nsub=1, freq_res=256),
+    dict(npol=2, npol_out=4, complex=True),
+    dict(npol=2, detection="qq", complex=True),
+    dict(npol=1, complex=True),
+    dict(npol=2, npol_out=2, nchan_in=2, twos_complement=True, complex=True),
+    dict(npol=2, nsub=1, freq_res=256, complex=True),
+    dict(npol=2, npol_out=4, interleave="caspsr", twos_complement=True),
+    dict(npol=2, detection="pp", interleave="caspsr"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_front_mirror_matches_plain(kw):
     """The mirror's detected front end equals the port's float64
-    ``_front_plain`` (rfft, chirp, ifft, detect) on the same plan."""
+    ``_front_plain`` (rfft, or fft and fftshift for complex input; chirp,
+    ifft, detect) on the same plan."""
     kw = dict(kw)
     unequal = kw.pop("unequal", False)
+    real = not kw.pop("complex", False)
     nsub, freq_res = kw.pop("nsub", NSUB), kw.pop("freq_res", FREQ_RES)
-    fb = FilterbankPlan(real_input=True, nchan_subband=nsub,
+    fb = FilterbankPlan(real_input=real, nchan_subband=nsub,
                         freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
     jplan = jmk.MegaPlan.from_filterbank(fb, nbin=2, **kw)
     plan = tmk.MegaPlan(**dataclasses.asdict(jplan))
     rng = np.random.default_rng(11)
     nci = plan.nchan_in
-    g = Geom(R1=plan.R1, R2=plan.R2, M=plan.freq_res, nchan=nci,
-             npol=plan.npol, pols=tmk.fold_pols(plan), npart=NPART,
-             step=plan.nsamp_step, twos=plan.twos_complement)
-    g.scale, g.offset = tmk.unpack_affine(8, plan.twos_complement)
+    g = _geom(plan)
     raw = _raw(g, rng, unequal)
     resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
     cst = tmk.MegaConstants.build(plan, resp, g.scale, g.offset).to("cpu")
     chirp = cst.gr.double().numpy() + 1j * cst.gi.double().numpy()
-    ybuf, writes = mirror_forward(g, raw, chirp, min(8, plan.R1 // 2))
+    ybuf, writes = mirror_forward(g, raw, chirp, _row_tile(plan))
     v = inverse(g, ybuf, tables64(g), nsub) / freq_res
     v = v[..., plan.nfilt_pos:plan.nfilt_pos + plan.nkeep]
     got = tmk._detect_plain(torch.from_numpy(v), plan).numpy()
@@ -482,6 +667,47 @@ def test_front_mirror_matches_plain(kw):
         assert err < TOL, (p, err)
 
 
+def _passband_tap(detection, store, nchan, real):
+    """The passband tap mirror against the float64 plain front end with
+    ``passband=True`` and a chirp that zeroes some bins."""
+    npol_out = 2 if detection == "auto" else 1
+    fb = FilterbankPlan(real_input=real, nchan_subband=NSUB,
+                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
+    jplan = jmk.MegaPlan.from_filterbank(fb, nbin=2, npol=2, nchan_in=nchan,
+                                         npol_out=npol_out,
+                                         detection=detection)
+    plan = tmk.MegaPlan(**dataclasses.asdict(jplan))
+    rng = np.random.default_rng(store)
+    g = _geom(plan)
+    g.pols = (0, 1)  # the tap transforms both pols
+    raw = _raw(g, rng)
+    resp = np.exp(1j * rng.uniform(-3, 3, (nchan * NSUB, FREQ_RES)))
+    resp[:, ::7] = 0.0  # zapped bins: the tap reads the spectra before them
+    cst = tmk.MegaConstants.build(plan, resp, g.scale, g.offset).to("cpu")
+    chirp = cst.gr.double().numpy() + 1j * cst.gi.double().numpy()
+    ybuf, writes, pb = mirror_forward(g, raw, chirp, _row_tile(plan),
+                                      store=store, tap=True)
+    assert (writes == 1).all() and np.isfinite(ybuf).all()
+    kept = [q for q in (0, 1) if store >> q & 1]
+    assert ybuf.shape[0] == nchan * len(kept)
+    for q, pol in enumerate(kept):
+        x = values(g, raw, pol)
+        for w in range(g.npart):
+            if real:
+                win = x[:, w * g.step:w * g.step + 2 * g.n]
+                want = np.fft.rfft(win, axis=-1)[:, :g.n] * chirp
+            else:
+                win = x[:, w * g.step:w * g.step + g.n]
+                want = np.fft.fftshift(np.fft.fft(win, axis=-1),
+                                       axes=-1) * chirp
+            got = ybuf[np.arange(nchan) * len(kept) + q, w]
+            assert np.abs(got - want).max() / np.abs(want).max() < TOL
+    _, want = tmk.megafil_plain(plan, cst, torch.from_numpy(raw), NPART,
+                                torch.float64, passband=True)
+    got = tmk.passband_layout(plan, torch.from_numpy(pb)).numpy()
+    assert np.abs(got - want.numpy()).max() / want.numpy().max() < TOL
+
+
 @pytest.mark.parametrize("detection,store", [("pp", 1), ("qq", 2),
                                              ("auto", 3)])
 @pytest.mark.parametrize("nchan", [1, 2])
@@ -490,34 +716,13 @@ def test_passband_tap_mirror(detection, store, nchan):
     each summed over the windows before the chirp, only the detected pols'
     spectra kept; against the port's float64 plain front end with
     ``passband=True`` and a chirp that zeroes some bins."""
-    npol_out = 2 if detection == "auto" else 1
-    fb = FilterbankPlan(real_input=True, nchan_subband=NSUB,
-                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
-    jplan = jmk.MegaPlan.from_filterbank(fb, nbin=2, npol=2, nchan_in=nchan,
-                                         npol_out=npol_out,
-                                         detection=detection)
-    plan = tmk.MegaPlan(**dataclasses.asdict(jplan))
-    rng = np.random.default_rng(store)
-    g = Geom(R1=plan.R1, R2=plan.R2, M=plan.freq_res, nchan=nchan, npol=2,
-             pols=(0, 1), npart=NPART, step=plan.nsamp_step)
-    raw = _raw(g, rng)
-    resp = np.exp(1j * rng.uniform(-3, 3, (nchan * NSUB, FREQ_RES)))
-    resp[:, ::7] = 0.0  # zapped bins: the tap reads the spectra before them
-    cst = tmk.MegaConstants.build(plan, resp, g.scale, g.offset).to("cpu")
-    chirp = cst.gr.double().numpy() + 1j * cst.gi.double().numpy()
-    ybuf, writes, pb = mirror_forward(g, raw, chirp, min(8, plan.R1 // 2),
-                                      store=store, tap=True)
-    assert (writes == 1).all() and np.isfinite(ybuf).all()
-    kept = [q for q in (0, 1) if store >> q & 1]
-    assert ybuf.shape[0] == nchan * len(kept)
-    for q, pol in enumerate(kept):
-        x = values(g, raw, pol)
-        for w in range(g.npart):
-            win = x[:, w * g.step:w * g.step + 2 * g.n]
-            want = np.fft.rfft(win, axis=-1)[:, :g.n] * chirp
-            got = ybuf[np.arange(nchan) * len(kept) + q, w]
-            assert np.abs(got - want).max() / np.abs(want).max() < TOL
-    _, want = tmk.megafil_plain(plan, cst, torch.from_numpy(raw), NPART,
-                                torch.float64, passband=True)
-    got = tmk.passband_layout(plan, torch.from_numpy(pb)).numpy()
-    assert np.abs(got - want.numpy()).max() / want.numpy().max() < TOL
+    _passband_tap(detection, store, nchan, real=True)
+
+
+@pytest.mark.parametrize("detection,store", [("pp", 1), ("qq", 2),
+                                             ("auto", 3)])
+@pytest.mark.parametrize("nchan", [1, 2])
+def test_complex_passband_tap_mirror(detection, store, nchan):
+    """The passband tap on complex input: |X|^2 of each pol at its centred
+    natural index, summed over the windows before the chirp."""
+    _passband_tap(detection, store, nchan, real=False)

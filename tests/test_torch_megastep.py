@@ -156,7 +156,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("kw,cst_kw", [
     (dict(nbit=2, ndat_per_weight=16, real_input=False), {}),
     (dict(nbit=4), {}),
-    (dict(real_input=False), {}),
+    (dict(real_input=False, nbit=4), {}),
     (dict(), dict(window=np.ones(2 * NSUB * FREQ_RES))),
     (dict(), dict(jones=np.ones((1, NSUB * FREQ_RES, 2, 2)))),
 ])

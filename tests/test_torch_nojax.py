@@ -1,9 +1,10 @@
 """The port stands alone: in a fresh interpreter whose import system refuses
 ``jax`` and ``dspsr_tpu`` (a ``sys.meta_path`` finder that raises on either
 and on their submodules, but not on ``dspsr_tpu_torch``), every module of
-dspsr_tpu_torch imports, and its fold pipeline (full engine), its hybrid
-fold engine with in-stream spectral kurtosis and its search pipeline (to a
-SIGPROC file) run on the CPU from inputs built with the port's own classes;
+dspsr_tpu_torch imports, and its fold pipeline (full engine, on real and on
+complex input), its hybrid fold engine with in-stream spectral kurtosis and
+its search pipeline (to a SIGPROC file) run on the CPU from inputs built
+with the port's own classes;
 neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules`` afterwards.  Runs in
 a subprocess, since this test process has both loaded already."""
 
@@ -77,6 +78,11 @@ with tempfile.TemporaryDirectory() as d:
     items, hdr = read_sigproc_header(fil)
     with open(fil, "rb") as f:
         assert items["nchans"] == 4 and len(f.read()) > hdr
+    cplx = obs.replace(ndim=2, state=Signal.ANALYTIC, rate=1e6)
+    pipe = FoldPipeline(RawFileSource(raw, cplx), FoldConfig(**fold),
+                        device="cpu")
+    assert pipe.mega_mode == "full" and not pipe.mega_plan.real_input
+    assert pipe.run().hits.sum() > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(len(mods), loaded)
 """

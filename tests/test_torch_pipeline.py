@@ -168,10 +168,13 @@ def test_unsupported_config_raises(tmp_path, kw):
 
 
 @pytest.mark.parametrize("obs_kw", [
-    dict(nbit=2, nchan=2), dict(nbit=4), dict(instrument="CASPSR"),
-    dict(ndim=2, state="ANALYTIC")], ids=["2bit", "4bit", "caspsr",
-                                               "complex"])
+    dict(nbit=2, nchan=2), dict(nbit=4), dict(instrument="CASPSR", nbit=4),
+    dict(ndim=2, state="ANALYTIC", nbit=4)], ids=["2bit", "4bit", "caspsr",
+                                                  "complex"])
 def test_unsupported_input_raises(tmp_path, obs_kw):
+    """Inputs still to port: 2- and 4-bit codes, real, complex or in the
+    CASPSR layout (8-bit complex and CASPSR input are ported:
+    ``test_torch_analytic.py``, ``test_torch_caspsr.py``)."""
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.FoldPipeline(raw_source("port", path, **obs_kw),

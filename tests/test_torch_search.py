@@ -348,8 +348,8 @@ def test_xla_chain_configs_raise(tmp_path, kw):
 
 
 @pytest.mark.parametrize("obs_kw", [
-    dict(nbit=2, nchan=2), dict(nbit=4), dict(ndim=2, state="ANALYTIC")],
-    ids=["2bit", "4bit", "complex"])
+    dict(nbit=2, nchan=2), dict(nbit=4),
+    dict(ndim=2, state="ANALYTIC", nbit=4)], ids=["2bit", "4bit", "complex"])
 def test_unported_input_raises(tmp_path, obs_kw):
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="item 7"):
