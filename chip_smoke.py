@@ -17,7 +17,10 @@ and prints timings:
 - the hybrid fold engine (``hybrid_sk``: in-stream spectral kurtosis with
   1024-sample cells; ``hybrid_rfi``: the spectral RFI filter): kernel
   ``megafil`` with the passband tap and the chirp handed in per block, then
-  the fold tail in plain PyTorch.
+  the fold tail in plain PyTorch;
+- cyclic spectroscopy (``hybrid_cyclic``: 64 cyclic channels, 33 lags, 132
+  fold planes a channel, half-size blocks of 38 windows): kernel ``megafil``
+  with its voltage output, then the lag-product fold in plain PyTorch.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
@@ -121,9 +124,9 @@ def flagship_cfg(kind: str = "real", **kw):
     from dspsr_tpu_torch.models.load_to_fold import FoldConfig
 
     # mega_real_8bit, with J0437-4715's period in place of its polyco
+    kw = dict(dict(min_block_samples=block_samples(kind)), **kw)
     return FoldConfig(folding_period=0.00575745, dispersion_measure=2.64,
-                      nchan=64, nbin=1024, block_parts=8, npol_out=1,
-                      min_block_samples=block_samples(kind), **kw)
+                      nchan=64, nbin=1024, block_parts=8, npol_out=1, **kw)
 
 
 def search_cfg(kind: str = "real"):
@@ -135,6 +138,9 @@ def search_cfg(kind: str = "real"):
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest difference over the largest magnitude of ``b`` (complex
+    tensors as their (re, im) pairs)."""
+    a, b = (torch.view_as_real(x) if x.is_complex() else x for x in (a, b))
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max())
 
@@ -395,7 +401,7 @@ def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
             fn()
         torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    parts, times, rest, nrest = [], {}, 0.0, 0
+    parts, times, rest, nrest, other = [], {}, 0.0, 0, []
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -411,8 +417,12 @@ def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
             # kernels twice
             rest += us / reps / 1e3
             nrest += ev.count
+            other.append((us / reps / 1e3, ev.count // reps, ev.key[:60]))
     if others:
-        parts.append(f"other kernels {rest:.3f} ms ({nrest // reps} a call)")
+        top = "; ".join(f"{ms:.3f} ms x{n} {key}"
+                        for ms, n, key in sorted(other, reverse=True)[:3])
+        parts.append(f"other kernels {rest:.3f} ms ({nrest // reps} a call; "
+                     f"largest: {top})")
     print(f"kernel breakdown per block{label}: "
           f"{'; '.join(parts) or 'no device time'}; step scratch + outputs "
           f"{peak_mb:.0f} MiB [{card}]", flush=True)
@@ -556,6 +566,56 @@ def small_checks_megafil(kind: str = "real") -> None:
         check(bool(torch.isfinite(got).all()), f"finite megafil {kind} {kw}")
         check(err < TOL_SMALL, f"small megafil {kind} {kw}: {err} >= "
               f"{TOL_SMALL}")
+    small_checks_voltage(kind)
+
+
+def small_checks_voltage(kind: str = "real") -> None:
+    """The voltage output (``megafil_invvolt``) against the plain version
+    (f64) at the test geometry: two pols, one, two input channels, two's
+    complement; bare, with the passband tap, and with a masked chirp handed
+    in (with the tap)."""
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, build_megafil, megafil_plain, unpack_affine)
+
+    nsub, freq_res, npart = 4, 64, 3
+    cases = [dict(npol=2), dict(npol=1), dict(npol=2, nchan_in=2),
+             dict(npol=2, twos_complement=True)]
+    rng = np.random.default_rng(8)
+    for kw in cases:
+        plan = small_plan(kind, 2, **kw)
+        if plan is None:
+            continue
+        nci, npol = plan.nchan_in, plan.npol
+        raw = small_raw(plan, npart, rng)
+        resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
+        scale, offset = unpack_affine(8, plan.twos_complement)
+        cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
+        gr, gi = masked_chirp(cst, rng)
+        for variant in ("bare", "passband", "masked chirp"):
+            tap = variant != "bare"
+            args = (gr, gi) if variant == "masked chirp" else ()
+            out = build_megafil(plan, cst, npart, output="voltage",
+                                passband=tap,
+                                response_as_args=bool(args))(raw, *args)
+            got, pb = out if tap else (out, None)
+            want = megafil_plain(
+                plan, cst, raw, npart, torch.float64, passband=tap,
+                gr=args[0].double() if args else None,
+                gi=args[1].double() if args else None, output="voltage")
+            want, wpb = want if tap else (want, None)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            perr = rel_err(pb, wpb) if tap else 0.0
+            print(f"small megafil voltage {kind} {kw} {variant}: rel err "
+                  f"{err:.3e}, passband {perr:.3e}", flush=True)
+            check(got.dtype == torch.complex64
+                  and got.shape == (nci * nsub, npol, npart * plan.nkeep),
+                  f"voltage shape {kind} {kw} {variant}")
+            check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+                  f"finite voltage {kind} {kw} {variant}")
+            check(max(err, perr) < TOL_SMALL,
+                  f"small voltage {kind} {kw} {variant}: {err}, {perr} >= "
+                  f"{TOL_SMALL}")
 
 
 def search_block(card: str, kind: str = "real") -> dict:
@@ -792,6 +852,8 @@ def hybrid_pipe(**kw):
 
 HYBRID_SK = dict(sk_enable=True, sk_m=1024)  # bench.py:464-467
 HYBRID_RFI = dict(rfi_filter=True)  # bench.py:472-474
+# bench.py:486-493: 64 cyclic channels, half-size blocks
+HYBRID_CYCLIC = dict(cyclic_nchan=64, min_block_samples=1 << 24)
 
 
 def hybrid_block(card: str) -> dict:
@@ -921,6 +983,205 @@ def hybrid_rates(card: str) -> None:
                          label=f" ({name}, front end + tail)", others=True)
 
 
+def cyclic_anchors(pipe, block: int = 0):
+    """Phase anchors of block ``block`` of ``pipe`` on the card, over the
+    output samples padded to whole segments (as ``FoldPipeline.run``)."""
+    from dspsr_tpu_torch.ops.fold import compute_anchors
+
+    seg = pipe.fold_plan.seg_len
+    return (torch.from_numpy(a).cuda() for a in compute_anchors(
+        pipe.predictor,
+        pipe.output_start_time(block * pipe.stride_in_samples),
+        1.0 / pipe.obs_out.rate, -(-pipe.out_per_block // seg) * seg, seg))
+
+
+def lag_fold_cost(pipe) -> dict:
+    """The lag fold's bound per block: per (channel, pol, lag, sample) a
+    complex product (6 operations) and the weighted fold of its two planes
+    (4); bytes: the voltage, the weights and the anchors read once, the
+    profiles and hits read and written once."""
+    nchan, npol = pipe.obs_out.nchan, pipe.obs_stream.npol
+    nlag, n = pipe.cyclic_plan.nlag, pipe.out_per_block
+    ops = nchan * npol * nlag * n * (6 + 4)
+    nbytes = (8 * nchan * npol * (n + nlag - 1) + 4 * nchan * n
+              + 2 * 4 * nchan * (npol * nlag * 2 + 1) * pipe.nbin)
+    return dict(ops=ops, nbytes=nbytes, **bound_of(nbytes, ops))
+
+
+def cyclic_block(card: str) -> dict:
+    """One ``hybrid_cyclic`` block: the voltage kernel against the plain
+    front end (both f32) on device noise, both timed, beside the bound of
+    the front end and of the voltage inverse alone; then the block's fold
+    as the main path runs it (kernel, chunked lag fold) against the plain
+    voltage folded as whole lag planes."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+    from dspsr_tpu_torch.ops.cyclic import lag_planes
+    from dspsr_tpu_torch.ops.fold import fold_block
+    from dspsr_tpu_torch.ops.megakernel import megafil_plain
+
+    pipe = hybrid_pipe(**HYBRID_CYCLIC)
+    plan, cst, npart = pipe.front_plan, pipe.constants, pipe.npart
+    nlag, nchan = pipe.cyclic_plan.nlag, pipe.obs_out.nchan
+    check((npart, nlag, pipe.obs_out.npol, pipe.out_per_block)
+          == (38, 33, 132, 133728),
+          f"hybrid_cyclic geometry {npart} {nlag} {pipe.obs_out.npol} "
+          f"{pipe.out_per_block}")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
+    got = pipe._front(raw)[0]
+    want = megafil_plain(plan, cst, raw, npart, output="voltage")
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((torch.view_as_real(got)
+                     - torch.view_as_real(want)).abs().max())
+    print(f"flagship cyclic block (voltage, nlag {nlag}, npart {npart}, "
+          f"raw {raw.numel()} B): output {tuple(got.shape)} {got.dtype}; "
+          f"rel err {err:.3e} (abs {abs_err:.3e})", flush=True)
+    check(got.dtype == torch.complex64
+          and tuple(got.shape) == (nchan, 2, npart * plan.nkeep),
+          f"cyclic voltage {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+          "finite cyclic voltage")
+    check(err < TOL_FLAGSHIP, f"cyclic voltage rel err {err} >= "
+          f"{TOL_FLAGSHIP}")
+
+    kernel_ms = cuda_ms(lambda: pipe._front(raw), 10)
+    plain_ms = cuda_ms(
+        lambda: megafil_plain(plan, cst, raw, npart, output="voltage"), 3)
+    nbytes = raw.numel() + 8 * cst.gr.numel() + 8 * got.numel()
+    bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
+    times = kernel_breakdown(lambda: pipe._front(raw), card,
+                             label=" (megafil, voltage)")
+    # the voltage inverse alone: reads both pols' spectra, writes the
+    # voltage; nsub inverse FFTs a window and pol, one scale a sample
+    M = plan.freq_res
+    inv = bound_of(2 * npart * plan.n_fft * 8 + 8 * got.numel(),
+                   2 * npart * plan.nsub * (5 * M * math.log2(M)
+                                            + 2 * plan.nkeep))
+    inv_ms = next((v for k, v in times.items()
+                   if k.startswith("megafil_invvolt")), float("nan"))
+    print(f"megafil (voltage) per cyclic block: {kernel_ms:.3f} ms; plain: "
+          f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); megafil_invvolt {inv_ms:.3f} ms against "
+          f"its bound {inv['bound_ms']:.4f} ms ({inv['bound_by']}) [{card}]",
+          flush=True)
+
+    phi0, dphi = cyclic_anchors(pipe)
+    prof0 = torch.zeros(nchan, pipe.obs_out.npol, pipe.nbin, device="cuda")
+    hits0 = torch.zeros(nchan, pipe.nbin, device="cuda")
+    d, w, wp, _ = pipe._hybrid_block(raw)
+    pk, hk = pipe._fold_tail_d(prof0, hits0, d, w, wp, phi0, dphi)
+    planes = lag_planes(want, nlag)
+    pp, hp = fold_block(prof0, hits0, planes, w, phi0, dphi, pipe.fold_plan)
+    torch.cuda.synchronize()
+    del planes
+    ferr = rel_err(pk, pp)
+    hdiff = float((hk - hp).abs().max())
+    print(f"cyclic block fold (kernel + chunked lag fold against plain "
+          f"voltage + whole lag planes): profiles {tuple(pk.shape)}, rel err "
+          f"{ferr:.3e}, hits diff {hdiff}, hits sum {float(hk.sum())}",
+          flush=True)
+    check(bool(torch.isfinite(pk).all()), "finite cyclic block profiles")
+    check(ferr < TOL_FLAGSHIP, f"cyclic fold rel err {ferr} >= "
+          f"{TOL_FLAGSHIP}")
+    check(hdiff == 0 and float(hk.sum()) == nchan * pipe.out_per_block,
+          "cyclic block hits")
+    return dict(err=abs_err, ms=kernel_ms, plain_ms=plain_ms, **bound)
+
+
+def cyclic_path(card: str) -> int:
+    """``hybrid_cyclic`` at the flagship width, 3 blocks through
+    ``FoldPipeline.run`` with torch.fft and torch.matmul disabled; checks
+    the lag planes and the cyclic spectra; returns the megafil launches."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+
+    nblocks = 3
+    pipe = hybrid_pipe(**HYBRID_CYCLIC)
+    nlag, nchan = pipe.cyclic_plan.nlag, pipe.obs_out.nchan
+    reset_launch_counts()
+    with NoLibraryFFT():
+        t0 = time.perf_counter()
+        res = pipe.run(max_blocks=nblocks)
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["megafil"] == nblocks,
+          f"hybrid_cyclic: megafil launched {counts['megafil']} times")
+    check(counts["megastep"] == 0, "hybrid_cyclic: megastep launched")
+    check(res.profiles.shape == (1, nchan, 2 * nlag * 2, 1024),
+          f"hybrid_cyclic profiles shape {res.profiles.shape}")
+    check(bool(np.isfinite(res.profiles).all()), "hybrid_cyclic non-finite")
+    per_chan = res.hits.sum(axis=(0, 2))
+    check(bool((per_chan == nblocks * pipe.out_per_block).all()),
+          f"hybrid_cyclic hits per channel {per_chan[:4]}")
+    lags = res.normalized()[0].reshape(nchan, 2, nlag, 2, 1024)
+    power = lags[:, :, 0, 0]
+    check(bool((power > 0).all()), "lag 0 is not a power")
+    check(float(np.abs(lags[:, :, 0, 1]).max()) <= 1e-5 * float(power.max()),
+          "lag 0 has an imaginary part")
+    spec = res.cyclic_spectra()
+    check(spec.shape == (1, nchan, 2, 1024, pipe.config.cyclic_nchan)
+          and bool(np.isfinite(spec).all()), f"cyclic spectra {spec.shape}")
+    # the mean over the cyclic channels of each spectrum is its lag 0
+    sp_err = float(np.abs(spec[0].mean(-1) - power).max() / power.max())
+    check(sp_err < 1e-9, f"cyclic spectra against lag 0: {sp_err}")
+    msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    print(f"hybrid_cyclic: {nblocks} blocks, {counts['megafil']} megafil "
+          f"launches; profiles {res.profiles.shape}, hits/chan "
+          f"{int(per_chan[0])}; cyclic spectra {spec.shape}, mean over "
+          f"channels against lag 0 {sp_err:.2e}; host-fed incl. first-block "
+          f"warm-up {msps:.1f} Msamp/s, {msps / 800:.4f} x real time "
+          f"[{card}]", flush=True)
+    return counts["megafil"]
+
+
+def cyclic_rates(card: str) -> None:
+    """Device-fed rate of ``hybrid_cyclic`` (device noise bytes through the
+    front end and the lag-fold tail, warm), the front end and the tail
+    each alone, peak device memory, and the kernels a block."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    pipe = hybrid_pipe(**HYBRID_CYCLIC)
+    nbytes = block_bytes(pipe)
+    phi0, dphi = cyclic_anchors(pipe)
+
+    def step(raw):
+        d, w, wp, _ = pipe._hybrid_block(raw)
+        pipe._profiles, pipe._hits = pipe._fold_tail_d(
+            pipe._profiles, pipe._hits, d, w, wp, phi0, dphi)
+
+    def block(b):
+        step(device_noise_bytes(b * nbytes, nbytes, "cuda"))
+
+    block(0)
+    nb = 6
+    it = iter(range(1, nb + 1))
+    ms = cuda_ms(lambda: block(next(it)), nb)
+    raw0 = device_noise_bytes(0, nbytes, "cuda")
+    step_ms = cuda_ms(lambda: step(raw0), nb)
+    front_ms = cuda_ms(lambda: pipe._front(raw0), nb)
+    d, w, wp, _ = pipe._hybrid_block(raw0)
+    tail_ms = cuda_ms(lambda: pipe._fold_tail_d(
+        pipe._profiles, pipe._hits, d, w, wp, phi0, dphi), nb)
+    del d, w, wp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(raw0)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
+    cost = lag_fold_cost(pipe)
+    print(f"hybrid_cyclic device-fed (device_noise_bytes, front end + tail): "
+          f"{ms:.3f} ms a block ({pipe.stride_in_samples / 800e3:.2f} ms of "
+          f"sky), {msps:.1f} Msamp/s, {msps / 800:.3f} x real time; front "
+          f"end + tail alone {step_ms:.3f} ms: front end {front_ms:.3f} ms, "
+          f"lag-fold tail {tail_ms:.3f} ms (bound {cost['bound_ms']:.4f} ms, "
+          f"{cost['bound_by']}: {cost['ops'] / 1e9:.2f} GFLOP, "
+          f"{cost['nbytes'] / 1e6:.0f} MB); peak device memory of a step "
+          f"{peak_mb:.0f} MiB; real time is 800 Msamp/s [{card}]", flush=True)
+    kernel_breakdown(lambda: step(raw0), card,
+                     label=" (hybrid_cyclic, front end + tail)", others=True)
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -976,10 +1237,15 @@ def main() -> None:
     hybrid = hybrid_block(card)
     hybrid_launches = hybrid_path(card)
     hybrid_rates(card)
+    # cyclic spectroscopy: the voltage output and the lag-product fold
+    cyclic = cyclic_block(card)
+    hybrid_launches += cyclic_path(card)
+    cyclic_rates(card)
     flag["max_abs_err"] = max(f["max_abs_err"] for f in (flag, flag_c, flag_k))
     search["max_abs_err"] = max(search["max_abs_err"],
                                 search_c["max_abs_err"],
-                                search_k["max_abs_err"], hybrid["err"])
+                                search_k["max_abs_err"], hybrid["err"],
+                                cyclic["err"])
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",

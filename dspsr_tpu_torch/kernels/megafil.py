@@ -2,8 +2,8 @@
 (``csrc/megafil.cu``).
 
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megafil`` (the Pallas kernel
-and its de-permute) in the detected, scalar-chirp form, with the passband
-tap and a chirp handed in on each call.  The source note in
+and its de-permute) in the scalar-chirp form, detected or voltage output,
+with the passband tap and a chirp handed in on each call.  The source note in
 ``csrc/megafil.cu`` says what bounds it and how it is laid out.  This
 wrapper checks every operand, allocates the output and scratch with
 ``torch.empty``, launches the kernels on the current stream through the
@@ -20,7 +20,7 @@ import torch
 from ..device import count_launch
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, check_supported, detection_code, fold_pols,
-    passband_layout)
+    passband_layout, voltage_sign_flips)
 from . import build
 from .megastep import (
     cbuf_seqs, check_resources, check_tensor, device_tables, forward_tiles,
@@ -29,7 +29,7 @@ from .megastep import (
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 9 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 9 + [_i] * 17 + [_f, _f] + [_i] * 4 + [_c]
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,13 +45,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
-                 npart: int, passband: bool = False, gr=None, gi=None):
+                 npart: int, passband: bool = False, gr=None, gi=None,
+                 output: str = "detected"):
     """One fused search front-end step on the card; arguments as
     ``ops.megakernel.megafil_plain``.  Returns float32 ``[nchan_in*nsub,
-    nplane, npart*nkeep]``, and with ``passband`` also the passband
-    ``[nchan_in*nsub, npol, freq_res]``.  ``gr``/``gi`` (default
-    ``cst.gr``/``cst.gi``) are the chirp, float32 ``[nchan_in, n_fft]`` in
-    natural bin order."""
+    nplane, npart*nkeep]`` (``output="voltage"``: complex64
+    ``[nchan_in*nsub, npol, npart*nkeep]``, every input pol), and with
+    ``passband`` also the passband ``[nchan_in*nsub, npol, freq_res]``.
+    ``gr``/``gi`` (default ``cst.gr``/``cst.gi``) are the chirp, float32
+    ``[nchan_in, n_fft]`` in natural bin order."""
     check_supported(plan)
     p = plan
     dev = raw.device
@@ -73,9 +75,11 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         raise NotImplementedError("blocks of 2^31 samples per channel")
 
     lib = _lib()
-    pols = fold_pols(p)
+    voltage = output == "voltage"
+    pols = tuple(range(p.npol)) if voltage else fold_pols(p)
     # the forward transforms the detected pols, or with the passband tap
-    # every input pol, and keeps the detected ones (store bits)
+    # every input pol, and keeps the detected ones (store bits); the
+    # voltage keeps every input pol
     fwd = tuple(range(p.npol)) if passband else pols
     npolf = len(fwd)
     store = sum(1 << fwd.index(q) for q in pols)
@@ -89,8 +93,12 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     tc, tk = forward_tiles(res, p, limit)
     check_resources(res, p, (tc, tk), limit)
 
-    out = torch.empty((nchan * p.nsub, p.nplane, npart * p.nkeep), dtype=f32,
-                      device=dev)
+    if voltage:
+        out = torch.empty((nchan * p.nsub, p.npol, npart * p.nkeep),
+                          dtype=torch.complex64, device=dev)
+    else:
+        out = torch.empty((nchan * p.nsub, p.nplane, npart * p.nkeep),
+                          dtype=f32, device=dev)
     tw = device_tables(p, dev)
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
     cbuf = torch.empty((nchan * cbuf_seqs(p, npolf), npart, p.R1,
@@ -107,6 +115,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
             ybuf.data_ptr(), None if pb is None else pb.data_ptr(),
             nchan, p.npol, fwd[0], npolf, store, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nplane, detection_code(p),
+            int(voltage), int(voltage_sign_flips(p)),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
             p.nsamp_step, tc, tk, layout_code(p), stream)
     if rc != 0:

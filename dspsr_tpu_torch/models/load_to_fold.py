@@ -9,8 +9,9 @@ filterbank (``nchan > nchan_in``), in the JAX package's two fused engines:
   (``build_megastep``) folds the block; any detection state but NthPower,
   optional fourth moments, sample-exact sub-integrations.
 - ``mega_mode == "hybrid"``: the fused front end (``build_megafil``,
-  detected output) followed by the reference's fold tail in plain PyTorch
-  (detection conversion, fourth moments, in-stream spectral kurtosis, the
+  detected output, or the voltage for cyclic folding) followed by the
+  reference's fold tail in plain PyTorch (detection conversion or the
+  cyclic lag products, fourth moments, in-stream spectral kurtosis, the
   fold of one or more pulsars, dump, passband and pdmp extras), with the
   spectral RFI filter as a chirp handed to the front end each block.  A
   configuration the full step cannot take goes hybrid, as in the JAX
@@ -41,6 +42,7 @@ from ..timing.par import Ephemeris
 from ..timing.polyco import FixedPeriodPredictor, Polyco
 
 from ..device import host_to_device, resolve_device
+from ..ops.cyclic import CyclicPlan, fold_lag_products, lag_planes
 from ..ops.detection import from_front_planes
 from ..ops.filterbank import FilterbankPlan, update_observation
 from ..ops.fold import FoldPlan, choose_nbin, compute_anchors, fold_block
@@ -86,8 +88,9 @@ class FoldConfig:
     fourth_moment: bool = False
     interchannel_align: bool = False
 
-    # cyclic spectroscopy
-    cyclic_nchan: int = 0
+    # cyclic spectroscopy (reference -cyclic N / CyclicFold)
+    cyclic_nchan: int = 0  # cyclic channels per input channel (0 = off)
+    cyclic_mover: int = 1  # oversampling factor
 
     # input windowing
     seek_seconds: float = 0.0
@@ -190,6 +193,20 @@ class FoldResult:
         return dataclasses.replace(
             self, profiles=stokes, obs=self.obs.replace(state=Signal.STOKES))
 
+    def cyclic_spectra(self) -> np.ndarray:
+        """Phase-resolved cyclic spectra ``[nsubint, nchan, npol, nbin,
+        nchan_cyclic]`` from the folded lag planes (reference
+        ``CyclicFoldEngine::synch``; ``ops.cyclic.cyclic_spectra``)."""
+        from ..ops.cyclic import cyclic_spectra
+
+        if not self.cyclic_nlag:
+            raise ValueError("not a cyclic fold result")
+        return np.stack([
+            cyclic_spectra(self.normalized()[s].astype(np.float64),
+                           self.cyclic_nlag, self.cyclic_mover,
+                           self.cyclic_npol)
+            for s in range(self.profiles.shape[0])])
+
     def dedispersed(self, ref_freq: float | None = None) -> np.ndarray:
         """Normalized profiles with inter-channel dispersion delays rotated
         out by an FFT phase ramp (PSRCHIVE ``Archive::dedisperse``)."""
@@ -214,16 +231,16 @@ class FoldResult:
         return out
 
 
-_NEXT = "ROADMAP.md Queue 1 item 6 (what is left of the hybrid fold engine)"
+_CONV = "ROADMAP.md Queue 1 item 6.2 (the nsub == 1 convolution)"
+_JONES = "ROADMAP.md Queue 1 item 6.3 (Jones calibration)"
 _GENERAL = "ROADMAP.md Queue 1 item 8 (general chain)"
 
 
 def _unsupported(cfg: FoldConfig) -> Optional[str]:
     """Why ``cfg`` needs an engine the port lacks (None if it does not)."""
     checks = (
-        (cfg.cyclic_nchan, "cyclic folding (cyclic_nchan)", _NEXT),
         (cfg.calibration_path, "Jones calibration (calibration_path)",
-         _NEXT),
+         _JONES),
         (not cfg.use_megakernel, "use_megakernel=False", _GENERAL),
         (cfg.use_fft_bench, "measured FFT lengths (use_fft_bench)",
          "ROADMAP.md Queue 1 item 11"),
@@ -367,7 +384,7 @@ class FoldPipeline:
         if self.nchan_subband == 1:
             raise NotImplementedError(
                 "no filterbank stage (nchan_subband == 1): the fused "
-                f"engines need one here; see {_NEXT}")
+                f"engines need one here; see {_CONV}")
         nchan_out = obs.nchan * self.nchan_subband
         if cfg.coherent and self.dm > 0:
             nfp = Dedispersion._half_smearing_samples(
@@ -423,12 +440,22 @@ class FoldPipeline:
         else:
             self.kernel = None
 
+        # --- cyclic fold (CyclicFold.C; folds lag products, not power) ---
+        self.cyclic_plan = (CyclicPlan(cfg.cyclic_nchan, cfg.cyclic_mover)
+                            if cfg.cyclic_nchan else None)
+
         # --- detection ---
         self.det_state = cfg.detection_state()
         self.obs_out = self.obs_stream.apply_detection(self.det_state)
+        if self.cyclic_plan is not None:
+            self.obs_out = self.obs_stream.replace(
+                npol=self.obs_stream.npol * self.cyclic_plan.nlag * 2,
+                ndim=1)
         if cfg.fourth_moment:
             if cfg.npol_out != 4:
                 raise ValueError("fourth_moment requires npol_out=4 (Stokes)")
+            if self.cyclic_plan is not None:
+                raise ValueError("fourth moments of cyclic lag products")
             self.obs_out = self.obs_out.replace(npol=14)
 
         # --- spectral kurtosis (SpectralKurtosis.C; after detection) ---
@@ -480,8 +507,13 @@ class FoldPipeline:
         self._plan_blocks()
 
         # one phase anchor per overlap-save window of nkeep output samples
-        self.fold_plan = FoldPlan(self.nbin, mp.nkeep)
-        self.fold_plans = [FoldPlan(nb, mp.nkeep) for nb in self.nbins]
+        # (halved while longer than the block, which the cyclic lags
+        # shorten)
+        seg = mp.nkeep
+        while seg > 1 and seg > self.out_per_block:
+            seg //= 2
+        self.fold_plan = FoldPlan(self.nbin, seg)
+        self.fold_plans = [FoldPlan(nb, seg) for nb in self.nbins]
         scale, offset = unpack_affine(obs.nbit,
                                       self.unpack_plan.twos_complement)
         resp = self.kernel.phasors if self.kernel is not None else None
@@ -541,6 +573,7 @@ class FoldPipeline:
         hybrid tail handles sends the configuration to the hybrid engine."""
         cfg = self.config
         return (self.sk_plan is None
+                and self.cyclic_plan is None
                 and not cfg.rfi_filter
                 and self.det_state != Signal.NTHPOWER
                 and not cfg.dump_path
@@ -552,9 +585,10 @@ class FoldPipeline:
         """(npol_out, detection) of the hybrid front end: the per-pol
         powers or coherence products the tail needs, which
         ``ops.detection.from_front_planes`` turns into the target state
-        (``load_to_fold.py:861-884``; its cyclic branch, which needs the
-        voltage output, is not ported)."""
-        if self.obs_in.npol == 1:
+        (``load_to_fold.py:861-884``).  Cyclic folding takes the voltage
+        output instead (``_build_hybrid``), for which the plan's detection
+        is immaterial."""
+        if self.obs_in.npol == 1 or self.cyclic_plan is not None:
             return 1, "auto"
         if (self.det_state in (Signal.COHERENCE, Signal.STOKES)
                 or self.config.fourth_moment):
@@ -583,6 +617,7 @@ class FoldPipeline:
         self._rfi_2pass = rfi and cfg.rfi_same_block
         self._front = build_megafil(
             self.front_plan, self.constants, self.npart, return_weights=True,
+            output="voltage" if self.cyclic_plan is not None else "detected",
             passband=cfg.passband or rfi, response_as_args=rfi)
         # the bare chirp the RFI mask multiplies
         self._bare = (self.constants.gr, self.constants.gi)
@@ -624,10 +659,12 @@ class FoldPipeline:
         tail: ``(d, weights, w_presk, extras)``.
 
         ``d [nchan_out, npol_out, ndat_out]`` is the target state (with the
-        fourth moments), ``weights`` the fold weights after the SK mask,
-        ``w_presk`` those before it (``-noskz_too``), ``extras`` the dump,
-        passband and pdmp moments of the block.  Advances the carried RFI
-        response."""
+        fourth moments) or, when folding cyclically, the complex voltage
+        ``[nchan_out, npol, ndat_out + nlag - 1]`` whose lag products the
+        fold builds (``_fold``); ``weights [nchan_out, ndat_out]`` are the
+        fold weights after the SK mask, ``w_presk`` those before it
+        (``-noskz_too``), ``extras`` the dump, passband and pdmp moments of
+        the block.  Advances the carried RFI response."""
         cfg = self.config
         p = self.front_plan
         if self._rfi_2pass:
@@ -642,17 +679,25 @@ class FoldPipeline:
         if self._rfi_resp is not None:
             # this block's mask applies from the next block on
             self._rfi_resp = self._zap_response(pb)
-        nchan_out, ndat_out = data.shape[0], data.shape[2]
+        nchan_out, ndat_out = data.shape[0], self.out_per_block
         # per-window weights over each window's nkeep outputs and over the
-        # input channel's subbands
+        # input channel's subbands; the cyclic lags end the block nlag - 1
+        # samples early
         weights = wwin.repeat_interleave(p.nsub, dim=0)[:, :, None].expand(
-            nchan_out, self.npart, p.nkeep).reshape(nchan_out, ndat_out)
-        d = from_front_planes(data, self.det_state, p.npol_out)
+            nchan_out, self.npart, p.nkeep).reshape(nchan_out, -1)[
+                :, :ndat_out]
+        # the voltage's lag products are built as the fold runs (_fold)
+        d = (data if self.cyclic_plan is not None
+             else from_front_planes(data, self.det_state, p.npol_out))
         if cfg.fourth_moment:
             d = fourth_moment(d)
         w_presk = weights if self._presk_index is not None else None
         if self.sk_plan is not None:
-            power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
+            # per-pol power; from the voltage, over the whole block
+            if self.cyclic_plan is not None:
+                power = data.real * data.real + data.imag * data.imag
+            else:
+                power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
             M = self.sk_plan.M
             skm = sk_mask(power, self.sk_plan, ndat_out // M)
             self._count_zap("sk", skm)
@@ -664,15 +709,20 @@ class FoldPipeline:
                     dtype=torch.float32, device=skw.device)], dim=-1)
             weights = weights * skw
         extras = {}
+        if cfg.dump_path or cfg.pdmp_stats:
+            # the folded stream itself: the detected planes, or the lag
+            # planes
+            dd = (lag_planes(d, self.cyclic_plan.nlag)
+                  if self.cyclic_plan is not None else d)
         if cfg.dump_path:
-            extras["dump"] = d.permute(2, 0, 1).contiguous()
+            extras["dump"] = dd.permute(2, 0, 1).contiguous()
         if cfg.passband:
             extras["passband"] = pb
         if cfg.pdmp_stats:
             # pdmp extras: moments S1..S4 of the detected stream per
             # (chan, pol) (Stats.C)
             extras["pdmp"] = torch.stack(
-                [torch.sum(d ** k, dim=2) for k in (1, 2, 3, 4)], dim=-1)
+                [torch.sum(dd ** k, dim=2) for k in (1, 2, 3, 4)], dim=-1)
         return d, weights, w_presk, extras
 
     def _fold_tail_d(self, profiles, hits, d, weights, w_presk, phi0, dphi,
@@ -684,22 +734,31 @@ class FoldPipeline:
         ``w_presk``.  ``phi0``/``dphi`` are ``[nsrc, nseg]`` with several
         sources."""
         if bounds is not None:
-            idx = torch.arange(d.shape[2], device=d.device)
+            idx = torch.arange(weights.shape[1], device=d.device)
             span = ((idx >= bounds[0]) & (idx < bounds[1])).to(torch.float32)
             weights = weights * span[None, :]
             if w_presk is not None:
                 w_presk = w_presk * span[None, :]
         if not isinstance(profiles, tuple):
-            return fold_block(profiles, hits, d, weights, phi0, dphi,
+            return self._fold(profiles, hits, d, weights, phi0, dphi,
                               self.fold_plan)
         ps, hs = [], []
         for s in range(len(profiles)):
             w = w_presk if s == self._presk_index else weights
-            p_, h_ = fold_block(profiles[s], hits[s], d, w, phi0[s], dphi[s],
-                                self.fold_plans[s])
+            p_, h_ = self._fold(profiles[s], hits[s], d, w, phi0[s],
+                                dphi[s], self.fold_plans[s])
             ps.append(p_)
             hs.append(h_)
         return tuple(ps), tuple(hs)
+
+    def _fold(self, profiles, hits, d, weights, phi0, dphi, plan):
+        """One source's fold of the block: the detected planes
+        (``fold_block``) or the voltage's lag products
+        (``fold_lag_products``)."""
+        if self.cyclic_plan is not None:
+            return fold_lag_products(profiles, hits, d, self.cyclic_plan.nlag,
+                                     weights, phi0, dphi, plan)
+        return fold_block(profiles, hits, d, weights, phi0, dphi, plan)
 
     def signal_path(self) -> list:
         """Ordered record of the op chain with its resolved parameters
@@ -736,7 +795,11 @@ class FoldPipeline:
         if self.sk_plan is not None:
             path.append({"op": "SpectralKurtosis", "m": cfg.sk_m,
                          "std_devs": cfg.sk_std_devs})
-        path.append({"op": "Detection", "state": self.det_state.value})
+        if self.cyclic_plan is not None:
+            path.append({"op": "CyclicFold", "nlag": self.cyclic_plan.nlag,
+                         "mover": self.cyclic_plan.mover})
+        else:
+            path.append({"op": "Detection", "state": self.det_state.value})
         if cfg.fourth_moment:
             path.append({"op": "FourthMoment"})
         path.append({
@@ -774,6 +837,9 @@ class FoldPipeline:
             else cfg.block_parts
         self.block_in_samples = p.block_ndat(self.npart)
         self.out_per_block = self.npart * p.nkeep
+        if self.cyclic_plan is not None:
+            # the lag products consume nlag - 1 samples of each block
+            self.out_per_block -= self.cyclic_plan.nlag - 1
         self.stride_in_samples = self.npart * self.nsamp_step
 
     # ---- host streaming loop (SingleThread::run equivalent) ----
@@ -818,6 +884,9 @@ class FoldPipeline:
         tsamp_out = 1.0 / self.obs_out.rate
         nuse = self.out_per_block
         seg = self.fold_plan.seg_len
+        # the anchors cover the trailing partial segment, so every one of
+        # the block's nuse output samples folds
+        nuse_pad = -(-nuse // seg) * seg
 
         # sample-exact sub-integrations (reference TimeDivide/SubFold): a
         # block that spans a boundary is folded once per division with
@@ -854,7 +923,7 @@ class FoldPipeline:
             if self.config.digitizer_stats and self.obs_in.nbit <= 8:
                 self._byte_counts += np.bincount(raw, minlength=256)
             with rep.stage("anchors"):
-                pairs = [compute_anchors(p, t_out0, tsamp_out, nuse, seg)
+                pairs = [compute_anchors(p, t_out0, tsamp_out, nuse_pad, seg)
                          for p in self.predictors]
                 phi0 = np.stack([a for a, _ in pairs])
                 dphi = np.stack([b for _, b in pairs])
@@ -1019,6 +1088,12 @@ class FoldPipeline:
                 nbin=self.nbin if nbin is None else nbin,
                 folding_period=predictor.period(self.obs_in.start_time),
                 dispersion_measure=self.dm if dm is None else dm,
+                cyclic_nlag=(self.cyclic_plan.nlag if self.cyclic_plan
+                             else 0),
+                cyclic_mover=(self.cyclic_plan.mover if self.cyclic_plan
+                              else 1),
+                cyclic_npol=(self.obs_stream.npol if self.cyclic_plan
+                             else 1),
                 signal_path=self.signal_path(),
                 digitizer_counts=counts,
                 extra_sources=extras,

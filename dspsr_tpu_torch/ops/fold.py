@@ -70,6 +70,17 @@ def compute_bins(phi0: torch.Tensor, dphi: torch.Tensor, seg_len: int,
     return bins.clamp_(0, nbin - 1).reshape(-1)
 
 
+def fold_bins_for(phi0: torch.Tensor, dphi: torch.Tensor, plan: FoldPlan,
+                  ndat: int) -> Tuple[torch.Tensor, int]:
+    """``(bins, n)``: the phase bins of the first ``n = min(ndat, nseg *
+    seg_len)`` samples.  Anchors that cover a trailing partial segment
+    (``nseg = ceil(ndat / seg_len)``, the JAX package's ``nuse_pad``) fold
+    every sample, as its zero-weight padding does; fewer anchors drop the
+    samples past their last segment."""
+    n = min(ndat, phi0.shape[-1] * plan.seg_len)
+    return compute_bins(phi0, dphi, plan.seg_len, plan.nbin)[:n], n
+
+
 def fold_block(profiles: torch.Tensor, hits: torch.Tensor, x: torch.Tensor,
                weights: torch.Tensor, phi0: torch.Tensor, dphi: torch.Tensor,
                plan: FoldPlan) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,12 +89,10 @@ def fold_block(profiles: torch.Tensor, hits: torch.Tensor, x: torch.Tensor,
 
     ``profiles [nchan, npol, nbin]``, ``hits [nchan, nbin]``, detected ``x
     [nchan, npol, ndat]``, ``weights [nchan, ndat]`` (0 drops a sample,
-    ``Fold.C:782-788``), anchors ``phi0``/``dphi [nseg]``.  Samples past
-    ``nseg * seg_len`` are not folded.
+    ``Fold.C:782-788``), anchors ``phi0``/``dphi [nseg]``: samples past
+    ``nseg * seg_len`` are not folded (:func:`fold_bins_for`).
     """
-    nchan, npol, ndat = x.shape
-    n = (ndat // plan.seg_len) * plan.seg_len
-    bins = compute_bins(phi0, dphi, plan.seg_len, plan.nbin)[:n]
+    bins, n = fold_bins_for(phi0, dphi, plan, x.shape[2])
     w = weights[:, :n].to(profiles.dtype)
     prof = torch.zeros_like(profiles).index_add_(
         2, bins, x[:, :, :n].to(profiles.dtype) * w[:, None, :])

@@ -28,11 +28,11 @@ launches the hand-written kernel (``kernels.megastep``); on CPU tensors it
 runs ``megastep_plain``.
 
 The search front end (``megafil_plain``, ``build_megafil``) runs steps 1-5
-and returns the detected samples in time order instead of folding them,
-optionally with the pre-chirp passband and with the chirp handed in per
-call (the hybrid fold engine's front end); its kernel is
-``kernels.megafil``.  Both plain versions share one front end
-(``_front_plain``).
+and returns the detected samples in time order instead of folding them, or
+steps 1-4 and the undetected voltage (the cyclic fold's input), optionally
+with the pre-chirp passband and with the chirp handed in per call (the
+hybrid fold engine's front end); its kernel is ``kernels.megafil``.  Both
+plain versions share one front end (``_front_plain``).
 
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
 they existed for the TPU's matrix unit, and the Hopper kernels run
@@ -56,8 +56,7 @@ from ..unpack.unpackers import reorder_bytes_tfp
 from .fold import compute_bins
 
 _KERNEL_ITEM = "ROADMAP.md Queue 1 item 7 and Queue 2 item 1"
-_NEXT_SLICE = ("ROADMAP.md Queue 1 item 6 (what is left of the hybrid fold "
-               "engine)")
+_NEXT_SLICE = "ROADMAP.md Queue 1 item 6.3 (Jones calibration)"
 
 
 def _pow2(n: int) -> bool:
@@ -414,9 +413,18 @@ def fold_bins(plan: MegaPlan, phi0: torch.Tensor,
         phi0.shape[0], plan.nkeep)
 
 
+def voltage_sign_flips(plan: MegaPlan) -> bool:
+    """Whether the voltage output owes the ``(-1)^t`` factor of the
+    reference's per-chunk ``ifftshift`` (``t`` the sample's index in its
+    freq_res chunk): with several subbands or complex input, as the JAX
+    package restores it (``dspsr_tpu/ops/megakernel.py:1456-1464``).  One
+    subband of real input follows the convolution's convention: no shift."""
+    return plan.nsub > 1 or not plan.real_input
+
+
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
-                 gi=None):
+                 gi=None, voltage: bool = False):
     """The front end both plain steps share: unpack (CASPSR bytes through
     the plain reorder), the spectrum of each window (real input: ``rfft``,
     Nyquist dropped; complex input: ``fft`` then ``fftshift``, natural
@@ -424,7 +432,10 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     per-subband ``ifft`` (kept samples only) and detection, in ``dtype``.
     Returns ``[nchan_in, nplane, npart, nsub, nkeep]`` and the passband
     (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the sum over
-    windows of every input pol's ``|X|^2`` before the chirp."""
+    windows of every input pol's ``|X|^2`` before the chirp.  With
+    ``voltage`` the first is the undetected complex ``[nchan_in, npol,
+    npart, nsub, nkeep]`` of every input pol instead, with the sign of
+    :func:`voltage_sign_flips`."""
     p = plan
     check_supported(p)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
@@ -435,7 +446,7 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     x = x.reshape(p.block_ndat(npart), nchan, p.npol, p.ndim).permute(
         1, 2, 0, 3)
     x = x[..., 0] if p.real_input else torch.complex(x[..., 0], x[..., 1])
-    pols = list(fold_pols(p))
+    pols = list(range(p.npol)) if voltage else list(fold_pols(p))
     if not passband:
         x = x[:, pols]
     win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, L]
@@ -452,7 +463,12 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     spec = spec * torch.complex(gr, gi).to(cdtype)[:, None, None, :]
     sub = spec.reshape(nchan, -1, npart, p.nsub, M)
     v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
-    return _detect_plain(v, p), pb
+    if not voltage:
+        return _detect_plain(v, p), pb
+    if voltage_sign_flips(p):
+        t = torch.arange(p.nfilt_pos, p.nfilt_pos + p.nkeep, device=v.device)
+        v = v * (1 - 2 * (t % 2)).to(dtype)
+    return v, pb
 
 
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -526,20 +542,25 @@ def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
 
 def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                   npart: int, dtype=torch.float32, passband: bool = False,
-                  gr=None, gi=None):
+                  gr=None, gi=None, output: str = "detected"):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
     in ``dtype`` (float32 or float64): raw uint8 flat bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
-    (output channel ``c*nsub + s``); with ``passband`` also the pre-chirp
+    (output channel ``c*nsub + s``), or with ``output="voltage"`` the
+    undetected complex (complex64 or complex128) ``[nchan_in*nsub, npol,
+    npart*nkeep]`` of every input pol, signed as the JAX package restores
+    it (:func:`voltage_sign_flips`); with ``passband`` also the pre-chirp
     passband ``[nchan_in*nsub, npol, freq_res]`` of every input pol, summed
     over the block's windows.  ``gr``/``gi`` replace the constants' chirp
     (float ``[nchan_in, n_fft]``, natural bin order)."""
     p = plan
-    planes, pb = _front_plain(p, cst, raw, npart, dtype, passband, gr, gi)
+    voltage = output == "voltage"
+    planes, pb = _front_plain(p, cst, raw, npart, dtype, passband, gr, gi,
+                              voltage)
     # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
     # nkeep]: time order within each output channel
     data = planes.permute(0, 3, 1, 2, 4).reshape(
-        p.nchan_in * p.nsub, p.nplane, npart * p.nkeep)
+        p.nchan_in * p.nsub, planes.shape[1], npart * p.nkeep)
     if not passband:
         return data
     return data, passband_layout(p, pb)
@@ -551,12 +572,14 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
                   response_as_args: bool = False,
                   jones_as_args: bool = False):
     """The fused search front end for ``npart`` windows a block (the JAX
-    package's ``build_megafil``, detected output).  ``step(raw)``, or
-    ``step(raw, gr, gi)`` with ``response_as_args``, returns
-    ``data[, wgt][, pb]``:
+    package's ``build_megafil``).  ``step(raw)``, or ``step(raw, gr, gi)``
+    with ``response_as_args``, returns ``data[, wgt][, pb]``:
 
     - ``data``: float32 ``[nchan_in*nsub, nplane, npart*nkeep]`` detected,
-      time-ordered filterbank samples;
+      time-ordered filterbank samples; with ``output="voltage"`` the
+      undetected complex64 ``[nchan_in*nsub, npol, npart*nkeep]`` of every
+      input pol (the JAX package returns the same as a split pair), signed
+      by the rule of :func:`voltage_sign_flips` (the cyclic fold's input);
     - ``wgt`` (``return_weights``): per-window excision weights ``[nchan_in,
       npart]``, all ones (8-bit input has no JA98 excision);
     - ``pb`` (``passband``): the pre-chirp passband ``[nchan_in*nsub, npol,
@@ -572,13 +595,11 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
     On CUDA tensors the step launches the hand-written kernel
     (``kernels.megafil.megafil_cuda``); on CPU tensors it runs
     :func:`megafil_plain`.  ``cst`` holds tensors on the step's device.
-    The voltage output and the traced Jones planes raise
-    ``NotImplementedError``, as do fourth moments (the JAX kernel refuses
-    them too)."""
+    The traced Jones planes raise ``NotImplementedError``, as do fourth
+    moments (the JAX kernel refuses them too)."""
     if output not in ("detected", "voltage"):
         raise ValueError(f"unknown output mode: {output}")
     uncovered = (
-        (output == "voltage", "output='voltage'", _NEXT_SLICE),
         (jones_as_args, "jones_as_args=True", _NEXT_SLICE),
         (plan.fourth_moment, "fourth moments (applied after the front end)",
          "ROADMAP.md Queue 1 item 6 (the hybrid tail applies them)"),
@@ -598,10 +619,11 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
         if raw.is_cuda:
             from ..kernels.megafil import megafil_cuda
 
-            res = megafil_cuda(plan, cst, raw, npart, passband, gr, gi)
+            res = megafil_cuda(plan, cst, raw, npart, passband, gr, gi,
+                               output)
         else:
             res = megafil_plain(plan, cst, raw, npart, passband=passband,
-                                gr=gr, gi=gi)
+                                gr=gr, gi=gi, output=output)
         if not (passband or return_weights):
             return res
         data, pb = res if passband else (res, None)

@@ -7,9 +7,9 @@ relative (``tests/test_megakernel.py:817``).
 
 Also: the step's CPU dispatch, constants carried from JAX, the CUDA
 wrapper's refusal of CPU tensors, the keywords the port does not cover yet
-(the voltage output and traced Jones planes; the passband and the traced
-chirp are in ``test_torch_hybrid.py``), and the kernel build's tracking of
-shared headers.
+(the traced Jones planes; the passband and the traced chirp are in
+``test_torch_hybrid.py``, the voltage output in ``test_torch_cyclic.py``),
+and the kernel build's tracking of shared headers.
 """
 
 import dataclasses
@@ -141,8 +141,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(output="voltage"), dict(jones_as_args=True),
-    dict(output="voltage", passband=True),
+    dict(output="voltage", jones_as_args=True), dict(jones_as_args=True),
+    dict(output="voltage", passband=True, jones_as_args=True),
     dict(jones_as_args=True, response_as_args=True)],
     ids=lambda kw: "-".join(kw))
 def test_uncovered_keywords_raise(kw):

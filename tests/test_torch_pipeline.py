@@ -155,10 +155,11 @@ def test_save_archive(tmp_path, ext):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cyclic_nchan=4), dict(calibration_path="cal.txt"),
+    dict(cyclic_nchan=4, nchan=1), dict(calibration_path="cal.txt"),
     dict(use_megakernel=False), dict(use_fft_bench=True),
     dict(fft_window="hanning"), dict(nchan=1),
-    dict(sk_enable=True, cyclic_nchan=4), dict(rfi_filter=True, nchan=1),
+    dict(sk_enable=True, cyclic_nchan=4, nchan=1),
+    dict(rfi_filter=True, nchan=1),
 ], ids=lambda kw: "-".join(kw))
 def test_unsupported_config_raises(tmp_path, kw):
     path = _write_raw(tmp_path, 1 << 12)
