@@ -20,7 +20,11 @@ and prints timings:
   the fold tail in plain PyTorch;
 - cyclic spectroscopy (``hybrid_cyclic``: 64 cyclic channels, 33 lags, 132
   fold planes a channel, half-size blocks of 38 windows): kernel ``megafil``
-  with its voltage output, then the lag-product fold in plain PyTorch.
+  with its voltage output, then the lag-product fold in plain PyTorch;
+- the nsub == 1 convolution (``hybrid_conv32``: 32 complex 8-bit channels
+  at 12.5 Msamp/s, DM 71, freq_res 2^19, dspsr without ``-F``): kernel
+  ``megafil`` with its multi-pass inverse, then the fold tail; and the same
+  cell with polarization calibration (a Jones response, Stokes).
 
 Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
@@ -169,9 +173,11 @@ class NoLibraryFFT:
         return False
 
 
-def small_plan(kind: str, nbin: int, **kw):
-    """The test geometry (nsub 4, freq_res 64, nfilt 5/6) for ``kind``, or
-    None where the variant does not exist (CASPSR is one input channel)."""
+def small_plan(kind: str, nbin: int, nsub: int = 4, freq_res: int = 64,
+               **kw):
+    """The test geometry (nsub 4, freq_res 64, nfilt 5/6 before rounding)
+    for ``kind``, or None where the variant does not exist (CASPSR is one
+    input channel)."""
     from dspsr_tpu_torch.ops.filterbank import FilterbankPlan
     from dspsr_tpu_torch.ops.megakernel import MegaPlan
 
@@ -179,8 +185,8 @@ def small_plan(kind: str, nbin: int, **kw):
         if kw.get("nchan_in", 1) > 1:
             return None
         kw["interleave"] = "caspsr"
-    fb = FilterbankPlan(real_input=kind != "complex", nchan_subband=4,
-                        freq_res=64, nfilt_pos=5, nfilt_neg=6)
+    fb = FilterbankPlan(real_input=kind != "complex", nchan_subband=nsub,
+                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
     return MegaPlan.from_filterbank(fb, nbin=nbin, **kw)
 
 
@@ -1182,6 +1188,348 @@ def cyclic_rates(card: str) -> None:
                      label=" (hybrid_cyclic, front end + tail)", others=True)
 
 
+# --------------------------------------------------------------------------
+# the nsub == 1 convolution (hybrid_conv32) and Jones calibration
+# --------------------------------------------------------------------------
+
+def leaky_jones(n: int, nchan: int) -> np.ndarray:
+    """A leaky instrument's inverse, varying across the band: complex
+    ``[nchan, n, 2, 2]`` (random-phase diagonal, 30% cross terms)."""
+    f = np.linspace(0, 1, n)
+    eps = 0.3 * np.exp(2j * np.pi * (f + np.arange(nchan)[:, None] / nchan))
+    j = np.empty((nchan, n, 2, 2), np.complex128)
+    j[..., 0, 0] = np.exp(1j * 3 * f)
+    j[..., 1, 1] = 0.9 * np.exp(-2j * f)
+    j[..., 0, 1] = eps
+    j[..., 1, 0] = -0.1j * np.conj(eps)
+    return j
+
+
+def small_checks_conv(kind: str = "real") -> None:
+    """The multi-pass inverse (``megafil_inva``/``megafil_invb``, forced at
+    nsub 1 and freq_res 2^12-2^13, where one CTA would do) and the Jones
+    mix (on the one-CTA and the multi-pass inverse) against the float64
+    plain version at TOL_SMALL: one and two pols, Intensity, PPQQ, QQ,
+    Stokes and coherence, voltage; bare and with the passband tap and a
+    masked chirp."""
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, build_megafil, megafil_plain, unpack_affine)
+
+    npart = 3
+    cases = [
+        (dict(npol=2), "detected", 4096), (dict(npol=1), "detected", 4096),
+        (dict(npol=2, npol_out=2), "detected", 8192),
+        (dict(npol=2, detection="qq"), "detected", 4096),
+        (dict(npol=2, npol_out=4), "detected", 4096),
+        (dict(npol=2, npol_out=4, detection="coherence"), "detected", 4096),
+        (dict(npol=2, nchan_in=2), "detected", 4096),
+        (dict(npol=2), "voltage", 4096), (dict(npol=1), "voltage", 8192),
+    ]
+    jones_cases = [(dict(npol=2), "detected"),
+                   (dict(npol=2, npol_out=4), "detected"),
+                   (dict(npol=2, nchan_in=2), "voltage")]
+    rng = np.random.default_rng(9)
+    runs = [(kw, out, fr, False, "multipass") for kw, out, fr in cases]
+    runs += [(kw, out, 4096, True, inv) for kw, out in jones_cases
+             for inv in ("auto", "multipass")]
+    for kw, output, freq_res, jones, inverse in runs:
+        plan = small_plan(kind, 2, nsub=1, freq_res=freq_res, **kw)
+        if plan is None:
+            continue
+        nci = plan.nchan_in
+        raw = small_raw(plan, npart, rng)
+        resp = np.exp(1j * rng.uniform(-3, 3, (nci, freq_res)))
+        J = leaky_jones(plan.n_fft, nci) * resp[:, :, None, None] \
+            if jones else None
+        scale, offset = unpack_affine(8, plan.twos_complement)
+        cst = MegaConstants.build(plan, None if jones else resp, scale,
+                                  offset, jones=J).to("cuda")
+        gr, gi = masked_chirp(cst, rng)
+        for variant in ("bare", "masked tap"):
+            tap = variant != "bare"
+            args = (gr, gi) if tap else ()
+            out = build_megafil(plan, cst, npart, output=output,
+                                passband=tap, response_as_args=tap,
+                                inverse=inverse)(raw, *args)
+            got, pb = out if tap else (out, None)
+            want = megafil_plain(
+                plan, cst, raw, npart, torch.float64, passband=tap,
+                gr=gr.double() if tap else None,
+                gi=gi.double() if tap else None, output=output)
+            want, wpb = want if tap else (want, None)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            perr = rel_err(pb, wpb) if tap else 0.0
+            what = (f"small conv {kind} {kw} {output} M={freq_res} "
+                    f"{'jones ' if jones else ''}{inverse} {variant}")
+            print(f"{what}: rel err {err:.3e}, passband {perr:.3e}",
+                  flush=True)
+            check(got.shape == want.shape, f"{what}: shape")
+            check(bool(torch.isfinite(torch.view_as_real(got) if
+                                      got.is_complex() else got).all()),
+                  f"{what}: finite")
+            check(max(err, perr) < TOL_SMALL,
+                  f"{what}: {err}, {perr} >= {TOL_SMALL}")
+
+
+def conv32_obs():
+    """hybrid_conv32's input (``bench.py:438``): 32 complex 8-bit dual-pol
+    channels at 12.5 Msamp/s, -400 MHz at 1382 MHz."""
+    from dspsr_tpu_torch.models.load_to_fold import MJD, Observation, Signal
+
+    return Observation(
+        nchan=32, npol=2, ndim=2, nbit=8, centre_frequency=1382.0,
+        bandwidth=-400.0, rate=12.5e6,
+        start_time=MJD.from_utc("2010-04-13-02:05:45"),
+        state=Signal.ANALYTIC, source="J0437-4715", telescope="PKS",
+        instrument="DUMMY").replace(ndat=1 << 40)
+
+
+def conv32_pipe(**kw):
+    """hybrid_conv32 (``bench.py:439-442``: the flagship config with 32
+    channels, DM 71, freq_res 2^19, 4 windows a block; J0437's period),
+    through ``FoldPipeline`` on the card."""
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig, FoldPipeline
+
+    cfg = FoldConfig(**dict(dict(
+        folding_period=0.00575745, dispersion_measure=71.0, nchan=32,
+        nbin=1024, npol_out=1, frequency_resolution=1 << 19, block_parts=4,
+        min_block_samples=0), **kw))
+    pipe = FoldPipeline(DummySource(conv32_obs()), cfg, device="cuda")
+    p = pipe.mega_plan
+    check(pipe.mega_mode == "hybrid" and pipe.fb_plan is None
+          and (p.nsub, p.R1, p.R2, p.nkeep, pipe.npart,
+               pipe.block_in_samples)
+          == (1, 1024, 512, 462848, 4, 1912832),
+          f"hybrid_conv32 geometry {p} npart {pipe.npart}")
+    return pipe
+
+
+def multipass_bounds(plan, npart: int, nout: int, out_bytes: int,
+                     jones: bool) -> dict:
+    """Bounds of the multi-pass inverse's passes over one block: pass A
+    reads the stored spectra (and the Jones planes) and writes nout windows
+    of N points, nout R1 FFTs of R2 points a window and a twiddle; pass B
+    reads them and writes the output, nout R2 FFTs of R1 points a window."""
+    N, R1, R2 = plan.n_fft, plan.R1, plan.R2
+    seqs = plan.nchan_in * npart * nout
+    nin = 2 if jones else nout
+    a_bytes = (8 * plan.nchan_in * npart * N * (nin + nout)
+               + (8 * 4 * plan.nchan_in * N if jones else 0))
+    a_ops = seqs * (R1 * 5 * R2 * math.log2(R2) + 6 * N
+                    + (16 * N if jones else 0))
+    b_ops = seqs * R2 * 5 * R1 * math.log2(R1)
+    return {"A": bound_of(a_bytes, a_ops),
+            "B": bound_of(8 * plan.nchan_in * npart * N * nout + out_bytes,
+                          b_ops)}
+
+
+def conv32_block(card: str, jones_path: str | None = None) -> dict:
+    """One hybrid_conv32 block (with ``jones_path``: calibrated, Stokes):
+    the front end's kernel against its plain version (both f32) on device
+    noise, then the block's fold against the plain data folded, hits exact;
+    the forward passes, pass A, pass B and the tail timed against their
+    bounds."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+    from dspsr_tpu_torch.ops.detection import from_front_planes
+    from dspsr_tpu_torch.ops.fold import fold_block
+    from dspsr_tpu_torch.ops.megakernel import megafil_plain
+
+    kw = dict(calibration_path=jones_path, npol_out=4) if jones_path else {}
+    tag = "hybrid_conv32" + (" + Jones" if jones_path else "")
+    pipe = conv32_pipe(**kw)
+    plan, cst, npart = pipe.front_plan, pipe.constants, pipe.npart
+    check((cst.jones is not None) == bool(jones_path), f"{tag}: jones")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
+    got = pipe._front(raw)[0]
+    want = megafil_plain(plan, cst, raw, npart)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((got - want).abs().max())
+    print(f"{tag} block (nsub 1, R1 {plan.R1} R2 {plan.R2}, nkeep "
+          f"{plan.nkeep}, npart {npart}, raw {raw.numel()} B): output "
+          f"{tuple(got.shape)}; rel err {err:.3e} (abs {abs_err:.3e})",
+          flush=True)
+    check(bool(torch.isfinite(got).all()), f"{tag}: finite front end")
+    check(err < TOL_FLAGSHIP, f"{tag}: rel err {err} >= {TOL_FLAGSHIP}")
+
+    phi0, dphi = cyclic_anchors(pipe)
+    nchan, npol = pipe.obs_out.nchan, pipe.obs_out.npol
+    prof0 = torch.zeros(nchan, npol, pipe.nbin, device="cuda")
+    hits0 = torch.zeros(nchan, pipe.nbin, device="cuda")
+    d, w, wp, _ = pipe._hybrid_block(raw)
+    pk, hk = pipe._fold_tail_d(prof0, hits0, d, w, wp, phi0, dphi)
+    dp = from_front_planes(want, pipe.det_state, plan.npol_out)
+    pp, hp = fold_block(prof0, hits0, dp, w, phi0, dphi, pipe.fold_plan)
+    torch.cuda.synchronize()
+    ferr, hdiff = rel_err(pk, pp), float((hk - hp).abs().max())
+    print(f"{tag} block fold: profiles {tuple(pk.shape)}, rel err "
+          f"{ferr:.3e}, hits diff {hdiff}, hits sum {float(hk.sum())}",
+          flush=True)
+    check(ferr < TOL_FLAGSHIP and hdiff == 0
+          and float(hk.sum()) == nchan * pipe.out_per_block,
+          f"{tag}: block fold {ferr} {hdiff}")
+
+    kernel_ms = cuda_ms(lambda: pipe._front(raw), 5)
+    plain_ms = cuda_ms(lambda: megafil_plain(plan, cst, raw, npart), 2)
+    tail_ms = cuda_ms(lambda: pipe._fold_tail_d(prof0, hits0, d, w, wp,
+                                                phi0, dphi), 5)
+    times = kernel_breakdown(lambda: pipe._front(raw), card,
+                             label=f" ({tag} front end)")
+    nbytes = (raw.numel() + 8 * cst.gr.numel() + 4 * got.numel()
+              + (4 * cst.jones.numel() if jones_path else 0))
+    bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
+    mb = multipass_bounds(plan, npart, 2, 4 * got.numel(), bool(jones_path))
+    fwd = sum(v for k, v in times.items() if k.startswith("mega_fwd"))
+    ms_a = next((v for k, v in times.items() if "megafil_inva" in k),
+                float("nan"))
+    ms_b = next((v for k, v in times.items() if "megafil_invb" in k),
+                float("nan"))
+    sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
+    print(f"{tag} per block ({sky_ms:.2f} ms of sky): front end "
+          f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
+          f"{bound['bound_by']}; plain {plain_ms:.3f} ms): forward passes "
+          f"{fwd:.3f} ms, pass A {ms_a:.3f} ms (bound "
+          f"{mb['A']['bound_ms']:.4f} ms, {mb['A']['bound_by']}), pass B "
+          f"{ms_b:.3f} ms (bound {mb['B']['bound_ms']:.4f} ms, "
+          f"{mb['B']['bound_by']}); tail {tail_ms:.3f} ms [{card}]",
+          flush=True)
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                **bound, library_ms=None)
+
+
+def conv32_path(card: str) -> int:
+    """hybrid_conv32 at full width, 3 blocks through ``FoldPipeline.run``
+    with torch.fft and torch.matmul disabled; returns the megafil
+    launches."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+
+    nblocks = 3
+    pipe = conv32_pipe()
+    reset_launch_counts()
+    with NoLibraryFFT():
+        t0 = time.perf_counter()
+        res = pipe.run(max_blocks=nblocks)
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["megafil"] == nblocks,
+          f"hybrid_conv32: megafil launched {counts['megafil']} times")
+    check(counts["megastep"] == 0, "hybrid_conv32: megastep launched")
+    check(res.profiles.shape == (1, pipe.obs_out.nchan, 1, pipe.nbin),
+          f"hybrid_conv32 profiles shape {res.profiles.shape}")
+    check(bool(np.isfinite(res.profiles).all()), "hybrid_conv32 non-finite")
+    per_chan = res.hits.sum(axis=(0, 2))
+    check(bool((per_chan == nblocks * pipe.out_per_block).all()),
+          f"hybrid_conv32 hits per channel {per_chan[:4]}")
+    prof = res.normalized()[0, :, 0, :]
+    check(bool((prof.std(axis=1) > 0).all()), "hybrid_conv32 flat profiles")
+    check([op["op"] for op in res.signal_path][2:4]
+          == ["Dedispersion", "Convolution"], "hybrid_conv32 signal path")
+    msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    print(f"hybrid_conv32: {nblocks} blocks, {counts['megafil']} megafil "
+          f"launches, hits/chan {int(per_chan[0])}; host-fed incl. "
+          f"first-block warm-up {msps:.2f} Msamp/s, "
+          f"{msps / (pipe.obs_in.rate / 1e6):.4f} x real time [{card}]",
+          flush=True)
+    return counts["megafil"]
+
+
+def conv32_rates(card: str) -> None:
+    """Device-fed rate of hybrid_conv32 (device noise bytes through the
+    front end and the tail, warm) against 12.5 Msamp/s a channel, the
+    host-fed rate (DummySource bytes, warm), and peak device memory."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    pipe = conv32_pipe()
+    nbytes = block_bytes(pipe)
+    phi0, dphi = cyclic_anchors(pipe)
+
+    def step(raw):
+        d, w, wp, _ = pipe._hybrid_block(raw)
+        pipe._profiles, pipe._hits = pipe._fold_tail_d(
+            pipe._profiles, pipe._hits, d, w, wp, phi0, dphi)
+
+    def block(b):
+        step(device_noise_bytes(b * nbytes, nbytes, "cuda"))
+
+    block(0)
+    nb = 4
+    it = iter(range(1, nb + 1))
+    ms = cuda_ms(lambda: block(next(it)), nb)
+    raw0 = device_noise_bytes(0, nbytes, "cuda")
+    step_ms = cuda_ms(lambda: step(raw0), nb)
+    noise_ms = cuda_ms(lambda: device_noise_bytes(0, nbytes, "cuda"), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(raw0)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    pipe.run(max_blocks=1)  # warm-up of the host-fed path
+    t0 = time.perf_counter()
+    pipe.run(max_blocks=1, seek_seconds=pipe.stride_in_samples
+             / pipe.obs_in.rate)
+    host = pipe.stride_in_samples / (time.perf_counter() - t0) / 1e6
+    msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
+    rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s a channel
+    print(f"hybrid_conv32 device-fed (device_noise_bytes, front end + tail): "
+          f"{ms:.3f} ms a block ({pipe.stride_in_samples / rt / 1e3:.2f} ms "
+          f"of sky), {msps:.1f} Msamp/s a channel, {msps / rt:.3f} x real "
+          f"time; front end + tail alone {step_ms:.3f} ms; the noise "
+          f"generator {noise_ms:.3f} ms; host-fed (DummySource bytes, warm) "
+          f"{host:.2f} Msamp/s, {host / rt:.4f} x real time; peak device "
+          f"memory of a step {peak_mb:.0f} MiB; real time is {rt:g} Msamp/s "
+          f"[{card}]", flush=True)
+    kernel_breakdown(lambda: step(raw0), card,
+                     label=" (hybrid_conv32, front end + tail)", others=True)
+
+
+def conv32_jones(card: str) -> dict:
+    """hybrid_conv32 with polarization calibration (``npol_out=4``, a
+    calibration ``.npz`` written to a temporary directory): one block held
+    against plain (``conv32_block``), then the leakage check of
+    ``tests/test_hybrid.py:169-204`` on the card: device noise mixed by a
+    leaky instrument J and digitized again folds with small cross-polar
+    power once calibrated, and large without."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    J = np.array([[1.0, 0.35 + 0.1j], [-0.2j, 0.9]], np.complex128)
+    with tempfile.TemporaryDirectory() as tmp:
+        cal = os.path.join(tmp, "cal.npz")
+        freqs = np.linspace(1100.0, 1700.0, 16)
+        np.savez(cal, freq=freqs, jones=np.broadcast_to(J, (16, 2, 2)))
+        stats = conv32_block(card, jones_path=cal)
+        leak = {}
+        for tag, path in (("calibrated", cal), ("uncalibrated", None)):
+            pipe = conv32_pipe(npol_out=4, **(
+                dict(calibration_path=path) if path else {}))
+            nchan = pipe.obs_in.nchan
+            x = device_noise_bytes(0, block_bytes(pipe), "cuda").view(
+                -1, nchan, 2, 2).float()
+            z = torch.complex(x[..., 0] - 127.5, x[..., 1] - 127.5)
+            y = torch.einsum("ab,tcb->tca", torch.from_numpy(J).to(
+                torch.complex64).cuda(), z) * 0.5
+            raw = torch.stack([y.real, y.imag], -1).add(127.5).round().clamp(
+                0, 255).to(torch.uint8).reshape(-1)
+            del x, z, y
+            phi0, dphi = cyclic_anchors(pipe)
+            prof0 = torch.zeros(nchan, 4, pipe.nbin, device="cuda")
+            hits0 = torch.zeros(nchan, pipe.nbin, device="cuda")
+            d, w, wp, _ = pipe._hybrid_block(raw)
+            pk, _ = pipe._fold_tail_d(prof0, hits0, d, w, wp, phi0, dphi)
+            s = pk.double().sum(0)  # Stokes [4, nbin], all channels
+            leak[tag] = float((s[1] ** 2 + s[2] ** 2 + s[3] ** 2).sqrt()
+                              .mean() / s[0].mean())
+    print(f"hybrid_conv32 + Jones leakage (|Q,U,V| / I of the block's "
+          f"fold): calibrated {leak['calibrated']:.4f}, uncalibrated "
+          f"{leak['uncalibrated']:.4f}", flush=True)
+    check(leak["calibrated"] < 0.05
+          and leak["calibrated"] < 0.25 * leak["uncalibrated"],
+          f"hybrid_conv32 Jones leakage {leak}")
+    return stats
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -1210,6 +1558,7 @@ def small_all() -> None:
         small_checks(kind)
         small_checks_megafil(kind)
         small_checks_hybrid(kind)
+        small_checks_conv(kind)
     small_unequal()
 
 
@@ -1241,11 +1590,17 @@ def main() -> None:
     cyclic = cyclic_block(card)
     hybrid_launches += cyclic_path(card)
     cyclic_rates(card)
+    # the nsub == 1 convolution (the multi-pass inverse) and Jones
+    conv = conv32_block(card)
+    hybrid_launches += conv32_path(card)
+    conv32_rates(card)
+    conv_j = conv32_jones(card)
     flag["max_abs_err"] = max(f["max_abs_err"] for f in (flag, flag_c, flag_k))
     search["max_abs_err"] = max(search["max_abs_err"],
                                 search_c["max_abs_err"],
                                 search_k["max_abs_err"], hybrid["err"],
-                                cyclic["err"])
+                                cyclic["err"], conv["max_abs_err"],
+                                conv_j["max_abs_err"])
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",

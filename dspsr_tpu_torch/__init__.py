@@ -11,7 +11,8 @@ the CASPSR layout): the fold main path on the fused fold kernel
 (``mega_mode == "full"``, ``models.load_to_fold``), the hybrid fold engine
 on the fused front end plus a plain PyTorch tail (``mega_mode ==
 "hybrid"``: in-stream SK, the RFI filter, passband, pdmp, dump, several
-pulsars) and the search path on the fused search front end (digifil:
+pulsars, cyclic folding, the ``nsub == 1`` convolution and polarization
+calibration) and the search path on the fused search front end (digifil:
 ``models.load_to_fil``, ``apps.digifil_app``).  See ROADMAP.md for what
 follows.
 """

@@ -5,8 +5,8 @@ spectral layout of its TPU kernel (flat bin ``k = k2*R1 + k1``); the port
 keeps it in natural order ``[nchan_in, n_fft]``.  These helpers turn the JAX
 package's numpy arrays into the port's tensors, so its own constants,
 carried fold accumulators (one array, or a tuple of them per source in the
-hybrid engine), carried RFI response and search rescale state can be fed to
-the port.
+hybrid engine), carried RFI response, Jones response and search rescale
+state can be fed to the port.
 """
 
 from __future__ import annotations
@@ -43,6 +43,25 @@ def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:
         unpack_scale=float(d.get("unpack_scale", scale)),
         unpack_offset=float(d.get("unpack_offset", offset)),
     ).to(device)
+
+
+def jones_from_numpy(jxr, jxi, plan: MegaPlan, device) -> torch.Tensor:
+    """The JAX package's Jones planes ``MegaConstants.jxr/jxi`` (``[nchan_in,
+    4, R1, R2]``, plane ``2a + b``, flat bin ``k = k2*R1 + k1``, rolled by
+    ``-N/2`` for complex input) as the port's ``MegaConstants.jones``:
+    float32 ``[nchan_in, 4, n_fft, 2]`` in natural (for complex input
+    centred) bin order on ``device``."""
+    shape = (plan.nchan_in, 4, plan.R1, plan.R2)
+    planes = []
+    for a in (jxr, jxi):
+        a = np.asarray(a, np.float32)
+        if a.shape != shape:
+            raise ValueError(f"Jones planes {a.shape} != {shape}")
+        flat = a.transpose(0, 1, 3, 2).reshape(shape[0], 4, plan.n_fft)
+        if not plan.real_input:
+            flat = np.roll(flat, plan.n_fft // 2, axis=-1)
+        planes.append(flat)
+    return _tensor(np.stack(planes, axis=-1), device)
 
 
 def response_from_numpy(resp, plan: MegaPlan, device):

@@ -706,24 +706,56 @@ __device__ __forceinline__ void detect(float2 a, float2 b, int det,
   }
 }
 
+// The Jones 2x2 mix (matrix convolution, the search front end only): where
+// both pols' spectra of a bin first meet, in the inverse's load, output pol
+// p is Y_p = J[p,0] X_0 + J[p,1] X_1.  mega_fwd2 and mega_fwd2c have already
+// multiplied the scalar slot (ones, or an RFI mask) into X_0 and X_1: it is
+// one factor a bin for both pols, so it commutes with the mix.  jones is
+// float2[nchan, 4, N] (plane 2a + b, natural bin order as ybuf); with it
+// every input pol is stored (store = 3).
+//
+// Output pol p's spectrum at bin offset k: y is X_0's ybuf slot (X_1's is
+// pstride further on), jp is J[c, 2p] (J[c, 2p+1] is N further on,
+// n_jones).  The kernels that mix are template instances of their own
+// (JONES), so the unmixed loads keep their registers.
+__device__ __forceinline__ float2 jones_mix(const float2* __restrict__ y,
+                                            const float2* __restrict__ jp,
+                                            long long pstride,
+                                            long long n_jones, long long k) {
+  return cadd(cmul(__ldg(jp + k), y[k]),
+              cmul(__ldg(jp + n_jones + k), y[pstride + k]));
+}
+
 // The inverse kernels' first half: load the NS pols' freq_res-point slices
 // of subband s, window w, input channel c from ybuf, inverse-FFT them
 // (unscaled) and leave pol q's sample t at sm[q*seq_ld(M) + sidx(t)].
-// Ends with a barrier.
-template <int P, int NS>
+// With JONES, pol q is the mix of output pol jpol0 + q from the two stored
+// input pols (jones_mix).  Ends with a barrier.
+template <int P, int NS, bool JONES = false>
 __device__ __forceinline__ void inverse_subband(
     const float2* __restrict__ ybuf, float2* sm, const float2* __restrict__ tw,
-    int npart, int nsub, int M, int s, int w, int c) {
+    int npart, int nsub, int M, int s, int w, int c,
+    const float2* __restrict__ jones = nullptr, int jpol0 = 0) {
   const int T = M / P;
   const int ld = seq_ld(M);
   const long long n = (long long)nsub * M;
   const int j = threadIdx.x;
   float2 v[P];
   auto load = [&](int q, float2(&x)[P]) {
-    const float2* src =
-        ybuf + ((long long)(c * NS + q) * npart + w) * n + (long long)s * M;
+    if constexpr (JONES) {
+      const float2* y =
+          ybuf + ((long long)(c * 2) * npart + w) * n + (long long)s * M;
+      const float2* jp =
+          jones + ((long long)c * 4 + 2 * (jpol0 + q)) * n + (long long)s * M;
 #pragma unroll
-    for (int i = 0; i < P; ++i) x[i] = src[j + T * i];
+      for (int i = 0; i < P; ++i)
+        x[i] = jones_mix(y, jp, (long long)npart * n, n, j + T * i);
+    } else {
+      const float2* src =
+          ybuf + ((long long)(c * NS + q) * npart + w) * n + (long long)s * M;
+#pragma unroll
+      for (int i = 0; i < P; ++i) x[i] = src[j + T * i];
+    }
   };
   fft_seqs<P, NS, +1, false>(v, load, sm, ld, j, M, __ffs(M) - 1, tw);
 }

@@ -2,13 +2,16 @@
 (``csrc/megafil.cu``).
 
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megafil`` (the Pallas kernel
-and its de-permute) in the scalar-chirp form, detected or voltage output,
-with the passband tap and a chirp handed in on each call.  The source note in
+and its de-permute): detected or voltage output, the scalar chirp or the
+Jones 2x2 mix followed by it, with the passband tap and a chirp handed in
+on each call, and at ``nsub == 1`` past one CTA's shared memory (the
+``hybrid_conv32`` convolution) the multi-pass inverse.  The source note in
 ``csrc/megafil.cu`` says what bounds it and how it is laid out.  This
-wrapper checks every operand, allocates the output and scratch with
-``torch.empty``, launches the kernels on the current stream through the
-library's C entry point, raises on any CUDA error, and counts the
-launch.  It never falls back to the plain version.
+wrapper checks every operand, chooses the inverse from the geometry,
+allocates the output and scratch with ``torch.empty``, launches the
+kernels on the current stream through the library's C entry point, raises
+on any CUDA error, and counts the launch.  It never falls back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -23,13 +26,17 @@ from ..ops.megakernel import (
     passband_layout, voltage_sign_flips)
 from . import build
 from .megastep import (
-    cbuf_seqs, check_resources, check_tensor, device_tables, forward_tiles,
-    layout_code, smem_limit)
+    MAX_THREADS, cbuf_seqs, check_resources, check_tensor, device_tables,
+    fitting_tile, forward_tiles, layout_code, smem_limit)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 9 + [_i] * 17 + [_f, _f] + [_i] * 4 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 11 + [_i] * 19 + [_f, _f] + [_i] * 6 + [_c]
+
+#: largest tiles of the multi-pass inverse: columns k1 of ``megafil_inva``,
+#: rows n2 of ``megafil_invb``
+MULTIPASS_CAPS = (8, 4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -44,16 +51,38 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def inverse_passes(res, plan: MegaPlan, limit: int,
+                   inverse: str = "auto") -> tuple[int, int]:
+    """The inverse for ``plan``: ``(0, 0)`` for the one-CTA inverse
+    (``megafil_invdet``/``megafil_invvolt``) while its shared memory and
+    threads (``res(kind, 2, 0)``) fit, else the tiles ``(ta, tb)`` of the
+    multi-pass inverse (``nsub == 1`` only), which ``inverse="multipass"``
+    also forces."""
+    fits = res(0, 2, 0) <= limit and res(1, 2, 0) <= MAX_THREADS
+    if inverse == "auto" and fits:
+        return 0, 0
+    if plan.nsub != 1:
+        raise NotImplementedError(
+            f"the multi-pass inverse is the nsub == 1 convolution's; nsub "
+            f"{plan.nsub} with freq_res {plan.freq_res} past one CTA is open "
+            "work (ROADMAP.md Queue 2 item 2)")
+    return (fitting_tile(res, 3, min(MULTIPASS_CAPS[0], plan.R1), limit),
+            fitting_tile(res, 4, min(MULTIPASS_CAPS[1], plan.R2), limit))
+
+
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, passband: bool = False, gr=None, gi=None,
-                 output: str = "detected"):
+                 output: str = "detected", inverse: str = "auto"):
     """One fused search front-end step on the card; arguments as
     ``ops.megakernel.megafil_plain``.  Returns float32 ``[nchan_in*nsub,
     nplane, npart*nkeep]`` (``output="voltage"``: complex64
     ``[nchan_in*nsub, npol, npart*nkeep]``, every input pol), and with
     ``passband`` also the passband ``[nchan_in*nsub, npol, freq_res]``.
     ``gr``/``gi`` (default ``cst.gr``/``cst.gi``) are the chirp, float32
-    ``[nchan_in, n_fft]`` in natural bin order."""
+    ``[nchan_in, n_fft]`` in natural bin order; ``cst.jones``, when set,
+    the Jones response mixed in before it.  ``inverse="multipass"`` forces
+    the multi-pass inverse (``nsub == 1``) where the one-CTA inverse
+    fits."""
     check_supported(plan)
     p = plan
     dev = raw.device
@@ -61,6 +90,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         raise ValueError(f"megafil_cuda needs CUDA tensors, got {dev}")
     if p.fourth_moment:
         raise ValueError("megafil: apply fourth moments after the front end")
+    if inverse not in ("auto", "multipass"):
+        raise ValueError(f"unknown inverse: {inverse}")
     nchan = p.nchan_in
     f32 = torch.float32
     check_tensor(raw, "raw", torch.uint8,
@@ -69,6 +100,11 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     gi = cst.gi if gi is None else gi
     check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
     check_tensor(gi, "gi", f32, (nchan, p.n_fft), dev)
+    jones = cst.jones
+    if jones is not None:
+        if p.npol != 2:
+            raise ValueError("a Jones response needs npol == 2")
+        check_tensor(jones, "cst.jones", f32, (nchan, 4, p.n_fft, 2), dev)
     # the kernels index with 64-bit offsets; the sample and window counts
     # they take as int must fit
     if npart * p.nkeep >= 1 << 31 or p.block_ndat(npart) >= 1 << 31:
@@ -77,21 +113,24 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     lib = _lib()
     voltage = output == "voltage"
     pols = tuple(range(p.npol)) if voltage else fold_pols(p)
-    # the forward transforms the detected pols, or with the passband tap
-    # every input pol, and keeps the detected ones (store bits); the
-    # voltage keeps every input pol
-    fwd = tuple(range(p.npol)) if passband else pols
+    # the forward transforms the detected pols, or with the passband tap or
+    # a Jones response every input pol; it keeps the detected ones (store
+    # bits), or for the Jones mix both; the voltage keeps every input pol
+    fwd = tuple(range(p.npol)) if passband or jones is not None else pols
     npolf = len(fwd)
-    store = sum(1 << fwd.index(q) for q in pols)
+    store = (3 if jones is not None
+             else sum(1 << fwd.index(q) for q in pols))
+    nout = len(pols)
 
     def res(kind, which, tile):
         return lib.megafil_resources(kind, which, p.R1, p.row_len,
-                                     p.freq_res, npolf, tile,
-                                     layout_code(p))
+                                     p.freq_res, nout, tile, layout_code(p))
 
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit)
-    check_resources(res, p, (tc, tk), limit)
+    ta, tb = inverse_passes(res, p, limit, inverse)
+    check_resources(res, p, ((0, tc), (1, tk)) + (
+        ((3, ta), (4, tb)) if ta else ((2, 0),)), limit)
 
     if voltage:
         out = torch.empty((nchan * p.nsub, p.npol, npart * p.nkeep),
@@ -100,24 +139,30 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         out = torch.empty((nchan * p.nsub, p.nplane, npart * p.nkeep),
                           dtype=f32, device=dev)
     tw = device_tables(p, dev)
+    # the multi-pass inverse's tables: lengths R1 and R2, factors over N
+    tw2 = device_tables(p, dev, row_len=p.R2) if ta else tw
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
+    # stage-1 columns; the multi-pass inverse reuses them for its own
+    # nchan*nout windows of N points (no larger)
     cbuf = torch.empty((nchan * cbuf_seqs(p, npolf), npart, p.R1,
                         p.row_len, 2), dtype=f32, device=dev)
-    ybuf = torch.empty((nchan * len(pols), npart, p.n_fft, 2), dtype=f32,
-                       device=dev)
+    ybuf = torch.empty((nchan * (store & 1) + nchan * (store >> 1), npart,
+                        p.n_fft, 2), dtype=f32, device=dev)
     pb = (torch.empty((nchan, npolf, p.n_fft), dtype=f32, device=dev)
           if passband else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.megafil_launch(
             raw.data_ptr(), gr.data_ptr(), gi.data_ptr(), tw.data_ptr(),
+            tw2.data_ptr(), None if jones is None else jones.data_ptr(),
             out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
             ybuf.data_ptr(), None if pb is None else pb.data_ptr(),
-            nchan, p.npol, fwd[0], npolf, store, npart, p.R1, p.R2, p.nsub,
+            nchan, p.npol, fwd[0], npolf, store, nout,
+            pols[0] if jones is not None else 0, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nplane, detection_code(p),
             int(voltage), int(voltage_sign_flips(p)),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, layout_code(p), stream)
+            p.nsamp_step, tc, tk, ta, tb, layout_code(p), stream)
     if rc != 0:
         msg = lib.megafil_error_string(rc).decode()
         raise RuntimeError(f"megafil launch failed: CUDA error {rc}: {msg}")

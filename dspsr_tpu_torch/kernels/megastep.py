@@ -121,34 +121,41 @@ def twiddle_tables(R1: int, row_len: int, M: int,
 _tables: dict = {}
 
 
-def device_tables(plan: MegaPlan, dev: torch.device) -> torch.Tensor:
-    """``twiddle_tables`` of ``plan`` as float32 ``[n, 2]`` on ``dev``,
-    built once per geometry and device and cached."""
-    key = (plan.R1, plan.row_len, plan.freq_res, str(dev))
+def device_tables(plan: MegaPlan, dev: torch.device,
+                  row_len: int | None = None) -> torch.Tensor:
+    """``twiddle_tables`` of ``plan`` (with ``row_len`` in place of the
+    plan's, when given) as float32 ``[n, 2]`` on ``dev``, built once per
+    geometry and device and cached."""
+    row_len = plan.row_len if row_len is None else row_len
+    key = (plan.R1, row_len, plan.freq_res, str(dev))
     t = _tables.get(key)
     if t is None:
-        host = twiddle_tables(plan.R1, plan.row_len, plan.freq_res)
+        host = twiddle_tables(plan.R1, row_len, plan.freq_res)
         t = torch.from_numpy(host.view(np.float32).reshape(-1, 2)).to(dev)
         _tables[key] = t
+    return t
+
+
+def fitting_tile(res, which: int, start: int, limit: int) -> int:
+    """The largest power of two up to ``start`` whose shared memory
+    ``res(0, which, tile)`` fits in ``limit`` and whose threads ``res(1,
+    which, tile)`` fit in a block (1 when none does)."""
+    t = start
+    while t > 1 and (res(0, which, t) > limit
+                     or res(1, which, t) > MAX_THREADS):
+        t //= 2
     return t
 
 
 def forward_tiles(res, plan: MegaPlan, limit: int) -> tuple[int, int]:
     """Tiles (columns of ``mega_fwd1``; row pairs of ``mega_fwd2`` for real
     input, rows of ``mega_fwd2c`` for complex input): the largest powers of
-    two up to ``TILE_CAPS`` (and row_len; R1/2 pairs or R1 rows) whose
-    shared memory ``res(0, which, tile)`` fits in ``limit`` and whose
-    threads ``res(1, which, tile)`` fit in a block."""
-    def tile(which: int, start: int) -> int:
-        t = start
-        while t > 1 and (res(0, which, t) > limit
-                         or res(1, which, t) > MAX_THREADS):
-            t //= 2
-        return t
-
+    two up to ``TILE_CAPS`` (and row_len; R1/2 pairs or R1 rows) that fit
+    (``fitting_tile``)."""
     rows = (min(TILE_CAPS[1], plan.R1 // 2) if plan.real_input
             else min(TILE_CAPS[2], plan.R1))
-    return tile(0, min(TILE_CAPS[0], plan.row_len)), tile(1, rows)
+    return (fitting_tile(res, 0, min(TILE_CAPS[0], plan.row_len), limit),
+            fitting_tile(res, 1, rows, limit))
 
 
 def layout_code(plan: MegaPlan) -> int:
@@ -166,19 +173,24 @@ def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:
     return 1 if plan.real_input else npolf
 
 
-def check_resources(res, plan: MegaPlan, tiles, limit: int) -> None:
+def check_resources(res, plan: MegaPlan, passes, limit: int) -> None:
     """Raise ``NotImplementedError`` when a pass needs more shared memory
-    than ``limit`` or more threads than a block holds (``tiles`` for passes
-    0, 1; pass 2 is the inverse)."""
-    for which, tile in ((0, tiles[0]), (1, tiles[1]), (2, 0)):
+    than ``limit`` or more threads than a block holds.  ``passes`` are
+    ``(which, tile)`` pairs: 0 and 1 the forward passes, 2 the one-CTA
+    inverse (with the fold, for ``megastep``), 3 and 4 ``megafil``'s
+    multi-pass inverse."""
+    for which, tile in passes:
         need, threads = res(0, which, tile), res(1, which, tile)
         if need > limit or threads > MAX_THREADS:
+            what = ("the fold step's inverse at nsub > 1 past one CTA "
+                    "needs a multi-pass inverse" if which == 2
+                    else "a forward pass this long is not written")
             raise NotImplementedError(
                 f"geometry (R1={plan.R1}, R2={plan.R2}, freq_res="
                 f"{plan.freq_res}, nbin={plan.nbin}) needs {need} B of shared "
                 f"memory and {threads} threads in pass {which}, over the "
-                f"card's {limit} B or {MAX_THREADS} threads; a multi-pass "
-                "transform is open work (ROADMAP.md Queue 2)")
+                f"card's {limit} B or {MAX_THREADS} threads: {what} "
+                "(ROADMAP.md Queue 2 item 1)")
 
 
 def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -218,7 +230,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
 
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit)
-    check_resources(res, p, (tc, tk), limit)
+    check_resources(res, p, ((0, tc), (1, tk), (2, 0)), limit)
 
     prof_out = torch.empty_like(profiles)
     hits_out = torch.empty_like(hits)

@@ -3,7 +3,10 @@ chirp, detect, fold) -> archive.
 
 Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for 8-bit input
 (real-sampled or complex, TFP or CASPSR bytes) through a convolving
-filterbank (``nchan > nchan_in``), in the JAX package's two fused engines:
+filterbank (``nchan > nchan_in``) or, without one (``nchan_subband == 1``),
+the overlap-save convolution of each input channel (coherent
+dedispersion, optionally with polarization calibration: a Jones response
+mixed into the two pols' spectra), in the JAX package's two fused engines:
 
 - ``mega_mode == "full"``: one call of the fused fold step
   (``build_megastep``) folds the block; any detection state but NthPower,
@@ -15,7 +18,8 @@ filterbank (``nchan > nchan_in``), in the JAX package's two fused engines:
   fold of one or more pulsars, dump, passband and pdmp extras), with the
   spectral RFI filter as a chirp handed to the front end each block.  A
   configuration the full step cannot take goes hybrid, as in the JAX
-  package (``_mega_full_eligible``).
+  package (``_mega_full_eligible``): the ``nsub == 1`` convolution and
+  Jones calibration always do.
 
 The host reads raw bytes and computes float64 phase anchors per block.  A
 configuration that needs an engine the port lacks raises
@@ -42,6 +46,7 @@ from ..timing.par import Ephemeris
 from ..timing.polyco import FixedPeriodPredictor, Polyco
 
 from ..device import host_to_device, resolve_device
+from ..ops.convolution import OverlapSavePlan
 from ..ops.cyclic import CyclicPlan, fold_lag_products, lag_planes
 from ..ops.detection import from_front_planes
 from ..ops.filterbank import FilterbankPlan, update_observation
@@ -231,16 +236,22 @@ class FoldResult:
         return out
 
 
-_CONV = "ROADMAP.md Queue 1 item 6.2 (the nsub == 1 convolution)"
 _JONES = "ROADMAP.md Queue 1 item 6.3 (Jones calibration)"
 _GENERAL = "ROADMAP.md Queue 1 item 8 (general chain)"
+
+
+def _min_pow2_over(n: int) -> int:
+    """Smallest power of two above the kernel length ``n`` (the least valid
+    overlap-save transform, which ``times_minimum_nfft`` multiplies)."""
+    m = 1
+    while m <= n:
+        m *= 2
+    return m
 
 
 def _unsupported(cfg: FoldConfig) -> Optional[str]:
     """Why ``cfg`` needs an engine the port lacks (None if it does not)."""
     checks = (
-        (cfg.calibration_path, "Jones calibration (calibration_path)",
-         _JONES),
         (not cfg.use_megakernel, "use_megakernel=False", _GENERAL),
         (cfg.use_fft_bench, "measured FFT lengths (use_fft_bench)",
          "ROADMAP.md Queue 1 item 11"),
@@ -377,16 +388,19 @@ class FoldPipeline:
         self.unpack_plan = UnpackPlan(obs,
                                       twos_complement=cfg.twos_complement)
 
-        # --- convolving filterbank geometry (Filterbank.C:55-263) ---
+        # --- convolving filterbank geometry (Filterbank.C:55-263), or the
+        # nsub == 1 overlap-save convolution (Convolution.C:105-221) ---
         real_input = obs.state == Signal.NYQUIST
         self.nchan_subband = max(1, cfg.nchan // obs.nchan) if cfg.nchan \
             else 1
-        if self.nchan_subband == 1:
+        coherent = cfg.coherent and self.dm > 0
+        if self.nchan_subband == 1 and not (coherent
+                                            or cfg.calibration_path):
             raise NotImplementedError(
-                "no filterbank stage (nchan_subband == 1): the fused "
-                f"engines need one here; see {_CONV}")
+                "no FFT stage (nchan_subband == 1 without coherent "
+                f"dedispersion or calibration); see {_GENERAL}")
         nchan_out = obs.nchan * self.nchan_subband
-        if cfg.coherent and self.dm > 0:
+        if coherent:
             nfp = Dedispersion._half_smearing_samples(
                 self.dm, obs.centre_frequency, obs.bandwidth, nchan_out,
                 +1, 0.1)
@@ -396,26 +410,44 @@ class FoldPipeline:
         else:
             nfp = nfn = 0
         nfilt_tot = nfp + nfn
-        if cfg.frequency_resolution:
-            freq_res = cfg.frequency_resolution
-        elif nfilt_tot == 0:
-            freq_res = 1
-        elif cfg.times_minimum_nfft:
-            m = 1
-            while m <= nfilt_tot:
-                m *= 2
-            freq_res = cfg.times_minimum_nfft * m
+        if self.nchan_subband > 1:
+            if cfg.frequency_resolution:
+                freq_res = cfg.frequency_resolution
+            elif nfilt_tot == 0:
+                freq_res = 1
+            elif cfg.times_minimum_nfft:
+                freq_res = cfg.times_minimum_nfft * _min_pow2_over(nfilt_tot)
+            else:
+                freq_res = choose_nfft(nfilt_tot, max_nfft=cfg.max_nfft)
+            self.fb_plan = FilterbankPlan(
+                real_input=real_input, nchan_subband=self.nchan_subband,
+                freq_res=freq_res, nfilt_pos=nfp, nfilt_neg=nfn)
+            self.fb_plan.validate()
+            self.conv_plan = None
+            self.obs_stream = update_observation(obs, self.fb_plan)
+            ndat_fft = freq_res
         else:
-            freq_res = choose_nfft(nfilt_tot, max_nfft=cfg.max_nfft)
-        self.fb_plan = FilterbankPlan(
-            real_input=real_input, nchan_subband=self.nchan_subband,
-            freq_res=freq_res, nfilt_pos=nfp, nfilt_neg=nfn)
-        self.fb_plan.validate()
-        self.obs_stream = update_observation(obs, self.fb_plan)
-        ndat_fft = freq_res
+            # JAX load_to_fold.py:487-509
+            if cfg.frequency_resolution:
+                n_fft = cfg.frequency_resolution
+            elif cfg.times_minimum_nfft and nfilt_tot > 0:
+                n_fft = cfg.times_minimum_nfft * _min_pow2_over(nfilt_tot)
+            else:
+                n_fft = choose_nfft(nfilt_tot, max_nfft=cfg.max_nfft)
+            self.fb_plan = None
+            self.conv_plan = (OverlapSavePlan(real_input, n_fft, nfp, nfn)
+                              if coherent else None)
+            if self.conv_plan is not None:
+                self.conv_plan.validate()
+            rate = obs.rate / (2 if real_input else 1)
+            self.obs_stream = obs.replace(
+                state=Signal.ANALYTIC, ndim=2,
+                rate=rate if (self.conv_plan or not real_input) else obs.rate,
+            ) if (self.conv_plan or obs.state == Signal.ANALYTIC) else obs
+            ndat_fft = n_fft
 
         # --- chirp (Dedispersion::match/build; LoadToFold1.C:199-241) ---
-        if cfg.coherent and self.dm > 0:
+        if coherent:
             builder = (Dedispersion.build_interchannel_aligned
                        if cfg.interchannel_align else Dedispersion.build)
             self.kernel = builder(self.dm, obs.centre_frequency,
@@ -431,14 +463,53 @@ class FoldPipeline:
                         self.kernel = builder(self.dm, obs.centre_frequency,
                                               obs.bandwidth, nchan_out,
                                               ndat_fft)
-                self.fb_plan = FilterbankPlan(
-                    real_input=real_input, nchan_subband=self.nchan_subband,
-                    freq_res=ndat_fft, nfilt_pos=self.kernel.impulse_pos,
-                    nfilt_neg=self.kernel.impulse_neg)
-                self.fb_plan.validate()
-                self.obs_stream = update_observation(obs, self.fb_plan)
+                if self.fb_plan is not None:
+                    self.fb_plan = FilterbankPlan(
+                        real_input=real_input,
+                        nchan_subband=self.nchan_subband, freq_res=ndat_fft,
+                        nfilt_pos=self.kernel.impulse_pos,
+                        nfilt_neg=self.kernel.impulse_neg)
+                    self.fb_plan.validate()
+                    self.obs_stream = update_observation(obs, self.fb_plan)
+                else:
+                    self.conv_plan = OverlapSavePlan(
+                        real_input, ndat_fft, self.kernel.impulse_pos,
+                        self.kernel.impulse_neg)
+                    self.conv_plan.validate()
         else:
             self.kernel = None
+
+        # --- polarization calibration (PolnCalibration.C; the matrix
+        # convolution of Convolution.C:425-436; JAX load_to_fold.py:573-607)
+        self.jones = None
+        if cfg.calibration_path:
+            from ..ops.polncal import PolnCalibration, jones_product
+            from ..ops.response import Response
+
+            if self.fb_plan is not None:
+                raise NotImplementedError(
+                    "Jones calibration inside the convolving filterbank: the "
+                    "JAX package refuses it too (calibrate at the input "
+                    f"channelization, nchan_subband == 1); see {_JONES}")
+            if obs.npol != 2:
+                raise ValueError("Jones calibration needs npol=2 input")
+            epoch = obs.start_time.days + obs.start_time.fracday()
+            cal = PolnCalibration.load(cfg.calibration_path, epoch_mjd=epoch)
+            if self.conv_plan is None:
+                # pure-calibration convolution (no dedispersion)
+                self.conv_plan = OverlapSavePlan(
+                    real_input, cfg.frequency_resolution or 256, 0, 0)
+                self.conv_plan.validate()
+                self.obs_stream = obs.replace(
+                    state=Signal.ANALYTIC, ndim=2,
+                    rate=obs.rate / (2 if real_input else 1))
+            scalar = (Response(self.kernel.phasors, self.kernel.impulse_pos,
+                               self.kernel.impulse_neg)
+                      if self.kernel is not None else None)
+            # natural order [nchan, n_fft, 2, 2], the chirp multiplied in
+            self.jones = jones_product(
+                scalar, cal.match(obs, nchan_out, self.conv_plan.n_fft)
+            ).phasors
 
         # --- cyclic fold (CyclicFold.C; folds lag products, not power) ---
         self.cyclic_plan = (CyclicPlan(cfg.cyclic_nchan, cfg.cyclic_mover)
@@ -478,7 +549,8 @@ class FoldPipeline:
         if self._presk_index is not None:
             self.source_dms.append(None)
 
-        # --- the fused plan, with its rounded overlap adopted ---
+        # --- the fused plan, with its rounded overlap adopted; nsub == 1
+        # runs as a one-subband geometry (JAX load_to_fold.py:678-685) ---
         det_np, det_tag = self._mega_detection()
         if not ((det_np == 1 or obs.npol == 2)
                 and (self.det_state not in (Signal.PP, Signal.QQ)
@@ -486,22 +558,31 @@ class FoldPipeline:
             raise NotImplementedError(
                 f"{self.det_state.value} detection of npol={obs.npol} input "
                 f"is not on the fused path; see {_GENERAL}")
+        geom = self.fb_plan or FilterbankPlan(
+            real_input=real_input, nchan_subband=1,
+            freq_res=self.conv_plan.n_fft,
+            nfilt_pos=self.conv_plan.nfilt_pos,
+            nfilt_neg=self.conv_plan.nfilt_neg)
         mp = MegaPlan.from_filterbank(
-            self.fb_plan, self.nbin, obs.npol, det_np, obs.nbit,
+            geom, self.nbin, obs.npol, det_np, obs.nbit,
             nchan_in=obs.nchan, ndat_per_weight=0, detection=det_tag,
             fourth_moment=cfg.fourth_moment,
             twos_complement=self.unpack_plan.twos_complement,
             interleave=self.unpack_plan.layout)
         if mp is None:
             raise NotImplementedError(
-                f"filterbank geometry {self.fb_plan} does not factor for the "
+                f"filterbank geometry {geom} does not factor for the "
                 f"fused step; see {_GENERAL}")
         self.mega_plan = mp
         self.mega_mode = "full" if self._mega_full_eligible() else "hybrid"
-        self.fb_plan = FilterbankPlan(
-            real_input=mp.real_input, nchan_subband=mp.nsub,
-            freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
-            nfilt_neg=mp.nfilt_neg)
+        if self.fb_plan is not None:
+            self.fb_plan = FilterbankPlan(
+                real_input=mp.real_input, nchan_subband=mp.nsub,
+                freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
+                nfilt_neg=mp.nfilt_neg)
+        else:
+            self.conv_plan = OverlapSavePlan(mp.real_input, mp.n_fft,
+                                             mp.nfilt_pos, mp.nfilt_neg)
 
         # --- block geometry ---
         self._plan_blocks()
@@ -572,7 +653,9 @@ class FoldPipeline:
         (``load_to_fold.py:1127-1144`` of the JAX package)?  Anything the
         hybrid tail handles sends the configuration to the hybrid engine."""
         cfg = self.config
-        return (self.sk_plan is None
+        return (self.fb_plan is not None
+                and self.jones is None
+                and self.sk_plan is None
                 and self.cyclic_plan is None
                 and not cfg.rfi_filter
                 and self.det_state != Signal.NTHPOWER
@@ -602,16 +685,19 @@ class FoldPipeline:
     def _build_hybrid(self, resp, scale, offset):
         """The hybrid engine's front end (``_build_hybrid_step`` of the JAX
         package, unsharded): ``build_megafil`` with the per-window weights,
-        the passband tap when the passband or the RFI filter needs it, and
-        the chirp as an argument when the RFI filter multiplies a mask into
-        it."""
+        the passband tap when the passband or the RFI filter needs it, the
+        chirp as an argument when the RFI filter multiplies a mask into it,
+        and the Jones response in the constants."""
         cfg = self.config
         np_out, det_tag = self._hybrid_front_mode()
         self.front_plan = dataclasses.replace(
             self.mega_plan, npol_out=np_out, detection=det_tag,
             fourth_moment=False)
+        # with a Jones response the chirp rides in it, and the scalar slot
+        # (which the RFI mask multiplies) is ones (JAX load_to_fold.py:758)
         self.constants = MegaConstants.build(
-            self.front_plan, resp, unpack_scale=scale, unpack_offset=offset
+            self.front_plan, None if self.jones is not None else resp,
+            unpack_scale=scale, unpack_offset=offset, jones=self.jones
         ).to(self.device)
         rfi = bool(cfg.rfi_filter)
         self._rfi_2pass = rfi and cfg.rfi_same_block
@@ -782,12 +868,20 @@ class FoldPipeline:
                 "impulse_neg": self.kernel.impulse_neg,
                 "interchannel_align": cfg.interchannel_align,
             })
-        path.append({
-            "op": "Filterbank",
-            "nchan_subband": self.fb_plan.nchan_subband,
-            "freq_res": self.fb_plan.freq_res,
-            "convolve_when": "During" if self.kernel is not None else "Never",
-        })
+        if self.fb_plan is not None:
+            path.append({
+                "op": "Filterbank",
+                "nchan_subband": self.fb_plan.nchan_subband,
+                "freq_res": self.fb_plan.freq_res,
+                "convolve_when": ("During" if self.kernel is not None
+                                  else "Never"),
+            })
+        if self.conv_plan is not None:
+            path.append({"op": "Convolution", "n_fft": self.conv_plan.n_fft,
+                         "matrix": self.jones is not None})
+        if cfg.calibration_path:
+            path.append({"op": "PolnCalibration",
+                         "database": cfg.calibration_path})
         if cfg.rfi_filter:
             path.append({"op": "RFIFilter",
                          "median_width": cfg.rfi_median_width,
@@ -816,7 +910,7 @@ class FoldPipeline:
 
     def _plan_blocks(self):
         cfg = self.config
-        p = self.fb_plan
+        p = self.fb_plan or self.conv_plan
         self.nsamp_step = p.nsamp_step
         # grow blocks toward min_block_samples, but never beyond the source
         # nor beyond a subint (so -L granularity holds at block level)
@@ -836,7 +930,7 @@ class FoldPipeline:
         self.npart = min(max(want, cfg.block_parts), cap) if cap > 0 \
             else cfg.block_parts
         self.block_in_samples = p.block_ndat(self.npart)
-        self.out_per_block = self.npart * p.nkeep
+        self.out_per_block = self.npart * self.mega_plan.nkeep
         if self.cyclic_plan is not None:
             # the lag products consume nlag - 1 samples of each block
             self.out_per_block -= self.cyclic_plan.nlag - 1
@@ -851,7 +945,7 @@ class FoldPipeline:
         return t0 + self.fold_plan_offset_seconds()
 
     def fold_plan_offset_seconds(self) -> float:
-        return self.fb_plan.nfilt_pos / self.obs_out.rate
+        return self.mega_plan.nfilt_pos / self.obs_out.rate
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array to the pipeline's device (through pinned memory on

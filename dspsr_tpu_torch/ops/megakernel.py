@@ -12,8 +12,12 @@ and ``hits [nchan_in, nbin]``:
    natural bin ``j`` is FFT bin ``(j + N/2) mod N`` (the JAX package's
    order).  ``N = nsub * freq_res``;
 3. multiply the input channel's dedispersion chirp (natural bin order);
+   on the search front end, optionally mix the two input pols' spectra
+   with a Jones response first (matrix convolution);
 4. inverse FFT of each subband's ``freq_res`` bins, scaled by
-   ``1/freq_res``, keeping ``nfilt_pos <= t < nfilt_pos + nkeep``;
+   ``1/freq_res``, keeping ``nfilt_pos <= t < nfilt_pos + nkeep``
+   (``nsub == 1``: the overlap-save convolution, one inverse of ``n_fft``
+   points);
 5. detect (Intensity, PPQQ, PP, QQ, Coherence or Stokes, optionally with the
    10 fourth-moment products);
 6. fold with the float32 phase ``phi0[w] + dphi[w] * (t - nfilt_pos)``
@@ -56,7 +60,7 @@ from ..unpack.unpackers import reorder_bytes_tfp
 from .fold import compute_bins
 
 _KERNEL_ITEM = "ROADMAP.md Queue 1 item 7 and Queue 2 item 1"
-_NEXT_SLICE = "ROADMAP.md Queue 1 item 6.3 (Jones calibration)"
+_SHARDED = "ROADMAP.md Queue 1 item 10 (channel-sharded steps)"
 
 
 def _pow2(n: int) -> bool:
@@ -294,13 +298,19 @@ def window_weight_spans(plan: MegaPlan, npart: int):
 @dataclass(frozen=True)
 class MegaConstants:
     """What the fused step reads besides the data: the per-input-channel
-    chirp and the unpack map.
+    chirp, the optional Jones response and the unpack map.
 
     ``gr``/``gi`` are float32 ``[nchan_in, n_fft]`` in natural bin order
     (for complex input the centred order of ``fftshift``); they equal the
     JAX package's ``MegaConstants.gr/gi`` bitwise after undoing its ``[k1,
     k2]`` permutation and, for complex input, its ``-N/2`` roll
-    (``convert.constants_from_numpy``).
+    (``convert.constants_from_numpy``).  ``jones`` (search front end only)
+    is ``None`` or float32 ``[nchan_in, 4, n_fft, 2]``: the complex 2x2
+    response ``J[a, b]`` of each bin as plane ``2a + b``, (re, im) last, in
+    the same bin order (``convert.jones_from_numpy`` from the JAX package's
+    ``jxr/jxi``).  With it the output pol ``p`` is ``J[p, 0] X_0 + J[p, 1]
+    X_1``, and the scalar chirp multiplies after the mix (reference
+    ``ResponseProduct``; ones when the Jones response carries the chirp).
     Built by :meth:`build` as numpy arrays; :meth:`to` gives tensors.
     """
 
@@ -308,6 +318,7 @@ class MegaConstants:
     gi: object
     unpack_scale: float = 1.0
     unpack_offset: float = 0.0
+    jones: object = None
 
     @classmethod
     def build(cls, plan: MegaPlan, response_natural: Optional[np.ndarray],
@@ -315,10 +326,9 @@ class MegaConstants:
               twobit=None, window: Optional[np.ndarray] = None,
               jones: Optional[np.ndarray] = None) -> "MegaConstants":
         """The JAX package's float64 formulas for the arrays this slice
-        reads.  ``jones``, ``window`` and ``twobit`` raise."""
-        if jones is not None:
-            raise NotImplementedError(
-                "Jones response on the fused step; see " + _NEXT_SLICE)
+        reads.  ``jones`` is the natural-order complex ``[nchan_in, n_fft,
+        2, 2]`` Jones response (``ops.polncal``), or None; ``window`` and
+        ``twobit`` raise."""
         if window is not None:
             raise NotImplementedError(
                 "apodization on the fused step; see " + _KERNEL_ITEM)
@@ -332,17 +342,38 @@ class MegaConstants:
                 plan.nchan_in, N).astype(np.complex128)
         else:
             flat = np.ones((plan.nchan_in, N), np.complex128)
+        jn = None
+        if jones is not None:
+            if plan.npol != 2:
+                raise ValueError("Jones response needs npol == 2")
+            jn = np.asarray(jones).astype(np.complex128)
+            if jn.shape != (plan.nchan_in, N, 2, 2):
+                raise ValueError(f"jones shape {jn.shape} != "
+                                 f"({plan.nchan_in}, {N}, 2, 2)")
+            jn = jones_planes(jn)
         return cls(gr=np.ascontiguousarray(flat.real).astype(np.float32),
                    gi=np.ascontiguousarray(flat.imag).astype(np.float32),
                    unpack_scale=float(unpack_scale),
-                   unpack_offset=float(unpack_offset))
+                   unpack_offset=float(unpack_offset), jones=jn)
 
     def to(self, device) -> "MegaConstants":
         """A copy whose arrays are float32 tensors on ``device``."""
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32).to(device)
+
         return dataclasses.replace(
-            self,
-            gr=torch.as_tensor(self.gr, dtype=torch.float32).to(device),
-            gi=torch.as_tensor(self.gi, dtype=torch.float32).to(device))
+            self, gr=f32(self.gr), gi=f32(self.gi),
+            jones=None if self.jones is None else f32(self.jones))
+
+
+def jones_planes(jones: np.ndarray) -> np.ndarray:
+    """Complex ``[nchan, n, 2, 2]`` Jones matrices -> float32 ``[nchan, 4,
+    n, 2]`` (plane ``2a + b``, then re, im): the layout of
+    ``MegaConstants.jones``."""
+    jn = np.asarray(jones)
+    planes = jn.reshape(jn.shape[0], jn.shape[1], 4).transpose(0, 2, 1)
+    return np.ascontiguousarray(
+        np.stack([planes.real, planes.imag], axis=-1)).astype(np.float32)
 
 
 # --------------------------------------------------------------------------
@@ -435,7 +466,9 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     windows of every input pol's ``|X|^2`` before the chirp.  With
     ``voltage`` the first is the undetected complex ``[nchan_in, npol,
     npart, nsub, nkeep]`` of every input pol instead, with the sign of
-    :func:`voltage_sign_flips`."""
+    :func:`voltage_sign_flips`.  With a Jones response (``cst.jones``) both
+    input pols are transformed, and output pol ``p`` is the mix ``J[p, 0]
+    X_0 + J[p, 1] X_1`` before the scalar chirp slot."""
     p = plan
     check_supported(p)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
@@ -447,7 +480,8 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         1, 2, 0, 3)
     x = x[..., 0] if p.real_input else torch.complex(x[..., 0], x[..., 1])
     pols = list(range(p.npol)) if voltage else list(fold_pols(p))
-    if not passband:
+    jones = cst.jones
+    if not passband and jones is None:
         x = x[:, pols]
     win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, L]
     if p.real_input:
@@ -457,6 +491,12 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     pb = None
     if passband:
         pb = torch.sum(spec.real * spec.real + spec.imag * spec.imag, dim=2)
+    if jones is not None:
+        # matrix convolution (Convolution.C:425-436): [nchan, 4, n_fft]
+        J = torch.view_as_complex(jones.to(dtype))[:, :, None, :]
+        spec = torch.stack([J[:, 2 * q] * spec[:, 0] + J[:, 2 * q + 1]
+                            * spec[:, 1] for q in pols], dim=1)
+    elif passband:
         spec = spec[:, pols]
     gr = cst.gr if gr is None else gr
     gi = cst.gi if gi is None else gi
@@ -508,9 +548,16 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
     ``step(profiles, hits, raw, phi0, dphi, bounds=None) -> (profiles,
     hits)``.  On CUDA tensors it launches the hand-written kernel
     (``kernels.megastep.megastep_cuda``); on CPU tensors it runs
-    :func:`megastep_plain`.  ``cst`` holds tensors on the step's device."""
+    :func:`megastep_plain`.  ``cst`` holds tensors on the step's device.
+    A Jones response raises: it runs on the hybrid engine's front end, as
+    in the JAX package (``load_to_fold.py:1127-1144``)."""
     plan.validate()
     check_supported(plan)
+    if cst is not None and cst.jones is not None:
+        raise NotImplementedError(
+            "a Jones response on the fused fold step; the pipeline runs it "
+            "on the hybrid engine (build_megafil), as the JAX package does; "
+            "see ROADMAP.md Queue 2 item 1")
 
     def step(profiles, hits, raw, phi0, dphi, bounds=None):
         if phi0.shape != (npart,):
@@ -570,7 +617,7 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
                   output: str = "detected", passband: bool = False,
                   return_weights: bool = False,
                   response_as_args: bool = False,
-                  jones_as_args: bool = False):
+                  jones_as_args: bool = False, inverse: str = "auto"):
     """The fused search front end for ``npart`` windows a block (the JAX
     package's ``build_megafil``).  ``step(raw)``, or ``step(raw, gr, gi)``
     with ``response_as_args``, returns ``data[, wgt][, pb]``:
@@ -590,17 +637,24 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
     response in the permuted ``[k1, k2]`` layout of its TPU kernel and
     permutes every traced mask to match (``permute_response``); here the
     chirp and the passband are both in natural order, so a mask multiplies
-    the chirp as it is and no permutation exists.
+    the chirp as it is and no permutation exists.  A Jones response in
+    ``cst.jones`` mixes the two input pols before that chirp (every input
+    pol is then transformed).
 
     On CUDA tensors the step launches the hand-written kernel
-    (``kernels.megafil.megafil_cuda``); on CPU tensors it runs
-    :func:`megafil_plain`.  ``cst`` holds tensors on the step's device.
-    The traced Jones planes raise ``NotImplementedError``, as do fourth
-    moments (the JAX kernel refuses them too)."""
+    (``kernels.megafil.megafil_cuda``; ``inverse="multipass"`` forces its
+    multi-pass inverse where the one-CTA inverse would fit, for checks); on
+    CPU tensors it runs :func:`megafil_plain`.  ``cst`` holds tensors on the
+    step's device.  The traced Jones planes (``jones_as_args``, which the
+    JAX package uses only for its channel-sharded step) raise
+    ``NotImplementedError``, as do fourth moments (the JAX kernel refuses
+    them too)."""
     if output not in ("detected", "voltage"):
         raise ValueError(f"unknown output mode: {output}")
+    if inverse not in ("auto", "multipass"):
+        raise ValueError(f"unknown inverse: {inverse}")
     uncovered = (
-        (jones_as_args, "jones_as_args=True", _NEXT_SLICE),
+        (jones_as_args, "jones_as_args=True", _SHARDED),
         (plan.fourth_moment, "fourth moments (applied after the front end)",
          "ROADMAP.md Queue 1 item 6 (the hybrid tail applies them)"),
     )
@@ -620,7 +674,7 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
             from ..kernels.megafil import megafil_cuda
 
             res = megafil_cuda(plan, cst, raw, npart, passband, gr, gi,
-                               output)
+                               output, inverse)
         else:
             res = megafil_plain(plan, cst, raw, npart, passband=passband,
                                 gr=gr, gi=gi, output=output)

@@ -350,7 +350,8 @@ def test_cyclic_pipeline_matches_jax(tmp_path, name):
 
 def test_cyclic_result_and_refusals(tmp_path):
     """A detected result has no cyclic spectra; fourth moments of lag
-    products and cyclic folding without a filterbank are refused."""
+    products and cyclic folding with no FFT stage at all (nsub == 1 at DM
+    0; at DM > 0 it runs, ``test_torch_conv.py``) are refused."""
     path = _write_rfi(tmp_path, ndat=1 << 13)
     det = dict(CYC, cyclic_nchan=0)
     res = tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**det),
@@ -360,6 +361,6 @@ def test_cyclic_result_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="fourth moments"):
         tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(
             **dict(CYC, npol_out=4, fourth_moment=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6.2"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(
-            **dict(CYC, nchan=1)), device="cpu")
+            **dict(CYC, nchan=1, dispersion_measure=0.0)), device="cpu")

@@ -8,8 +8,10 @@ relative (``tests/test_megakernel.py:817``).
 Also: the step's CPU dispatch, constants carried from JAX, the CUDA
 wrapper's refusal of CPU tensors, the keywords the port does not cover yet
 (the traced Jones planes; the passband and the traced chirp are in
-``test_torch_hybrid.py``, the voltage output in ``test_torch_cyclic.py``),
-and the kernel build's tracking of shared headers.
+``test_torch_hybrid.py``, the voltage output in ``test_torch_cyclic.py``,
+the Jones mix in ``test_torch_jones.py``, nsub == 1 in
+``test_torch_conv.py``), and the kernel build's tracking of shared
+headers.
 """
 
 import dataclasses
@@ -146,8 +148,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     dict(jones_as_args=True, response_as_args=True)],
     ids=lambda kw: "-".join(kw))
 def test_uncovered_keywords_raise(kw):
+    """The traced Jones planes serve the JAX package's channel-sharded step
+    only (multi-GPU, item 10); a Jones response in the constants runs
+    (``test_torch_jones.py``)."""
     plan, raw, resp = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10"):
         tmk.build_megafil(_tplan(plan), _port_cst(plan, resp), NPART, **kw)
 
 
@@ -156,9 +162,12 @@ def test_uncovered_plans_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmk.build_megafil(_tplan(plan), None, NPART)
     plan, raw, resp = _setup()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmk.MegaConstants.build(_tplan(plan), resp,
-                                jones=np.ones((1, NSUB * FREQ_RES, 2, 2)))
+    # Jones constants build (the front end mixes them in); the fused fold
+    # step refuses them, as the JAX package never runs them there
+    cst = tmk.MegaConstants.build(_tplan(plan), resp,
+                                  jones=np.ones((1, NSUB * FREQ_RES, 2, 2)))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        tmk.build_megastep(_tplan(plan), cst, NPART)
     with pytest.raises(ValueError, match="output mode"):
         tmk.build_megafil(_tplan(plan), None, NPART, output="spectra")
 

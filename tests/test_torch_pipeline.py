@@ -154,13 +154,18 @@ def test_save_archive(tmp_path, ext):
         assert any(np.array_equal(x, res.profiles) for x in arrays)
 
 
+# nsub == 1 with DM > 0 (the convolution) and calibration at nsub == 1 run
+# since the nsub == 1 slice (tests/test_torch_conv.py,
+# tests/test_torch_jones.py); nsub == 1 with no FFT stage (DM 0, no
+# calibration) and calibration inside a filterbank still raise
 @pytest.mark.parametrize("kw", [
-    dict(cyclic_nchan=4, nchan=1), dict(calibration_path="cal.txt"),
+    dict(cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
+    dict(calibration_path="cal.txt"),
     dict(use_megakernel=False), dict(use_fft_bench=True),
-    dict(fft_window="hanning"), dict(nchan=1),
-    dict(sk_enable=True, cyclic_nchan=4, nchan=1),
-    dict(rfi_filter=True, nchan=1),
-], ids=lambda kw: "-".join(kw))
+    dict(fft_window="hanning"), dict(nchan=1, dispersion_measure=0.0),
+    dict(sk_enable=True, cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
+    dict(rfi_filter=True, nchan=1, dispersion_measure=0.0),
+], ids=lambda kw: "-".join(k for k in kw if k != "dispersion_measure"))
 def test_unsupported_config_raises(tmp_path, kw):
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
