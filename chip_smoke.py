@@ -24,7 +24,14 @@ and prints timings:
 - the nsub == 1 convolution (``hybrid_conv32``: 32 complex 8-bit channels
   at 12.5 Msamp/s, DM 71, freq_res 2^19, dspsr without ``-F``): kernel
   ``megafil`` with its multi-pass inverse, then the fold tail; and the same
-  cell with polarization calibration (a Jones response, Stokes).
+  cell with polarization calibration (a Jones response, Stokes);
+- JA98 2-bit input (``mega_guppi_2bit``: 32 complex 2-bit channels at 12.5
+  Msamp/s, DM 71, 2048 channels, 256-sample excision blocks): kernel
+  ``megastep`` after its JA98 pre-pass, on bytes made on the card whose
+  clean blocks JA98 keeps, with saturated stretches that it excises.
+
+Every unpack variant of both kernels (JA98, fixed-level 1/2/4-bit, float32,
+apodization windows) is held against plain at the test geometry first.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
@@ -325,7 +332,8 @@ def cuda_ms(fn, reps: int) -> float:
 def block_bytes(pipe) -> int:
     """Raw bytes of one block of ``pipe``."""
     obs = pipe.obs_in
-    return pipe.block_in_samples * obs.nchan * obs.npol * obs.ndim
+    return (pipe.block_in_samples * obs.nchan * obs.npol * obs.ndim
+            * obs.nbit // 8)
 
 
 def flagship_block(card: str, kind: str = "real") -> dict:
@@ -1530,6 +1538,443 @@ def conv32_jones(card: str) -> dict:
     return stats
 
 
+# ---- the unpack variants and mega_guppi_2bit (JA98 2-bit) ----
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit multiply-xorshift hash of int64 ``x`` (its low 32 bits)."""
+    h = ((x & _M32) * 2654435761) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x846CA68B) & _M32
+    return h ^ (h >> 13)
+
+
+def ja98_bytes(t0: int, ndat: int, ndig: int, npw: int, stretches=(),
+               seed: int = 0, device="cuda") -> torch.Tensor:
+    """2-bit JA98 bytes of time samples ``[t0, t0 + ndat)`` of ``ndig``
+    digitizers (TFP order, four codes a byte, the first in the top bits;
+    ``t0`` a multiple of ``npw``), made on the card.  Every ``npw``-sample
+    block of every digitizer holds exactly ``round(2 npw / 3)`` low codes
+    (171 of 256: inside the JA98 keep range, 148-194), at the positions m
+    with ``(m a + b) mod npw < 171``, ``a`` odd and ``b`` hashed from the
+    block and digitizer, and a hashed sign; so no clean block is excised.
+    ``stretches`` lists ``(digs, start, stop)``: digitizers ``digs`` hold
+    code 3 (saturated) over samples ``[start, stop)``."""
+    check(t0 % npw == 0 and ndat % npw == 0 and ndig * npw % 4 == 0,
+          f"ja98_bytes({t0}, {ndat}, {ndig}, {npw})")
+    nlow = round(2 * npw / 3)
+    out = torch.empty(ndat * ndig // 4, dtype=torch.uint8, device=device)
+    i64, i32 = torch.int64, torch.int32
+    d = torch.arange(ndig, device=device, dtype=i64)
+    m = torch.arange(npw, device=device, dtype=i32)[None, :, None]
+    gidx, shift = d // 32, (d % 32).to(i32)
+    ngrp = (ndig + 31) // 32
+    weights = torch.tensor([64, 16, 4, 1], device=device, dtype=i32)
+    nblk = ndat // npw
+    per = max(1, (1 << 25) // (npw * ndig))  # blocks a chunk
+    for k0 in range(0, nblk, per):
+        nb = min(per, nblk - k0)
+        blk = torch.arange(t0 // npw + k0, t0 // npw + k0 + nb, device=device,
+                           dtype=i64)[:, None]
+        key = (blk * ndig + d) * 4 + seed
+        a = ((_mix(key) | 1) & (npw - 1)).to(i32)[:, None, :]
+        b = (_mix(key + 1) & (npw - 1)).to(i32)[:, None, :]
+        low = ((m * a + b) & (npw - 1)) < nlow  # [nb, npw, ndig]
+        t = blk * npw + torch.arange(npw, device=device, dtype=i64)
+        grp = torch.arange(ngrp, device=device, dtype=i64)
+        h = _mix((t[..., None] * ngrp + grp) * 4 + 2 + seed).to(i32)
+        sgn = (h[..., gidx] >> shift) & 1
+        codes = torch.where(low, sgn + 1, sgn * 3).reshape(nb * npw, ndig)
+        c0 = t0 + k0 * npw
+        for digs, s0, s1 in stretches:
+            lo, hi = max(s0 - c0, 0), min(s1 - c0, nb * npw)
+            if lo < hi:
+                codes[lo:hi, list(digs)] = 3
+        out[k0 * npw * ndig // 4:(k0 + nb) * npw * ndig // 4] = (
+            codes.reshape(-1, 4) * weights).sum(1).to(torch.uint8)
+    return out
+
+
+#: the unpack variants held against plain at the test geometry: (input
+#: kind, plan keywords, apodization window)
+UNPACK_CASES = [
+    ("real", dict(nbit=2, ndat_per_weight=16), None),
+    ("complex", dict(nbit=2, ndat_per_weight=16), None),
+    ("complex", dict(nbit=2, ndat_per_weight=16, nchan_in=2, npol_out=2),
+     None),
+    ("real", dict(nbit=1), None), ("real", dict(nbit=2), None),
+    ("real", dict(nbit=4), None), ("complex", dict(nbit=4), None),
+    ("real", dict(nbit=2, twos_complement=True), None),
+    ("complex", dict(nbit=2, twos_complement=True), None),
+    ("real", dict(nbit=4, twos_complement=True, npol_out=4), None),
+    ("complex", dict(nbit=4, twos_complement=True, nchan_in=2), None),
+    ("complex", dict(nbit=1, nchan_in=2, npol_out=4), None),
+    ("real", dict(nbit=32), None), ("complex", dict(nbit=32), None),
+    ("real", dict(), "hanning"), ("complex", dict(npol_out=2), "hanning"),
+    ("real", dict(nbit=4), "tukey"),
+    ("complex", dict(nbit=2, ndat_per_weight=16), "welch"),
+]
+
+
+def unpack_case(kind, kw, window, npart, rng):
+    """Plan, constants (on the card) and one block of raw bytes (on the
+    card) of an UNPACK_CASES entry at the test geometry; JA98 bytes
+    saturate the first digitizer over samples 8-40, so window 0 of channel
+    0 is excised and the rest kept."""
+    from dspsr_tpu_torch.ops.apodization import WindowType, build_window
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, raw_nbytes, unpack_affine)
+
+    plan = small_plan(kind, 32, npol=2, **kw)
+    nci, nsub, freq_res = plan.nchan_in, plan.nsub, plan.freq_res
+    resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
+    win = (build_window(WindowType(window), plan.nsamp_fft) if window
+           else None)
+    if plan.npw:
+        scale, offset = 1.0, 0.0
+    else:
+        scale, offset = unpack_affine(plan.nbit, plan.twos_complement)
+    cst = MegaConstants.build(plan, resp, scale, offset, window=win).to(
+        "cuda")
+    ndig = nci * plan.npol * plan.ndim
+    if plan.npw:
+        raw = ja98_bytes(0, plan.block_ndat(npart), ndig, plan.npw,
+                         stretches=[((0,), 8, 40)], seed=int(rng.integers(
+                             1 << 20)))
+    elif plan.nbit == 32:
+        x = rng.normal(0, 20, plan.block_ndat(npart) * ndig)
+        raw = torch.from_numpy(x.astype(np.float32).view(np.uint8)).cuda()
+    else:
+        raw = torch.from_numpy(rng.integers(
+            0, 256, raw_nbytes(plan, npart), dtype=np.uint8)).cuda()
+    return plan, cst, raw
+
+
+def small_checks_unpack() -> None:
+    """Both kernels (f32) against their plain versions (f64) at the test
+    geometry on every unpack variant (JA98 real and complex, fixed-level
+    1/2/4-bit plain and two's complement, float32, apodization windows):
+    the fold step within TOL_SMALL with hits exact, the front end's
+    detected and voltage outputs within TOL_SMALL with its weights exactly
+    equal, and the JA98 pre-pass's nlow and window weights exactly
+    equal."""
+    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
+    from dspsr_tpu_torch.ops.megakernel import (
+        build_megafil, build_megastep, bytes_to_codes, megafil_plain,
+        megastep_plain, twobit_plain)
+
+    npart, nbin = 3, 32
+    rng = np.random.default_rng(12)
+    phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32)).cuda()
+    dphi = torch.full((npart,), 0.013, dtype=torch.float32, device="cuda")
+    for kind, kw, window in UNPACK_CASES:
+        plan, cst, raw = unpack_case(kind, kw, window, npart, rng)
+        nci, nsub = plan.nchan_in, plan.nsub
+        what = f"small unpack {kind} {kw} window={window}"
+        shp = (nci, plan.nplane, nsub, nbin)
+        pk, hk = build_megastep(plan, cst, npart)(
+            torch.zeros(shp, device="cuda"),
+            torch.zeros(nci, nbin, device="cuda"), raw, phi0, dphi)
+        pp, hp = megastep_plain(
+            plan, cst, torch.zeros(shp, dtype=torch.float64, device="cuda"),
+            torch.zeros(nci, nbin, dtype=torch.float64, device="cuda"), raw,
+            phi0, dphi)
+        errs = [rel_err(pk, pp)]
+        hdiff = float((hk.double() - hp).abs().max())
+        wdiff = 0.0
+        for output in ("detected", "voltage"):
+            got, w = build_megafil(plan, cst, npart, output=output,
+                                   return_weights=True)(raw)
+            want, ww = megafil_plain(plan, cst, raw, npart, torch.float64,
+                                     output=output, return_weights=True)
+            errs.append(rel_err(got, want))
+            wdiff = max(wdiff, float((w - ww).abs().max()))
+            check(got.shape == want.shape, f"{what}: {output} shape")
+        torch.cuda.synchronize()
+        extra = ""
+        if plan.npw:
+            nlow, wwin = ja98_cuda(plan, cst, raw, npart)
+            codes = bytes_to_codes(raw, 2).reshape(
+                -1, nci, plan.npol, plan.ndim).permute(1, 2, 3, 0)
+            pn, pw = twobit_plain(plan, cst, codes, npart)
+            check(bool(torch.equal(nlow.long(), pn)), f"{what}: nlow")
+            check(bool(torch.equal(wwin, pw)), f"{what}: window weights")
+            check(float(pw[0, 0]) == 0 and float(pw.sum()) == pw.numel() - 1,
+                  f"{what}: excised windows {pw.tolist()}")
+            extra = f", window weights {pw.tolist()}"
+        print(f"{what}: rel err step {errs[0]:.3e}, front detected "
+              f"{errs[1]:.3e}, voltage {errs[2]:.3e}; hits diff {hdiff}, "
+              f"weights diff {wdiff}{extra}", flush=True)
+        check(bool(torch.isfinite(pk).all()), f"{what}: finite")
+        check(max(errs) < TOL_SMALL, f"{what}: {errs} >= {TOL_SMALL}")
+        check(hdiff == 0 and wdiff == 0, f"{what}: hits or weights differ")
+        check(float(hk.sum()) > 0, f"{what}: hits folded")
+
+
+def guppi2_obs():
+    """mega_guppi_2bit's input (``bench.py:422-428``): 32 complex 2-bit
+    dual-pol channels at 12.5 Msamp/s, -400 MHz at 1382 MHz."""
+    from dspsr_tpu_torch.models.load_to_fold import MJD, Observation, Signal
+
+    return Observation(
+        nchan=32, npol=2, ndim=2, nbit=2, centre_frequency=1382.0,
+        bandwidth=-400.0, rate=12.5e6,
+        start_time=MJD.from_utc("2010-04-13-02:05:45"),
+        state=Signal.ANALYTIC, source="J0437-4715", telescope="PKS",
+        instrument="DUMMY").replace(ndat=1 << 40)
+
+
+#: saturated stretches of the mega_guppi_2bit checks: (input channel,
+#: digitizers of the channel (pol * 2 + dim), first sample, end), whole
+#: 256-sample blocks, in blocks 0, 1 and 2 of the stream
+GUPPI2_STRETCHES = [(5, (0,), 262144, 266240), (20, (0, 1, 2, 3), 3 << 20,
+                                                (3 << 20) + 1024),
+                    (31, (3,), 4194304, 4194304 + 512), (0, (1,), 0, 256)]
+
+
+def guppi2_stretches():
+    """GUPPI2_STRETCHES as ``ja98_bytes`` takes them (digitizer indices
+    over all channels)."""
+    return [([c * 4 + d for d in digs], a, b)
+            for c, digs, a, b in GUPPI2_STRETCHES]
+
+
+def guppi2_source():
+    """A ``Source`` of mega_guppi_2bit's JA98 bytes (``ja98_bytes`` with
+    GUPPI2_STRETCHES), made on the card and handed over as host bytes."""
+    from dspsr_tpu_torch.io.sources import Source
+
+    class Ja98Source(Source):
+        def __init__(self):
+            self.obs = guppi2_obs()
+
+        @property
+        def total_samples(self) -> int:
+            return self.obs.ndat
+
+        def read_samples(self, start: int, nsamp: int) -> np.ndarray:
+            return ja98_bytes(start, nsamp, 128, 256,
+                              guppi2_stretches()).cpu().numpy()
+
+    return Ja98Source()
+
+
+def guppi2_pipe():
+    """mega_guppi_2bit (``bench.py:429-431, 496-497``): the flagship
+    config with 2048 channels (64 a coarse channel), DM 71, freq_res 2048,
+    ndat_per_weight 256, 16 windows a block, 1024 bins at J0437's period,
+    through ``FoldPipeline`` on the card."""
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig, FoldPipeline
+
+    cfg = FoldConfig(folding_period=0.00575745, dispersion_measure=71.0,
+                     nchan=2048, nbin=1024, npol_out=1,
+                     frequency_resolution=2048, ndat_per_weight=256,
+                     block_parts=16, min_block_samples=0)
+    pipe = FoldPipeline(guppi2_source(), cfg, device="cuda")
+    p = pipe.mega_plan
+    check(pipe.mega_mode == "full"
+          and (p.nsub, p.R1, p.R2, p.q, p.npw, p.nkeep, pipe.npart,
+               pipe.block_in_samples, pipe.stride_in_samples)
+          == (64, 512, 256, 4, 256, 2016, 16, 2066432, 2064384),
+          f"mega_guppi_2bit geometry {p} npart {pipe.npart}")
+    return pipe
+
+
+def guppi2_expected_weights(pipe, block: int) -> np.ndarray:
+    """The window weights [32, npart] that GUPPI2_STRETCHES give block
+    ``block``: 0 where a window's samples meet a stretch of its channel."""
+    p = pipe.mega_plan
+    s0 = block * pipe.stride_in_samples
+    w = np.ones((32, pipe.npart), np.float32)
+    for c, _, a, b in GUPPI2_STRETCHES:
+        for k in range(pipe.npart):
+            lo = s0 + k * p.nsamp_step
+            if a < lo + p.nsamp_fft and b > lo:
+                w[c, k] = 0.0
+    return w
+
+
+def guppi2_block(card: str) -> dict:
+    """One mega_guppi_2bit block at full width on JA98 bytes made on the
+    card: the fold kernel against its plain version (both f32) within
+    TOL_FLAGSHIP, hits exact; the pre-pass's nlow and window weights
+    against plain, and the excised windows against those the stretches
+    give; then each pass against its bytes and the step against its
+    bound."""
+    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
+    from dspsr_tpu_torch.ops.megakernel import (
+        bytes_to_codes, megastep_plain, twobit_plain)
+
+    pipe = guppi2_pipe()
+    plan, cst, npart = pipe.mega_plan, pipe.constants, pipe.npart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = ja98_bytes(0, pipe.block_in_samples, 128, 256, guppi2_stretches())
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(raw.numel() == block_bytes(pipe), "mega_guppi_2bit raw size")
+    phi0, dphi = cyclic_anchors(pipe)
+    prof0 = torch.zeros(32, 1, plan.nsub, plan.nbin, device="cuda")
+    hits0 = torch.zeros(32, plan.nbin, device="cuda")
+    pk, hk = pipe._megastep(prof0, hits0, raw, phi0, dphi)
+    pp, hp = megastep_plain(plan, cst, prof0, hits0, raw, phi0, dphi)
+    nlow, wwin = ja98_cuda(plan, cst, raw, npart)
+    codes = bytes_to_codes(raw, 2).reshape(-1, 32, 2, 2).permute(1, 2, 3, 0)
+    pn, pw = twobit_plain(plan, cst, codes, npart)
+    del codes
+    torch.cuda.synchronize()
+    err = rel_err(pk, pp)
+    abs_err = float((pk - pp).abs().max())
+    hdiff = float((hk - hp).abs().max())
+    want_w = guppi2_expected_weights(pipe, 0)
+    excised = int((wwin == 0).sum())
+    print(f"mega_guppi_2bit block (nsub {plan.nsub} R1 {plan.R1} R2 "
+          f"{plan.R2} npw {plan.npw}, npart {npart}, raw {raw.numel()} B "
+          f"made in {gen_s * 1e3:.1f} ms): rel err {err:.3e} (abs "
+          f"{abs_err:.3e}), hits diff {hdiff}; excised windows {excised} "
+          f"(plain {int((pw == 0).sum())}, from the stretches "
+          f"{int((want_w == 0).sum())}); nlow range "
+          f"{int(nlow.min())}-{int(nlow.max())}", flush=True)
+    check(bool(torch.isfinite(pk).all()), "mega_guppi_2bit finite")
+    check(err < TOL_FLAGSHIP, f"mega_guppi_2bit rel err {err} >= "
+          f"{TOL_FLAGSHIP}")
+    check(hdiff == 0, "mega_guppi_2bit hits differ")
+    check(bool(torch.equal(nlow.long(), pn)), "mega_guppi_2bit nlow")
+    check(bool(torch.equal(wwin, pw)), "mega_guppi_2bit window weights")
+    check(np.array_equal(pw.cpu().numpy(), want_w) and 0 < excised,
+          "mega_guppi_2bit excised windows")
+    per_chan = hk.sum(1).cpu().numpy()
+    check(np.array_equal(per_chan, want_w.sum(1) * plan.nkeep),
+          "mega_guppi_2bit hits per channel")
+
+    kernel_ms = cuda_ms(lambda: pipe._megastep(prof0, hits0, raw, phi0,
+                                               dphi), 10)
+    plain_ms = cuda_ms(lambda: megastep_plain(plan, cst, prof0, hits0, raw,
+                                              phi0, dphi), 2)
+    times = kernel_breakdown(
+        lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), card,
+        label=" (mega_guppi_2bit fold)")
+    nbytes = (raw.numel() + 8 * cst.gr.numel() + 4 * cst.twobit.numel()
+              + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
+    bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
+    # each pass's own bytes: codes and nlow in, cbuf and ybuf out and in
+    scratch = 8 * 32 * 2 * npart * plan.n_fft
+    nl = 2 * nlow.numel()
+    passes = {"mega_ja98": raw.numel() + nl + 4 * 32 * nlow.shape[-1],
+              "mega_fwd1": raw.numel() + nl + scratch,
+              "mega_fwd2c": 2 * scratch + 8 * cst.gr.numel(),
+              "mega_invfold": scratch}
+    parts = []
+    for name, nb in passes.items():
+        ms = next((v for k, v in times.items()
+                   if k.split("<")[0] == name), float("nan"))
+        parts.append(f"{name} {ms:.3f} ms for {nb / 1e6:.0f} MB "
+                     f"({nb / (ms * 1e-3) / 1e12:.2f} TB/s; "
+                     f"{nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
+    sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
+    print(f"mega_guppi_2bit step per block ({sky_ms:.2f} ms of sky): "
+          f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
+          f"{bound['bound_by']}; passes "
+          f"{sum(passes.values()) / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s); "
+          f"plain {plain_ms:.3f} ms; {'; '.join(parts)} [{card}]",
+          flush=True)
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                **bound, library_ms=None)
+
+
+def guppi2_path(card: str) -> int:
+    """mega_guppi_2bit at full width, 3 blocks through ``FoldPipeline.run``
+    on ``guppi2_source`` with torch.fft and torch.matmul disabled: the full
+    engine, 3 megastep and 3 JA98 pre-pass launches, no megafil; finite,
+    not flat profiles, and per-channel hits short by the windows the
+    stretches excise.  Returns the megastep launches."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+
+    nblocks = 3
+    pipe = guppi2_pipe()
+    reset_launch_counts()
+    with NoLibraryFFT():
+        t0 = time.perf_counter()
+        res = pipe.run(max_blocks=nblocks)
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["megastep"] == nblocks and counts["mega_ja98"] == nblocks,
+          f"mega_guppi_2bit launches {counts}")
+    check(counts["megafil"] == 0, "mega_guppi_2bit: megafil launched")
+    check(res.profiles.shape == (1, 2048, 1, pipe.nbin),
+          f"mega_guppi_2bit profiles shape {res.profiles.shape}")
+    check(bool(np.isfinite(res.profiles).all()), "mega_guppi_2bit non-finite")
+    prof = res.normalized()[0, :, 0, :]
+    check(bool((prof.std(axis=1) > 0).all()), "mega_guppi_2bit flat profiles")
+    per_chan = res.hits.sum(axis=(0, 2))[::64]  # one output channel each
+    want = sum(guppi2_expected_weights(pipe, b).sum(1)
+               for b in range(nblocks)) * pipe.mega_plan.nkeep
+    full = nblocks * pipe.out_per_block
+    short = {c: int(full - per_chan[c]) for c in range(32)
+             if per_chan[c] != full}
+    check(np.array_equal(per_chan, want), f"mega_guppi_2bit hits per "
+          f"channel {per_chan.tolist()} != {want.tolist()}")
+    check(sorted(short) == sorted({c for c, *_ in GUPPI2_STRETCHES}),
+          f"mega_guppi_2bit channels short of hits {short}")
+    msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    print(f"mega_guppi_2bit: {nblocks} blocks, {counts['megastep']} megastep "
+          f"and {counts['mega_ja98']} mega_ja98 launches; hits short by "
+          f"channel {short} of {full}; host-fed (bytes made on the card, "
+          f"through the host) incl. first-block warm-up {msps:.2f} Msamp/s "
+          f"a channel, {msps / (pipe.obs_in.rate / 1e6):.4f} x real time "
+          f"[{card}]", flush=True)
+    return counts["megastep"]
+
+
+def guppi2_rates(card: str) -> None:
+    """Device-fed rate of mega_guppi_2bit (JA98 bytes made on the card,
+    then the fold step, warm) against 12.5 Msamp/s a channel, with the
+    generator's time and the step's time apart, and peak device memory."""
+    pipe = guppi2_pipe()
+    plan = pipe.mega_plan
+    nbytes = block_bytes(pipe)
+    phi0, dphi = cyclic_anchors(pipe)
+    prof = torch.zeros(32, 1, plan.nsub, plan.nbin, device="cuda")
+    hits = torch.zeros(32, plan.nbin, device="cuda")
+
+    def make(b):
+        s = b * pipe.stride_in_samples
+        return ja98_bytes(s, pipe.block_in_samples, 128, 256,
+                          guppi2_stretches())
+
+    def block(b):
+        return pipe._megastep(prof, hits, make(b), phi0, dphi)
+
+    block(0)
+    nb = 4
+    it = iter(range(1, nb + 1))
+    ms = cuda_ms(lambda: block(next(it)), nb)
+    raw0 = make(0)
+    check(raw0.numel() == nbytes, "mega_guppi_2bit block bytes")
+    step_ms = cuda_ms(lambda: pipe._megastep(prof, hits, raw0, phi0, dphi),
+                      nb)
+    gen_ms = cuda_ms(lambda: make(0), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pipe._megastep(prof, hits, raw0, phi0, dphi)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
+    step_msps = pipe.stride_in_samples / (step_ms * 1e-3) / 1e6
+    rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s a channel
+    print(f"mega_guppi_2bit device-fed (ja98_bytes on the card, then the "
+          f"step): {ms:.3f} ms a block ({pipe.stride_in_samples / rt / 1e3:.2f}"
+          f" ms of sky), {msps:.1f} Msamp/s a channel, {msps / rt:.3f} x real"
+          f" time; the generator {gen_ms:.3f} ms, the step alone "
+          f"{step_ms:.3f} ms ({step_msps:.1f} Msamp/s a channel, "
+          f"{step_msps / rt:.2f} x real time); peak device memory of a step "
+          f"{peak_mb:.0f} MiB; real time is {rt:g} Msamp/s [{card}]",
+          flush=True)
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -1560,6 +2005,7 @@ def small_all() -> None:
         small_checks_hybrid(kind)
         small_checks_conv(kind)
     small_unequal()
+    small_checks_unpack()
 
 
 def main() -> None:
@@ -1595,7 +2041,12 @@ def main() -> None:
     hybrid_launches += conv32_path(card)
     conv32_rates(card)
     conv_j = conv32_jones(card)
-    flag["max_abs_err"] = max(f["max_abs_err"] for f in (flag, flag_c, flag_k))
+    # JA98 2-bit (mega_guppi_2bit): the fold kernel with the pre-pass
+    guppi = guppi2_block(card)
+    launches += guppi2_path(card)
+    guppi2_rates(card)
+    flag["max_abs_err"] = max(f["max_abs_err"]
+                              for f in (flag, flag_c, flag_k, guppi))
     search["max_abs_err"] = max(search["max_abs_err"],
                                 search_c["max_abs_err"],
                                 search_k["max_abs_err"], hybrid["err"],

@@ -36,12 +36,24 @@ def constants_from_numpy(d: dict, plan: MegaPlan, device) -> MegaConstants:
     """The port's ``MegaConstants`` on ``device`` from the JAX package's
     ``MegaConstants`` arrays: ``d["gr"]``/``d["gi"]`` ``[nchan_in, R1, R2]``
     are un-permuted to natural order; ``d["unpack_scale"]`` and
-    ``d["unpack_offset"]`` default to ``unpack_affine`` of the plan."""
+    ``d["unpack_offset"]`` default to ``unpack_affine`` of the plan.
+    ``d["apod"]`` (the window as ``[R1, row_len]``: sample ``n1*row_len +
+    m`` at ``[n1, m]``) becomes the flat window, and ``d["twobit"]`` (its
+    ``TwoBitCorrection``, read for a JA98 plan) the ``[3, npw + 1]`` lo,
+    hi and weight tables; either may be absent or None."""
     scale, offset = unpack_affine(plan.nbit, plan.twos_complement)
+    apod, tb = d.get("apod"), d.get("twobit")
+    tables = None
+    if plan.npw:
+        if tb is None:
+            raise ValueError("a JA98 plan needs the JAX constants' twobit")
+        tables = np.stack([*tb.level_tables, tb.weight_table])
     return MegaConstants(
         gr=_natural(d["gr"], plan), gi=_natural(d["gi"], plan),
         unpack_scale=float(d.get("unpack_scale", scale)),
         unpack_offset=float(d.get("unpack_offset", offset)),
+        twobit=tables,
+        window=None if apod is None else np.asarray(apod).reshape(-1),
     ).to(device)
 
 

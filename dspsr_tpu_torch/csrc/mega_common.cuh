@@ -46,6 +46,33 @@
 // no pass.
 // launch_forward() sets the shared-memory limits and launches the passes.
 //
+// Code kinds (Code, a template parameter of mega_polpow and mega_fwd1, as
+// Layout is, so that the unrolled loads carry no branch on it): 8-bit
+// bytes (the loads above); fixed-level 1/2/4-bit fields, code i of the
+// TFP stream in byte i / (8/nbit) at shift (8/nbit - 1 - i mod
+// (8/nbit))*nbit (most significant first), two's-complement fields wrapped
+// to the signed value, then code * scale + offset; float32 samples; and
+// JA98 2-bit (Jenet & Anderson 1998 dynamic levels), value sign * (code is
+// 1 or 2 ? lo : hi)[nlow] with sign + for codes 2 and 3.  nlow, the count
+// of codes 1 and 2 in the sample's npw-sample block of its digitizer
+// (channel, pol, dim), comes from the pre-pass mega_ja98, which reads the
+// codes once (a byte's fields are low exactly where ((b >> 1) ^ b) & 0x55
+// has their low bit), writes nlow as uint16 [nchan*npol*ndim, nweights]
+// and each channel's block weight (the least of weight[nlow] over its
+// digitizers); mega_ja98_windows then gives each window the least block
+// weight over its span (any excised block zeroes the window).  The
+// weights are 0 or 1, so they equal the plain version's exactly.  The lo,
+// hi and weight tables (npw + 1 floats each) are read with __ldg.  A
+// mega_guppi_2bit block (32 complex dual-pol channels, 16 windows of
+// 131,072 samples) holds 66 MB of codes: mega_ja98 reads them once.
+//
+// Apodization: the taper, float[nsamp_fft] in sample order, multiplies the
+// unpacked samples of each window in mega_fwd1 (sample n = n1*row_len + m
+// of the window; both pols of a packed real sequence, both parts of a
+// complex sample).  mega_polpow's energies are of the unwindowed samples;
+// both forward passes read the same ones, so they only set pol b's
+// power-of-two scale.
+//
 // Bytes and bounds.  A flagship block (R1 = R2 = 512, 75 windows of 2N =
 // 2^19 samples, two pols, one input channel) reads 79 MB of codes twice
 // (mega_polpow, mega_fwd1), writes and reads 315 MB of stage-1 columns
@@ -338,6 +365,169 @@ __device__ __forceinline__ float unpack(uint8_t byte, int twos, float scale,
 // its unrolled loads carry no branch).
 enum Layout { kRealTfp = 0, kRealCaspsr = 1, kComplexTfp = 2 };
 
+// Code kinds of the raw input (the wrappers' code_kind; see the note at the
+// top): 8-bit, fixed-level 1-, 2- and 4-bit, JA98 2-bit, float32.
+enum Code {
+  kCode8 = 0, kCode1 = 1, kCode2 = 2, kCode4 = 3, kCodeJA98 = 4, kCodeF32 = 5
+};
+
+// How the first pass turns codes into samples.
+struct Unpack {
+  int twos;              // two's-complement codes (8, 4 or 2 bits)
+  float scale, offset;   // fixed levels: value = code * scale + offset
+  const float* window;   // the apodization taper float[nsamp_fft], or null
+  const float* tables;   // JA98: lo[npw + 1], hi[npw + 1], weight[npw + 1]
+  const uint16_t* nlow;  // JA98: low-state counts [nchan*npol*ndim, nweights]
+  int npw1;              // npw + 1
+  int lg_npw;            // log2(npw)
+  int nweights;          // npw-sample blocks in the block of raw input
+};
+
+// Field of code i of a stream of NBIT-bit codes, the most significant first.
+template <int NBIT>
+__device__ __forceinline__ int code_field(const uint8_t* __restrict__ raw,
+                                          long long i) {
+  constexpr int lg = NBIT == 1 ? 3 : (NBIT == 2 ? 2 : 1);  // log2(8 / NBIT)
+  constexpr int per = 1 << lg;
+  const int b = __ldg(raw + (i >> lg));
+  return (b >> ((per - 1 - (int)(i & (per - 1))) * NBIT)) & ((1 << NBIT) - 1);
+}
+
+// Sample value of code i (digitizer dig, time sample t of the block) for
+// code kind CODE.
+template <int CODE>
+__device__ __forceinline__ float load_code(const uint8_t* __restrict__ raw,
+                                           long long i, long long dig,
+                                           long long t, const Unpack& u) {
+  if constexpr (CODE == kCode8) {
+    return unpack(raw[i], u.twos, u.scale, u.offset);
+  } else if constexpr (CODE == kCodeF32) {
+    return __ldg(reinterpret_cast<const float*>(raw) + i);
+  } else if constexpr (CODE == kCodeJA98) {
+    const int code = code_field<2>(raw, i);
+    const int nl = __ldg(u.nlow + dig * u.nweights + (t >> u.lg_npw));
+    const float mag =
+        __ldg(u.tables + ((code == 1 || code == 2) ? 0 : u.npw1) + nl);
+    return code >= 2 ? mag : -mag;
+  } else {
+    constexpr int NBIT = CODE == kCode1 ? 1 : (CODE == kCode2 ? 2 : 4);
+    int v = code_field<NBIT>(raw, i);
+    if (u.twos && v >= (1 << (NBIT - 1))) v -= 1 << NBIT;
+    return (float)v * u.scale + u.offset;
+  }
+}
+
+// Greatest common divisor of n and 4.
+__host__ __device__ inline int gcd4(int n) {
+  return (n & 3) == 0 ? 4 : ((n & 1) == 0 ? 2 : 1);
+}
+
+// The JA98 pre-pass, one CTA per npw-sample block (see the note at the
+// top).  The block's npw*ndig codes are bytes [blk*nb, (blk+1)*nb), nb =
+// npw*ndig/4; field f of byte k is code 4k + f of the block, of digitizer
+// (4k + f) mod ndig, which is the same for every k of one residue r = k mod
+// pb (pb = ndig / gcd(ndig, 4)).  So each thread sums the four fields of
+// the bytes of one residue (consecutive threads on consecutive bytes) and
+// adds them into a shared count per digitizer.  Writes nlow[dig, blk] and
+// wblk[c, blk], the least of weight[nlow] over channel c's nd_chan
+// digitizers.
+__global__ void __launch_bounds__(kThreads)
+mega_ja98(const uint8_t* __restrict__ raw, uint16_t* __restrict__ nlow,
+          float* __restrict__ wblk, const float* __restrict__ weight,
+          int ndig, int nd_chan, int npw, int nweights) {
+  extern __shared__ unsigned cnt[];
+  const int blk = blockIdx.x;
+  for (int d = threadIdx.x; d < ndig; d += blockDim.x) cnt[d] = 0u;
+  __syncthreads();
+  const int pb = ndig / gcd4(ndig);
+  const long long nb = (long long)npw * ndig / 4;
+  const uint8_t* src = raw + (long long)blk * nb;
+  const int S = pb >= (int)blockDim.x ? 1 : (int)blockDim.x / pb;
+  for (int unit = threadIdx.x; unit < pb * S; unit += blockDim.x) {
+    const int r = unit % pb;
+    const int s = unit / pb;
+    unsigned c0 = 0u, c1 = 0u, c2 = 0u, c3 = 0u;
+    for (long long k = r + (long long)s * pb; k < nb; k += (long long)S * pb) {
+      const unsigned b = __ldg(src + k);
+      const unsigned low = ((b >> 1) ^ b) & 0x55u;
+      c0 += (low >> 6) & 1u;
+      c1 += (low >> 4) & 1u;
+      c2 += (low >> 2) & 1u;
+      c3 += low & 1u;
+    }
+    atomicAdd(&cnt[(4 * r) % ndig], c0);
+    atomicAdd(&cnt[(4 * r + 1) % ndig], c1);
+    atomicAdd(&cnt[(4 * r + 2) % ndig], c2);
+    atomicAdd(&cnt[(4 * r + 3) % ndig], c3);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < ndig; d += blockDim.x)
+    nlow[(long long)d * nweights + blk] = (uint16_t)cnt[d];
+  for (int c = threadIdx.x; c < ndig / nd_chan; c += blockDim.x) {
+    float w = __ldg(weight + cnt[c * nd_chan]);
+    for (int d = 1; d < nd_chan; ++d)
+      w = fminf(w, __ldg(weight + cnt[c * nd_chan + d]));
+    wblk[(long long)c * nweights + blk] = w;
+  }
+}
+
+// Each window's weight: the least block weight over its span of
+// span_blocks blocks from w * step_blocks (window_weight_spans).
+__global__ void __launch_bounds__(kThreads)
+mega_ja98_windows(const float* __restrict__ wblk, float* __restrict__ wwin,
+                  int nchan, int npart, int nweights, int step_blocks,
+                  int span_blocks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nchan * npart) return;
+  const int c = i / npart;
+  const int w = i - c * npart;
+  const float* src =
+      wblk + (long long)c * nweights + (long long)w * step_blocks;
+  float v = src[0];
+  for (int b = 1; b < span_blocks; ++b) v = fminf(v, src[b]);
+  wwin[i] = v;
+}
+
+// The JA98 pre-pass on the caller's stream: nlow (u.nlow), the block
+// weights wblk float[nchan, nweights] and the window weights wwin
+// float[nchan, npart].
+cudaError_t launch_ja98(const void* raw, const Unpack& u, void* wblk,
+                        void* wwin, int nchan, int npol, int ndim, int npart,
+                        int nsamp_step, int nsamp_fft, cudaStream_t stream) {
+  const int npw = 1 << u.lg_npw;
+  const int ndig = nchan * npol * ndim;
+  if ((npw * ndig) % 4 || nsamp_step % npw || nsamp_fft % npw)
+    return cudaErrorInvalidValue;
+  mega_ja98<<<u.nweights, kThreads, ndig * sizeof(unsigned), stream>>>(
+      (const uint8_t*)raw, (uint16_t*)u.nlow, (float*)wblk,
+      u.tables + 2 * u.npw1, ndig, npol * ndim, npw, u.nweights);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mega_ja98_windows<<<(nchan * npart + kThreads - 1) / kThreads, kThreads, 0,
+                      stream>>>((const float*)wblk, (float*)wwin, nchan,
+                                npart, u.nweights, nsamp_step / npw,
+                                nsamp_fft / npw);
+  return cudaGetLastError();
+}
+
+// The Unpack of a C entry point's arguments: nsamp_block time samples a
+// block; tables, nlow and npw are read only for JA98 codes.
+Unpack make_unpack(int twos, float scale, float offset, const void* window,
+                   const void* tables, void* nlow, int npw,
+                   long long nsamp_block) {
+  Unpack u;
+  u.twos = twos;
+  u.scale = scale;
+  u.offset = offset;
+  u.window = (const float*)window;
+  u.tables = (const float*)tables;
+  u.nlow = (const uint16_t*)nlow;
+  u.npw1 = npw + 1;
+  u.lg_npw = npw > 0 ? ilog2c(npw) : 0;
+  u.nweights = npw > 0 ? (int)(nsamp_block / npw) : 0;
+  return u;
+}
+
 // Byte of real sample (t, pol) in the CASPSR layout (one input channel).
 __device__ __forceinline__ long long caspsr_byte(long long t, int pol,
                                                  int npol) {
@@ -357,18 +547,21 @@ __device__ __forceinline__ int pol_exponent(const float* psum) {
 
 // Energy of both pols over each window (grid: chunks of the window, window,
 // input channel), added into psum[c, w, 2] (zeroed by the caller).  Real
-// input, pols 0 and 1, TFP or (caspsr != 0) CASPSR bytes.
+// input, pols 0 and 1, TFP or (caspsr != 0, 8-bit codes) CASPSR bytes.
+template <int CODE>
 __global__ void __launch_bounds__(kThreads)
 mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
             int nchan, int npol, int npart, int nsamp_step, int two_n,
-            int twos, float scale, float offset, int caspsr) {
+            Unpack u, int caspsr) {
   __shared__ float red[2][kThreads / 32];
   const int w = blockIdx.y;
   const int c = blockIdx.z;
   const int chunk = two_n / gridDim.x;
   const long long t0 = (long long)w * nsamp_step + (long long)blockIdx.x * chunk;
+  const int twos = u.twos;
+  const float scale = u.scale, offset = u.offset;
   float sa = 0.f, sb = 0.f;
-  if (nchan == 1 && chunk % 8 == 0 && (t0 & 7) == 0 &&
+  if (CODE == kCode8 && nchan == 1 && chunk % 8 == 0 && (t0 & 7) == 0 &&
       ((uintptr_t)raw & 15) == 0) {
     // one input channel: 8 samples of both pols in one 16-byte load (the
     // same 16 bytes in both layouts: TFP words hold a b a b, CASPSR words
@@ -391,10 +584,16 @@ mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
   } else {
     for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
       const long long t = t0 + i;
-      const long long off =
-          caspsr ? caspsr_byte(t, 0, npol) : (t * nchan + c) * npol;
-      const float a = unpack(raw[off], twos, scale, offset);
-      const float b = unpack(raw[off + (caspsr ? 4 : 1)], twos, scale, offset);
+      float a, b;
+      if (CODE == kCode8 && caspsr) {
+        const long long off = caspsr_byte(t, 0, npol);
+        a = unpack(raw[off], twos, scale, offset);
+        b = unpack(raw[off + 4], twos, scale, offset);
+      } else {
+        const long long k = (t * nchan + c) * npol;
+        a = load_code<CODE>(raw, k, (long long)c * npol, t, u);
+        b = load_code<CODE>(raw, k + 1, (long long)c * npol + 1, t, u);
+      }
       sa += a * a;
       sb += b * b;
     }
@@ -458,15 +657,18 @@ Tables tables(const void* base, int R1, int row_len, int M) {
 // Real input: blockIdx.z is the input channel c, and pols pol0 (and pol0 + 1
 // when npolf == 2) are packed.  Complex input: blockIdx.z = c * npolf + q,
 // the sequence of pol pol0 + q.  cbuf is float2[nchan * (complex ? npolf :
-// 1), npart, R1, row_len].
-template <int P, int LAYOUT>
+// 1), npart, R1, row_len].  CODE is the raw input's Code (the CASPSR layout
+// is 8-bit only).
+template <int P, int LAYOUT, int CODE>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
           const float* __restrict__ psum, Tables tb, int nchan, int npol,
           int pol0, int npolf, int npart, int R1, int row_len,
-          int nsamp_step, int S, int twos, float scale, float offset) {
+          int nsamp_step, int S, Unpack u) {
   constexpr bool CPLX = LAYOUT == kComplexTfp;
   constexpr int ndim = CPLX ? 2 : 1;
+  const int twos = u.twos;
+  const float scale = u.scale, offset = u.offset;
   extern __shared__ float2 sm[];
   const int T = R1 / P;
   const int col = threadIdx.x & (S - 1);
@@ -488,32 +690,54 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   // sample
   const bool pairs = (CPLX || npolf == 2) && ((uintptr_t)raw & 1) == 0;
   const long long stride = (long long)T * row_len * nchan * npol * ndim;
-  const uint8_t* src = raw + ((t0 * nchan + c) * npol + pol) * ndim;
+  // code index of this thread's first sample, and its digitizer
+  const long long k0 = ((t0 * nchan + c) * npol + pol) * ndim;
+  const long long dig0 = ((long long)c * npol + pol) * ndim;
+  const uint8_t* src = raw + k0;
   auto load = [&](int, float2(&x)[P]) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      uint8_t ca, cb = 0;
-      if constexpr (LAYOUT == kRealCaspsr) {
-        const long long t = t0 + (long long)i * T * row_len;
-        ca = raw[caspsr_byte(t, pol, npol)];
-        if (npolf == 2) cb = raw[caspsr_byte(t, pol + 1, npol)];
-      } else {
-        const uint8_t* p = src + i * stride;
-        if (pairs) {
-          const unsigned short both = *(const unsigned short*)p;
-          ca = (uint8_t)both;
-          cb = (uint8_t)(both >> 8);
+      if constexpr (CODE == kCode8) {
+        uint8_t ca, cb = 0;
+        if constexpr (LAYOUT == kRealCaspsr) {
+          const long long t = t0 + (long long)i * T * row_len;
+          ca = raw[caspsr_byte(t, pol, npol)];
+          if (npolf == 2) cb = raw[caspsr_byte(t, pol + 1, npol)];
         } else {
-          ca = p[0];
-          if (CPLX || npolf == 2) cb = p[1];
+          const uint8_t* p = src + i * stride;
+          if (pairs) {
+            const unsigned short both = *(const unsigned short*)p;
+            ca = (uint8_t)both;
+            cb = (uint8_t)(both >> 8);
+          } else {
+            ca = p[0];
+            if (CPLX || npolf == 2) cb = p[1];
+          }
         }
-      }
-      const float a = unpack(ca, twos, scale, offset);
-      if constexpr (CPLX) {
-        x[i] = make_float2(a, unpack(cb, twos, scale, offset));
+        const float a = unpack(ca, twos, scale, offset);
+        if constexpr (CPLX) {
+          x[i] = make_float2(a, unpack(cb, twos, scale, offset));
+        } else {
+          const float b = npolf == 2 ? unpack(cb, twos, scale, offset) : 0.f;
+          x[i] = make_float2(a, b * sb);
+        }
       } else {
-        const float b = npolf == 2 ? unpack(cb, twos, scale, offset) : 0.f;
-        x[i] = make_float2(a, b * sb);
+        // the second code (the imaginary part, or pol b) follows the first
+        const long long t = t0 + (long long)i * T * row_len;
+        const long long k = k0 + i * stride;
+        const float a = load_code<CODE>(raw, k, dig0, t, u);
+        const float b = (CPLX || npolf == 2)
+                            ? load_code<CODE>(raw, k + 1, dig0 + 1, t, u)
+                            : 0.f;
+        x[i] = make_float2(a, CPLX ? b : b * sb);
+      }
+    }
+    if (u.window) {
+      // sample n1*row_len + m of the window, n1 = j + T*i
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float g = __ldg(u.window + (long long)(j + T * i) * row_len + m);
+        x[i] = make_float2(x[i].x * g, x[i].y * g);
       }
     }
   };
@@ -781,6 +1005,36 @@ int fwd_smem_bytes(int which, int R1, int row_len, int tile, int cplx) {
   return (cplx ? 1 : 2) * tile * seq_ld(row_len) * (int)sizeof(float2);
 }
 
+// The mega_polpow instance of code kind `code`.
+decltype(&mega_polpow<kCode8>) polpow_kernel(int code) {
+  switch (code) {
+    case kCode1: return &mega_polpow<kCode1>;
+    case kCode2: return &mega_polpow<kCode2>;
+    case kCode4: return &mega_polpow<kCode4>;
+    case kCodeJA98: return &mega_polpow<kCodeJA98>;
+    case kCodeF32: return &mega_polpow<kCodeF32>;
+    default: return &mega_polpow<kCode8>;
+  }
+}
+
+// The mega_fwd1 instance of code kind `code` (the CASPSR layout is 8-bit
+// only).
+template <int P, int LAYOUT>
+decltype(&mega_fwd1<P, LAYOUT, kCode8>) fwd1_kernel(int code) {
+  if constexpr (LAYOUT == kRealCaspsr) {
+    return &mega_fwd1<P, LAYOUT, kCode8>;
+  } else {
+    switch (code) {
+      case kCode1: return &mega_fwd1<P, LAYOUT, kCode1>;
+      case kCode2: return &mega_fwd1<P, LAYOUT, kCode2>;
+      case kCode4: return &mega_fwd1<P, LAYOUT, kCode4>;
+      case kCodeJA98: return &mega_fwd1<P, LAYOUT, kCodeJA98>;
+      case kCodeF32: return &mega_fwd1<P, LAYOUT, kCodeF32>;
+      default: return &mega_fwd1<P, LAYOUT, kCode8>;
+    }
+  }
+}
+
 // The forward half on the caller's stream: raw codes -> (psum) -> cbuf
 // float2[nchan * nseq, npart, R1, row_len] (nseq 1 for real input, npolf
 // for complex) -> ybuf float2[nchan*nstore, npart, R1*R2], the chirped
@@ -788,22 +1042,32 @@ int fwd_smem_bytes(int which, int R1, int row_len, int tile, int cplx) {
 // the second; nstore of them) in natural bin order (centred for complex
 // input).  psum is float[nchan, npart, 2]; tw is the wrapper's table buffer
 // (Tables); pb, when not null, gets the passband float[nchan, npolf, R1*R2]
-// (zeroed here).  layout is a Layout (row_len = R2 for kComplexTfp).
+// (zeroed here).  layout is a Layout (row_len = R2 for kComplexTfp), code
+// a Code; for JA98 codes the pre-pass runs first and writes u.nlow, wblk
+// float[nchan, nweights] and the window weights wwin float[nchan, npart].
 cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            const void* tw, void* psum, void* cbuf, void* ybuf,
                            void* pb, int nchan, int npol, int pol0, int npolf,
                            int store, int npart, int R1, int R2, int M,
-                           int twos, float scale, float offset,
+                           int code, const Unpack& u, void* wblk, void* wwin,
                            int nsamp_step, int tc, int tk, int layout,
                            cudaStream_t stream) {
   const bool cplx = layout == kComplexTfp;
   const int row_len = cplx ? R2 : 2 * R2;
+  const int two_n = R1 * row_len;
   const Tables tb = tables(tw, R1, row_len, M);
   cudaError_t err;
   if (tc > kMaxCols) return cudaErrorInvalidValue;
   if (store < 1 || store > 3 || (npolf == 1 && store != 1))
     return cudaErrorInvalidValue;
   if (layout < kRealTfp || layout > kComplexTfp) return cudaErrorInvalidValue;
+  if (code < kCode8 || code > kCodeF32 ||
+      (layout == kRealCaspsr && code != kCode8))
+    return cudaErrorInvalidValue;
+  if (code == kCodeJA98 &&
+      (err = launch_ja98(raw, u, wblk, wwin, nchan, npol, cplx ? 2 : 1, npart,
+                         nsamp_step, two_n, stream)) != cudaSuccess)
+    return err;
   if (pb && (err = cudaMemsetAsync(
                  pb, 0, (size_t)nchan * npolf * R1 * R2 * sizeof(float),
                  stream)) != cudaSuccess)
@@ -812,18 +1076,21 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     if ((err = cudaMemsetAsync(psum, 0, (size_t)nchan * npart * 2 * sizeof(float),
                                stream)) != cudaSuccess)
       return err;
-    const int two_n = R1 * row_len;
     const int chunks = two_n >= 8192 ? two_n / 8192 : 1;
-    mega_polpow<<<dim3(chunks, npart, nchan), kThreads, 0, stream>>>(
+    const auto polpow = polpow_kernel(code);
+    polpow<<<dim3(chunks, npart, nchan), kThreads, 0, stream>>>(
         (const uint8_t*)raw, (float*)psum, nchan, npol, npart, nsamp_step,
-        two_n, twos, scale, offset, layout == kRealCaspsr);
+        two_n, u, layout == kRealCaspsr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  auto fwd1 = R1 >= 16 ? &mega_fwd1<16, kRealTfp> : &mega_fwd1<8, kRealTfp>;
+  auto fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealTfp>(code)
+                       : fwd1_kernel<8, kRealTfp>(code);
   if (cplx)
-    fwd1 = R1 >= 16 ? &mega_fwd1<16, kComplexTfp> : &mega_fwd1<8, kComplexTfp>;
+    fwd1 = R1 >= 16 ? fwd1_kernel<16, kComplexTfp>(code)
+                    : fwd1_kernel<8, kComplexTfp>(code);
   else if (layout == kRealCaspsr)
-    fwd1 = R1 >= 16 ? &mega_fwd1<16, kRealCaspsr> : &mega_fwd1<8, kRealCaspsr>;
+    fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealCaspsr>(code)
+                    : fwd1_kernel<8, kRealCaspsr>(code);
   const int nseq = cplx ? npolf : 1;
   const int smem1 = fwd_smem_bytes(0, R1, row_len, tc, cplx);
   const int smem2 = fwd_smem_bytes(1, R1, row_len, tk, cplx);
@@ -833,7 +1100,7 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
   fwd1<<<dim3(row_len / tc, npart, nchan * nseq),
          transform_threads(0, R1, row_len, M, tc), smem1, stream>>>(
       (const uint8_t*)raw, (float2*)cbuf, (const float*)psum, tb, nchan, npol,
-      pol0, npolf, npart, R1, row_len, nsamp_step, tc, twos, scale, offset);
+      pol0, npolf, npart, R1, row_len, nsamp_step, tc, u);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int threads2 = transform_threads(1, R1, row_len, M, tk);
   if (cplx) {

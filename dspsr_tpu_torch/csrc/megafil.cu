@@ -1,8 +1,11 @@
 // Fused search front end for Hopper (sm_90a): unpack -> forward FFT ->
 // chirp -> per-subband inverse FFT -> detect, stored in time order, for
-// 8-bit input: real-sampled (TFP or CASPSR bytes) or complex (analytic,
-// TFP; the forward passes of mega_common.cuh per pol, see there); or, in
-// place of the detection, the undetected voltage of every input pol.
+// 1/2/4/8-bit codes or float32 samples, optionally apodized: real-sampled
+// (TFP, or CASPSR 8-bit bytes) or complex (analytic, TFP; the forward
+// passes of mega_common.cuh per pol, see there); or, in place of the
+// detection, the undetected voltage of every input pol.  For JA98 2-bit
+// input the pre-pass of mega_common.cuh runs first and its window weights
+// are the step's weights output (the data are not weighted).
 //
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megafil in
 // its scalar-chirp and Jones forms, detected or voltage output, with the XLA
@@ -379,19 +382,25 @@ static cudaError_t launch_multipass(
 // (flip: the sign rule of megafil_invvolt; nplane and det are not read); pb
 // null or float[nchan, npolf, R1*R2].  ta > 0 runs the multi-pass inverse
 // (nsub 1; tiles ta, tb; tw2 the table buffer of (R1, R2, M); cbuf is its
-// zbuf), else the one-CTA inverse.
+// zbuf), else the one-CTA inverse.  code, window, levels, nlow, wblk and
+// wwin are megastep_launch's; wwin gets the JA98 window weights.
 int megafil_launch(const void* raw, const void* gr, const void* gi,
                    const void* tw, const void* tw2, const void* jones,
                    void* out, void* psum, void* cbuf, void* ybuf, void* pb,
+                   const void* window, const void* levels, void* nlow,
+                   void* wblk, void* wwin,
                    int nchan, int npol, int pol0, int npolf, int store,
                    int nout, int jpol0, int npart, int R1, int R2, int nsub,
                    int M, int nfilt_pos, int nkeep, int nplane, int det,
                    int voltage, int flip, int twos, float scale,
                    float offset, int nsamp_step, int tc, int tk, int ta,
-                   int tb, int layout, void* stream_ptr) {
+                   int tb, int layout, int code, int npw, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
   const int row_len = layout == kComplexTfp ? R2 : 2 * R2;
+  const Unpack u = make_unpack(
+      twos, scale, offset, window, levels, nlow, npw,
+      (long long)(npart - 1) * nsamp_step + (long long)R1 * row_len);
   const int nstore = (store & 1) + (store >> 1);
   if (nout < 1 || nout > 2 || (jones ? store != 3 : nout != nstore) ||
       (ta > 0 && (nsub != 1 || tb < 1)))
@@ -407,8 +416,8 @@ int megafil_launch(const void* raw, const void* gr, const void* gi,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
   if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, pb, nchan,
-                            npol, pol0, npolf, store, npart, R1, R2, M, twos,
-                            scale, offset, nsamp_step, tc, tk, layout,
+                            npol, pol0, npolf, store, npart, R1, R2, M, code,
+                            u, wblk, wwin, nsamp_step, tc, tk, layout,
                             stream)) != cudaSuccess)
     return (int)err;
   if (ta > 0)

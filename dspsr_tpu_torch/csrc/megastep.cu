@@ -1,6 +1,8 @@
 // Fused fold step for Hopper (sm_90a): unpack -> forward FFT -> chirp ->
-// per-subband inverse FFT -> detect -> fold, for 8-bit input: real-sampled
-// (TFP or CASPSR bytes) or complex (analytic, TFP).
+// per-subband inverse FFT -> detect -> fold, for 1/2/4/8-bit codes (fixed
+// levels, or JA98 dynamic 2-bit levels with excision weights) or float32
+// samples, optionally apodized: real-sampled (TFP, or CASPSR 8-bit bytes)
+// or complex (analytic, TFP).
 //
 // Replaces the Pallas kernel dspsr_tpu/ops/megakernel.py::build_megastep.
 // The TPU kernel expressed every transform as a dense DFT matmul (the shape
@@ -18,7 +20,9 @@
 // flush sit on top of the inverse).  The inverse FFT, detection and fold are
 // one kernel, so the 270 MB of subband voltages never leave shared memory.
 //
-// Five kernels run in order on the caller's stream (plus two memsets):
+// Five kernels run in order on the caller's stream (plus two memsets),
+// after the JA98 pre-pass (mega_ja98, mega_ja98_windows) for dynamic 2-bit
+// input:
 //   mega_polpow, the forward half shared with megafil.cu (see
 //   mega_fwd1,   mega_common.cuh): pol energies; unpack, columns, twiddle;
 //   mega_fwd2    rows, pol separation, chirp.  Complex input runs
@@ -32,7 +36,8 @@
 //                shared-memory [nplane, nbin] profile, add it to the block
 //                accumulator.  The per-chunk ifftshift of the reference is
 //                skipped: it is a (-1)^t factor that every detection product
-//                cancels (the output is detected, never voltage).
+//                cancels (the output is detected, never voltage).  A
+//                window whose JA98 weight is 0 folds nothing.
 //   mega_finish  profiles_out = profiles_in + block sum; hits likewise.
 //
 // Phase and bin placement are bit-exact with the reference: the phase is
@@ -59,13 +64,18 @@
 
 namespace {
 
+// wgt, when not null, is each window's weight float[nchan, npart] (0 or 1,
+// JA98 excision): a window of weight 0 returns before its inverse, so it
+// adds nothing and counts no hits; otherwise its sums are scaled by the
+// weight and its hits counted.
 template <int P, int NS>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_invfold(const float2* __restrict__ ybuf, const float* __restrict__ phi0,
-             const float* __restrict__ dphi, float* __restrict__ pacc,
-             unsigned* __restrict__ hacc, const float2* __restrict__ tw,
-             int npart, int nsub, int M, int nfilt_pos, int nkeep, int nbin,
-             int nplane, int det, int fourth, int lo, int hi) {
+             const float* __restrict__ dphi, const float* __restrict__ wgt,
+             float* __restrict__ pacc, unsigned* __restrict__ hacc,
+             const float2* __restrict__ tw, int npart, int nsub, int M,
+             int nfilt_pos, int nkeep, int nbin, int nplane, int det,
+             int fourth, int lo, int hi) {
   extern __shared__ float2 sm[];
   const int ld = seq_ld(M);
   float* prof = (float*)(sm + NS * ld);
@@ -73,6 +83,8 @@ mega_invfold(const float2* __restrict__ ybuf, const float* __restrict__ phi0,
   const int s = blockIdx.x;
   const int w = blockIdx.y;
   const int c = blockIdx.z;
+  const float wt = wgt ? __ldg(wgt + (long long)c * npart + w) : 1.f;
+  if (wt == 0.f) return;  // the whole CTA, before any barrier
   for (int i = threadIdx.x; i < nplane * nbin; i += blockDim.x) prof[i] = 0.f;
   for (int i = threadIdx.x; i < nbin; i += blockDim.x) hit[i] = 0u;
   inverse_subband<P, NS>(ybuf, sm, tw, npart, nsub, M, s, w, c);
@@ -135,7 +147,8 @@ mega_invfold(const float2* __restrict__ ybuf, const float* __restrict__ phi0,
     if (v != 0.f) {
       const int p = i / nbin;
       const int b = i - p * nbin;
-      atomicAdd(&pacc[(((long long)c * nplane + p) * nsub + s) * nbin + b], v);
+      atomicAdd(&pacc[(((long long)c * nplane + p) * nsub + s) * nbin + b],
+                v * wt);
     }
   }
   if (s == 0) {
@@ -186,22 +199,32 @@ int megastep_resources(int kind, int which, int R1, int row_len, int M,
 // sized by the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan *
 // nseq, npart, R1, row_len] (nseq npolf for complex input, else 1), ybuf
 // float2[nchan*npolf, npart, R1*R2], pacc float[nchan, nplane, nsub, nbin],
-// hacc uint32[nchan, nbin].  layout is the raw bytes' Layout (see
-// mega_common.cuh); row_len is R2 for complex input and 2*R2 for real
-// input.  Output samples g of the block fold only when lo <= g < hi.
+// hacc uint32[nchan, nbin].  layout is the raw bytes' Layout and code their
+// Code (see mega_common.cuh); row_len is R2 for complex input and 2*R2 for
+// real input.  window is null or the taper float[R1*row_len]; for JA98
+// codes levels holds the lo, hi and weight tables (npw + 1 floats each),
+// and nlow uint16[nchan*npol*ndim, nweights], wblk float[nchan, nweights]
+// and wwin float[nchan, npart] are the pre-pass's scratch (nweights =
+// samples a block / npw).  Output samples g of the block fold only when lo
+// <= g < hi.
 int megastep_launch(const void* raw, const void* phi0, const void* dphi,
                     const void* gr, const void* gi, const void* tw,
                     const void* prof_in, const void* hits_in, void* prof_out,
                     void* hits_out, void* psum, void* cbuf, void* ybuf,
-                    void* pacc, void* hacc, int nchan, int npol, int pol0,
+                    void* pacc, void* hacc, const void* window,
+                    const void* levels, void* nlow, void* wblk, void* wwin,
+                    int nchan, int npol, int pol0,
                     int npolf, int npart, int R1, int R2, int nsub, int M,
                     int nfilt_pos, int nkeep, int nbin, int nplane, int det,
                     int fourth, int twos, float scale, float offset,
                     int nsamp_step, int tc, int tk, int lo, int hi,
-                    int layout, void* stream_ptr) {
+                    int layout, int code, int npw, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
   const int row_len = layout == kComplexTfp ? R2 : 2 * R2;
+  const Unpack u = make_unpack(
+      twos, scale, offset, window, levels, nlow, npw,
+      (long long)(npart - 1) * nsamp_step + (long long)R1 * row_len);
   auto inv = invfold_kernel(M, npolf);
   const int smem3 =
       megastep_resources(0, 2, R1, row_len, M, npolf, nplane, nbin, 0, layout);
@@ -216,7 +239,7 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
     return (int)err;
   if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr,
                             nchan, npol, pol0, npolf, npolf == 2 ? 3 : 1,
-                            npart, R1, R2, M, twos, scale, offset,
+                            npart, R1, R2, M, code, u, wblk, wwin,
                             nsamp_step, tc, tk, layout,
                             stream)) != cudaSuccess)
     return (int)err;
@@ -224,7 +247,8 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
   inv<<<dim3(nsub, npart, nchan), transform_threads(2, R1, row_len, M, 0),
         smem3, stream>>>(
       (const float2*)ybuf, (const float*)phi0, (const float*)dphi,
-      (float*)pacc, (unsigned*)hacc, tables(tw, R1, row_len, M).inv, npart,
+      code == kCodeJA98 ? (const float*)wwin : nullptr, (float*)pacc,
+      (unsigned*)hacc, tables(tw, R1, row_len, M).inv, npart,
       nsub, M, nfilt_pos, nkeep, nbin, nplane, det, fourth, lo, hi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -234,6 +258,19 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
       (const float*)hits_in, (const unsigned*)hacc, (float*)hits_out,
       (int)nhits);
   return (int)cudaGetLastError();
+}
+
+// The JA98 pre-pass alone (mega_ja98, mega_ja98_windows), for checks and
+// timing: 2-bit codes of nsamp_block samples of nchan*npol*ndim digitizers
+// -> nlow, wblk and wwin as in megastep_launch.
+int megastep_ja98(const void* raw, const void* levels, void* nlow, void* wblk,
+                  void* wwin, int nchan, int npol, int ndim, int npart,
+                  int nsamp_step, int nsamp_fft, int npw, void* stream_ptr) {
+  const Unpack u = make_unpack(
+      0, 1.f, 0.f, nullptr, levels, nlow, npw,
+      (long long)(npart - 1) * nsamp_step + nsamp_fft);
+  return (int)launch_ja98(raw, u, wblk, wwin, nchan, npol, ndim, npart,
+                          nsamp_step, nsamp_fft, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

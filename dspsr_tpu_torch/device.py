@@ -5,7 +5,8 @@ CUDA with no card present raises; nothing falls back to the CPU.
 
 The launch counters let a run prove that its main path went through the
 hand-written kernels: each kernel wrapper adds one to its own count where it
-launches the kernel, and nowhere else.
+launches the kernel, and nowhere else (``mega_ja98`` counts the JA98
+pre-pass that both fused kernels run on dynamic 2-bit input).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 #: kernel name -> number of launches since the last reset
-_LAUNCHES: dict[str, int] = {"megastep": 0, "megafil": 0}
+_LAUNCHES: dict[str, int] = {"megastep": 0, "megafil": 0, "mega_ja98": 0}
 
 
 def resolve_device(device) -> torch.device:

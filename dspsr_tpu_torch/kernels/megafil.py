@@ -2,7 +2,9 @@
 (``csrc/megafil.cu``).
 
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megafil`` (the Pallas kernel
-and its de-permute): detected or voltage output, the scalar chirp or the
+and its de-permute), on every input ``build_megastep`` takes (1/2/4/8-bit
+codes, JA98 2-bit with its window weights as the weights output, float32,
+an apodization window): detected or voltage output, the scalar chirp or the
 Jones 2x2 mix followed by it, with the passband tap and a chirp handed in
 on each call, and at ``nsub == 1`` past one CTA's shared memory (the
 ``hybrid_conv32`` convolution) the multi-pass inverse.  The source note in
@@ -22,17 +24,18 @@ import torch
 
 from ..device import count_launch
 from ..ops.megakernel import (
-    MegaConstants, MegaPlan, check_supported, detection_code, fold_pols,
-    passband_layout, voltage_sign_flips)
+    MegaConstants, MegaPlan, detection_code, fold_pols, passband_layout,
+    voltage_sign_flips)
 from . import build
 from .megastep import (
-    MAX_THREADS, cbuf_seqs, check_resources, check_tensor, device_tables,
-    fitting_tile, forward_tiles, layout_code, smem_limit)
+    MAX_THREADS, cbuf_seqs, check_resources, check_tensor, code_kind,
+    device_tables, fitting_tile, forward_tiles, layout_code, smem_limit,
+    unpack_operands)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 11 + [_i] * 19 + [_f, _f] + [_i] * 6 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 16 + [_i] * 19 + [_f, _f] + [_i] * 8 + [_c]
 
 #: largest tiles of the multi-pass inverse: columns k1 of ``megafil_inva``,
 #: rows n2 of ``megafil_invb``
@@ -72,18 +75,19 @@ def inverse_passes(res, plan: MegaPlan, limit: int,
 
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, passband: bool = False, gr=None, gi=None,
-                 output: str = "detected", inverse: str = "auto"):
+                 output: str = "detected", inverse: str = "auto",
+                 return_weights: bool = False):
     """One fused search front-end step on the card; arguments as
     ``ops.megakernel.megafil_plain``.  Returns float32 ``[nchan_in*nsub,
     nplane, npart*nkeep]`` (``output="voltage"``: complex64
-    ``[nchan_in*nsub, npol, npart*nkeep]``, every input pol), and with
-    ``passband`` also the passband ``[nchan_in*nsub, npol, freq_res]``.
-    ``gr``/``gi`` (default ``cst.gr``/``cst.gi``) are the chirp, float32
-    ``[nchan_in, n_fft]`` in natural bin order; ``cst.jones``, when set,
-    the Jones response mixed in before it.  ``inverse="multipass"`` forces
-    the multi-pass inverse (``nsub == 1``) where the one-CTA inverse
-    fits."""
-    check_supported(plan)
+    ``[nchan_in*nsub, npol, npart*nkeep]``, every input pol), with
+    ``return_weights`` then the window weights ``[nchan_in, npart]`` (the
+    JA98 pre-pass's, else ones), and with ``passband`` last the passband
+    ``[nchan_in*nsub, npol, freq_res]``.  ``gr``/``gi`` (default
+    ``cst.gr``/``cst.gi``) are the chirp, float32 ``[nchan_in, n_fft]`` in
+    natural bin order; ``cst.jones``, when set, the Jones response mixed in
+    before it.  ``inverse="multipass"`` forces the multi-pass inverse
+    (``nsub == 1``) where the one-CTA inverse fits."""
     p = plan
     dev = raw.device
     if dev.type != "cuda":
@@ -94,8 +98,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         raise ValueError(f"unknown inverse: {inverse}")
     nchan = p.nchan_in
     f32 = torch.float32
-    check_tensor(raw, "raw", torch.uint8,
-                 (p.block_ndat(npart) * nchan * p.npol * p.ndim,), dev)
+    # held: the tensors behind the pointers, alive through the launch
+    unpack_ptrs, held = unpack_operands(p, cst, raw, npart)
     gr = cst.gr if gr is None else gr
     gi = cst.gi if gi is None else gi
     check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
@@ -157,16 +161,23 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
             tw2.data_ptr(), None if jones is None else jones.data_ptr(),
             out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
             ybuf.data_ptr(), None if pb is None else pb.data_ptr(),
-            nchan, p.npol, fwd[0], npolf, store, nout,
+            *unpack_ptrs, nchan, p.npol, fwd[0], npolf, store, nout,
             pols[0] if jones is not None else 0, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nplane, detection_code(p),
             int(voltage), int(voltage_sign_flips(p)),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, ta, tb, layout_code(p), stream)
+            p.nsamp_step, tc, tk, ta, tb, layout_code(p), code_kind(p),
+            p.npw, stream)
     if rc != 0:
         msg = lib.megafil_error_string(rc).decode()
         raise RuntimeError(f"megafil launch failed: CUDA error {rc}: {msg}")
     count_launch("megafil")
-    if pb is None:
-        return out
-    return out, passband_layout(p, pb)
+    if p.npw:
+        count_launch("mega_ja98")
+    res = [out]
+    if return_weights:
+        res.append(held[-1] if p.npw else torch.ones(
+            (nchan, npart), dtype=f32, device=dev))
+    if passband:
+        res.append(passband_layout(p, pb))
+    return res[0] if len(res) == 1 else tuple(res)

@@ -1,13 +1,15 @@
 """Wrapper of the hand-written CUDA fused fold step (``csrc/megastep.cu``).
 
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megastep`` (the Pallas
-kernel).  The source note in ``csrc/megastep.cu`` says what bounds it and
-how it is laid out.  This wrapper checks every operand, allocates the
-outputs and scratch with ``torch.empty``, builds the plan's twiddle tables
-once (``twiddle_tables``, plain numpy, cached on the device), launches the
-kernels on the current stream through the library's C entry point, raises
-on any CUDA error, and counts the launch.  It never falls back to the
-plain version.
+kernel) and, for JA98 2-bit input, the nlow counts, level tables and window
+weights its XLA pre-stage computed (``_prepare_input``).  The source note
+in ``csrc/megastep.cu`` says what bounds it and how it is laid out.  This
+wrapper checks every operand, allocates the outputs and scratch with
+``torch.empty``, builds the plan's twiddle tables once (``twiddle_tables``,
+plain numpy, cached on the device), launches the kernels on the current
+stream through the library's C entry point, raises on any CUDA error, and
+counts the launch (``megastep``, and ``mega_ja98`` for the JA98 pre-pass).
+It never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ import torch
 
 from ..device import count_launch
 from ..ops.megakernel import (
-    MegaConstants, MegaPlan, bounds_pair, check_supported, detection_code,
-    fold_pols)
+    MegaConstants, MegaPlan, bounds_pair, detection_code, fold_pols,
+    raw_nbytes)
 from . import build
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 15 + [_i] * 16 + [_f, _f] + [_i] * 6 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 20 + [_i] * 16 + [_f, _f] + [_i] * 8 + [_c]
+_JA98_ARGTYPES = [_c] * 5 + [_i] * 7 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
 MAX_THREADS = 512
@@ -42,6 +45,8 @@ def _lib() -> ctypes.CDLL:
         lib.megastep_launch.restype = _i
         lib.megastep_resources.argtypes = [_i] * 10
         lib.megastep_resources.restype = _i
+        lib.megastep_ja98.argtypes = _JA98_ARGTYPES
+        lib.megastep_ja98.restype = _i
         lib.megastep_error_string.argtypes = [_i]
         lib.megastep_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,6 +172,74 @@ def layout_code(plan: MegaPlan) -> int:
     return 1 if plan.interleave == "caspsr" else 0
 
 
+def code_kind(plan: MegaPlan) -> int:
+    """The raw input's code kind as the kernels' ``Code``
+    (``csrc/mega_common.cuh``): 0 8-bit, 1, 2 and 3 fixed-level 1-, 2- and
+    4-bit, 4 JA98 2-bit, 5 float32."""
+    if plan.npw:
+        return 4
+    return {8: 0, 1: 1, 2: 2, 4: 3, 32: 5}[plan.nbit]
+
+
+def unpack_operands(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
+                    npart: int):
+    """Check the raw bytes of one block of ``plan`` and the unpack
+    constants, and allocate the JA98 pre-pass's scratch: returns the C
+    entry points' ``(window, tables, nlow, wblk, wwin)`` pointers (None
+    where absent) and the tensors behind them; the last is the window
+    weights ``wwin`` float32 ``[nchan_in, npart]`` for a JA98 plan."""
+    p = plan
+    dev = raw.device
+    f32 = torch.float32
+    check_tensor(raw, "raw", torch.uint8, (raw_nbytes(p, npart),), dev)
+    if p.nbit == 32 and raw.data_ptr() % 4:
+        raise ValueError("float32 input must be 4-byte aligned")
+    held = []
+    if cst.window is not None:
+        check_tensor(cst.window, "cst.window", f32, (p.nsamp_fft,), dev)
+        held.append(cst.window)
+    window = None if cst.window is None else cst.window.data_ptr()
+    if not p.npw:
+        return (window, None, None, None, None), held
+    check_tensor(cst.twobit, "cst.twobit", f32, (3, p.npw + 1), dev)
+    nw = p.block_ndat(npart) // p.npw
+    nlow = torch.empty((p.nchan_in * p.npol * p.ndim, nw), dtype=torch.int16,
+                       device=dev)
+    wblk = torch.empty((p.nchan_in, nw), dtype=f32, device=dev)
+    wwin = torch.empty((p.nchan_in, npart), dtype=f32, device=dev)
+    held += [cst.twobit, nlow, wblk, wwin]
+    return (window, cst.twobit.data_ptr(), nlow.data_ptr(), wblk.data_ptr(),
+            wwin.data_ptr()), held
+
+
+def ja98_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
+              npart: int):
+    """The JA98 pre-pass alone (``mega_ja98``, ``mega_ja98_windows``) on
+    one block of 2-bit codes: ``(nlow, wwin)``, the low-state counts int32
+    ``[nchan_in, npol, ndim, nweights]`` and the window weights float32
+    ``[nchan_in, npart]``, as ``ops.megakernel.twobit_plain`` gives them."""
+    p = plan
+    if not p.npw:
+        raise ValueError("the JA98 pre-pass needs a plan with npw > 0")
+    if raw.device.type != "cuda":
+        raise ValueError(f"ja98_cuda needs CUDA tensors, got {raw.device}")
+    ptrs, held = unpack_operands(p, cst, raw, npart)
+    nlow, wwin = held[-3], held[-1]  # after the window, when there is one
+    lib = _lib()
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    with torch.cuda.device(raw.device):
+        rc = lib.megastep_ja98(raw.data_ptr(), *ptrs[1:], p.nchan_in, p.npol,
+                               p.ndim, npart, p.nsamp_step, p.nsamp_fft,
+                               p.npw, stream)
+    if rc != 0:
+        msg = lib.megastep_error_string(rc).decode()
+        raise RuntimeError(f"mega_ja98 launch failed: CUDA error {rc}: {msg}")
+    count_launch("mega_ja98")
+    nlow = (nlow.to(torch.int32) & 0xFFFF).reshape(
+        p.nchan_in, p.npol, p.ndim, -1)
+    return nlow, wwin
+
+
 def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:
     """Stage-1 sequences a (channel, window): one packed sequence for real
     input, one per transformed pol for complex input."""
@@ -199,7 +272,6 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     """One fused fold step on the card; arguments as
     ``ops.megakernel.megastep_plain`` (float32 carries).  Returns new
     ``(profiles, hits)``."""
-    check_supported(plan)
     p = plan
     dev = raw.device
     if dev.type != "cuda":
@@ -207,8 +279,9 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     npart = phi0.shape[0]
     nchan = p.nchan_in
     f32 = torch.float32
-    nbytes = p.block_ndat(npart) * nchan * p.npol * p.ndim
-    check_tensor(raw, "raw", torch.uint8, (nbytes,), dev)
+    nbytes = raw_nbytes(p, npart)
+    # held: the tensors behind the pointers, alive through the launch
+    unpack_ptrs, held = unpack_operands(p, cst, raw, npart)
     check_tensor(phi0, "phi0", f32, (npart,), dev)
     check_tensor(dphi, "dphi", f32, (npart,), dev)
     check_tensor(profiles, "profiles", f32,
@@ -250,14 +323,17 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
             cst.gr.data_ptr(), cst.gi.data_ptr(), tw.data_ptr(),
             profiles.data_ptr(), hits.data_ptr(), prof_out.data_ptr(),
             hits_out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
-            ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(),
+            ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(), *unpack_ptrs,
             nchan, p.npol, pols[0], npolf, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, lo, hi, layout_code(p), stream)
+            p.nsamp_step, tc, tk, lo, hi, layout_code(p), code_kind(p),
+            p.npw, stream)
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()
         raise RuntimeError(f"megastep launch failed: CUDA error {rc}: {msg}")
     count_launch("megastep")
+    if p.npw:
+        count_launch("mega_ja98")
     return prof_out, hits_out

@@ -5,11 +5,15 @@ requantize -> SIGPROC or PSRFITS search file (the ``digifil`` workflow).
 Counterpart of ``dspsr_tpu/models/load_to_fil.py`` for the configurations
 the JAX package runs on its fused search front end (``build_megafil``): a
 convolving filterbank (``freq_res > 1``: ``-D`` or ``-x``), Intensity, over
-8-bit input (real-sampled or complex, TFP or CASPSR bytes), with ``-K``,
-``-t``, ``-f``, ``-c``, ``-I``, ``-s`` and output nbits 1/2/4/8/32.  The host reads raw bytes and writes packed
-bytes; everything between runs on the device, one fused step a block.  A
-configuration that needs the JAX package's XLA chain raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+1/2/4/8-bit codes with fixed levels (two's complement at 2, 4 and 8 bits)
+or float32 samples, real-sampled or complex, in TFP order (8-bit real
+input also in the CASPSR layout), with ``-K``,
+``-t``, ``-f``, ``-c``, ``-I``, ``-s`` and output nbits 1/2/4/8/32.  The
+host reads raw bytes and writes packed bytes; everything between runs on
+the device, one fused step a block.  A configuration that needs the JAX
+package's XLA chain (JA98 2-bit input among them: its excision weights
+zero detected samples there) raises ``NotImplementedError`` naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ class FilConfig:
     npol_out: int = 1  # -d
     nbits: int = 8  # -b output bits
     twos_complement: bool = False  # input code convention (BitTable)
-    #: 2-bit JA98 dynamic levels (no 2-bit input is ported yet)
+    #: 2-bit JA98 dynamic levels and excision (the JAX package runs them on
+    #: its XLA chain); False: the fixed BitTable levels of the fused path
     dynamic_twobit: bool = True
     #: -I: seconds between rescale offset/scale updates; 0 = every block
     rescale_seconds: float = 0.0
@@ -149,9 +154,20 @@ class FilPipeline:
         obs = self.obs_in
         real_input = obs.state == Signal.NYQUIST
 
-        # raises for anything but 8-bit input in TFP or CASPSR order
+        # the codes the fused front end takes (the JAX package's choice,
+        # load_to_fil.py:244-248); the rest run on its XLA chain
         self.unpack_plan = UnpackPlan(obs,
-                                      twos_complement=cfg.twos_complement)
+                                      twos_complement=cfg.twos_complement,
+                                      dynamic_twobit=cfg.dynamic_twobit)
+        up = self.unpack_plan
+        if up.twobit is not None or (up.twos_complement
+                                     and obs.nbit not in (2, 4, 8)):
+            what = ("JA98 2-bit input (its excision weights zero detected "
+                    "samples)" if up.twobit is not None
+                    else f"two's-complement {obs.nbit}-bit codes")
+            raise NotImplementedError(
+                f"{what} runs on the XLA chain in the JAX package; see "
+                + _GENERAL)
         self.nchan_subband = max(1, cfg.nchan // obs.nchan)
         nchan_out = obs.nchan * self.nchan_subband
 

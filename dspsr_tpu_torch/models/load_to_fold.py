@@ -1,8 +1,11 @@
 """Fold-mode pipeline on the fused kernels: load -> (unpack, filterbank with
 chirp, detect, fold) -> archive.
 
-Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for 8-bit input
-(real-sampled or complex, TFP or CASPSR bytes) through a convolving
+Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for 1/2/4/8-bit codes
+(fixed levels, or JA98 dynamic 2-bit levels whose excision weights zero
+the windows they flag) and float32 samples, real-sampled or complex, in
+TFP order (8-bit real input also in the CASPSR layout), optionally
+apodized (``fft_window``), through a convolving
 filterbank (``nchan > nchan_in``) or, without one (``nchan_subband == 1``),
 the overlap-save convolution of each input channel (coherent
 dedispersion, optionally with polarization calibration: a Jones response
@@ -52,6 +55,7 @@ from ..ops.detection import from_front_planes
 from ..ops.filterbank import FilterbankPlan, update_observation
 from ..ops.fold import FoldPlan, choose_nbin, compute_anchors, fold_block
 from ..ops.fourth_moment import fourth_moment
+from ..ops.apodization import WindowType, build_window
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, build_megafil, build_megastep, unpack_affine)
 from ..ops.rfifilter import median_filter_freq
@@ -118,9 +122,12 @@ class FoldConfig:
     digitizer_stats: bool = True
     dump_path: Optional[str] = None
 
-    # unpacking (ndat_per_weight and cutoff_sigma are 2-bit settings,
-    # recorded in the signal path as the JAX package records them)
+    # unpacking
     twos_complement: bool = False
+    #: 2-bit: JA98 dynamic output levels + excision (TwoBitCorrection; the
+    #: reference's 2-bit instruments); False = the plain fixed BitTable
+    #: level map, no excision weights
+    dynamic_twobit: bool = True
     ndat_per_weight: int = 512
     cutoff_sigma: float = 3.0
 
@@ -255,8 +262,6 @@ def _unsupported(cfg: FoldConfig) -> Optional[str]:
         (not cfg.use_megakernel, "use_megakernel=False", _GENERAL),
         (cfg.use_fft_bench, "measured FFT lengths (use_fft_bench)",
          "ROADMAP.md Queue 1 item 11"),
-        (cfg.fft_window, "apodization (fft_window)",
-         "ROADMAP.md Queue 1 item 7"),
     )
     for bad, what, item in checks:
         if bad:
@@ -384,9 +389,21 @@ class FoldPipeline:
             dm = obs.dispersion_measure
         self.dm = float(dm or 0.0)
 
-        # --- unpacker (raises for anything but 8-bit TFP or CASPSR) ---
-        self.unpack_plan = UnpackPlan(obs,
-                                      twos_complement=cfg.twos_complement)
+        # --- unpacker; the codes the fused path cannot take go to the
+        # JAX package's general chain (_mega_front_eligible there) ---
+        self.unpack_plan = UnpackPlan(
+            obs, twos_complement=cfg.twos_complement,
+            dynamic_twobit=cfg.dynamic_twobit,
+            ndat_per_weight=cfg.ndat_per_weight,
+            cutoff_sigma=cfg.cutoff_sigma)
+        up = self.unpack_plan
+        if up.twos_complement and (obs.nbit not in (2, 4, 8)
+                                   or up.twobit is not None):
+            raise NotImplementedError(
+                f"two's-complement {obs.nbit}-bit codes"
+                f"{' with JA98 levels' if up.twobit is not None else ''} "
+                f"run on the general chain in the JAX package; see "
+                f"{_GENERAL}")
 
         # --- convolving filterbank geometry (Filterbank.C:55-263), or the
         # nsub == 1 overlap-save convolution (Convolution.C:105-221) ---
@@ -565,10 +582,12 @@ class FoldPipeline:
             nfilt_neg=self.conv_plan.nfilt_neg)
         mp = MegaPlan.from_filterbank(
             geom, self.nbin, obs.npol, det_np, obs.nbit,
-            nchan_in=obs.nchan, ndat_per_weight=0, detection=det_tag,
-            fourth_moment=cfg.fourth_moment,
-            twos_complement=self.unpack_plan.twos_complement,
-            interleave=self.unpack_plan.layout)
+            nchan_in=obs.nchan,
+            # JA98 dynamic levels only; fixed-level 2-bit is affine
+            ndat_per_weight=(cfg.ndat_per_weight if up.twobit is not None
+                             else 0),
+            detection=det_tag, fourth_moment=cfg.fourth_moment,
+            twos_complement=up.twos_complement, interleave=up.layout)
         if mp is None:
             raise NotImplementedError(
                 f"filterbank geometry {geom} does not factor for the "
@@ -595,16 +614,22 @@ class FoldPipeline:
             seg //= 2
         self.fold_plan = FoldPlan(self.nbin, seg)
         self.fold_plans = [FoldPlan(nb, seg) for nb in self.nbins]
-        scale, offset = unpack_affine(obs.nbit,
-                                      self.unpack_plan.twos_complement)
+        if mp.npw:
+            scale, offset = 1.0, 0.0  # JA98 dynamic levels in the kernel
+        else:
+            scale, offset = unpack_affine(obs.nbit, up.twos_complement)
         resp = self.kernel.phasors if self.kernel is not None else None
+        # the apodization taper of each window (Convolution.C:379-387)
+        win = (build_window(WindowType(cfg.fft_window), mp.nsamp_fft)
+               if cfg.fft_window else None)
+        unpack = dict(unpack_scale=scale, unpack_offset=offset,
+                      twobit=up.twobit, window=win)
         if self.mega_mode == "full":
-            self.constants = MegaConstants.build(
-                mp, resp, unpack_scale=scale, unpack_offset=offset
-            ).to(self.device)
+            self.constants = MegaConstants.build(mp, resp, **unpack).to(
+                self.device)
             self._megastep = build_megastep(mp, self.constants, self.npart)
         else:
-            self._build_hybrid(resp, scale, offset)
+            self._build_hybrid(resp, unpack)
 
         # --- accumulators ---
         if self.mega_mode == "full":
@@ -682,12 +707,14 @@ class FoldPipeline:
             return 2, "auto"
         return 1, "auto"
 
-    def _build_hybrid(self, resp, scale, offset):
+    def _build_hybrid(self, resp, unpack: dict):
         """The hybrid engine's front end (``_build_hybrid_step`` of the JAX
-        package, unsharded): ``build_megafil`` with the per-window weights,
-        the passband tap when the passband or the RFI filter needs it, the
-        chirp as an argument when the RFI filter multiplies a mask into it,
-        and the Jones response in the constants."""
+        package, unsharded): ``build_megafil`` with the per-window weights
+        (JA98 excision, else ones), the passband tap when the passband or
+        the RFI filter needs it, the chirp as an argument when the RFI
+        filter multiplies a mask into it, and the Jones response in the
+        constants; ``unpack`` is ``MegaConstants.build``'s unpack map, JA98
+        tables and window."""
         cfg = self.config
         np_out, det_tag = self._hybrid_front_mode()
         self.front_plan = dataclasses.replace(
@@ -697,8 +724,7 @@ class FoldPipeline:
         # (which the RFI mask multiplies) is ones (JAX load_to_fold.py:758)
         self.constants = MegaConstants.build(
             self.front_plan, None if self.jones is not None else resp,
-            unpack_scale=scale, unpack_offset=offset, jones=self.jones
-        ).to(self.device)
+            jones=self.jones, **unpack).to(self.device)
         rfi = bool(cfg.rfi_filter)
         self._rfi_2pass = rfi and cfg.rfi_same_block
         self._front = build_megafil(

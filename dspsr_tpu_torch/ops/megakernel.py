@@ -4,9 +4,16 @@ Counterpart of ``dspsr_tpu/ops/megakernel.py``.  One call folds a whole
 block of raw bytes into carried ``profiles [nchan_in, nplane, nsub, nbin]``
 and ``hits [nchan_in, nbin]``:
 
-1. unpack the 8-bit codes (``code * scale + offset``), from TFP order or
-   from the CASPSR layout (``unpack.unpackers.reorder_bytes_tfp``);
-2. forward FFT of each overlap-save window: real input, ``2N`` samples,
+1. unpack: 8-bit codes (TFP order or the CASPSR layout,
+   ``unpack.unpackers.reorder_bytes_tfp``) and fixed-level 1/2/4-bit fields
+   (two's-complement fields wrap to signed first) as ``code * scale +
+   offset``; float32 samples as they are; 2-bit codes with JA98 dynamic
+   levels (``plan.npw > 0``) as ``sign * (lo or hi)[nlow]`` of their
+   ``npw``-sample block, whose excision weights give each window a weight
+   of 0 or 1 (``window_weights``) that multiplies its folded samples and
+   hits;
+2. forward FFT of each overlap-save window, times the apodization window
+   when there is one: real input, ``2N`` samples,
    bins ``0..N-1`` kept (Nyquist dropped); complex (analytic) input, ``N``
    complex samples ``re + i im``, all bins kept, ``fftshift``-ed so that
    natural bin ``j`` is FFT bin ``(j + N/2) mod N`` (the JAX package's
@@ -56,10 +63,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..unpack.unpackers import reorder_bytes_tfp
+from ..unpack.unpackers import (
+    bytes_to_codes, reorder_bytes_tfp, twobit_levels, twobit_nlow)
 from .fold import compute_bins
 
-_KERNEL_ITEM = "ROADMAP.md Queue 1 item 7 and Queue 2 item 1"
 _SHARDED = "ROADMAP.md Queue 1 item 10 (channel-sharded steps)"
 
 
@@ -86,7 +93,7 @@ class MegaPlan:
     nbin: int          # fold phase bins
     npol: int          # input polarizations
     npol_out: int = 1  # 1 = Intensity, 2 = PPQQ, 4 = Stokes
-    nbit: int = 8      # input bits per sample (2, 4, 8 or 32)
+    nbit: int = 8      # input bits per sample (1, 2, 4, 8 or 32)
     real_input: bool = True  # Nyquist (real) vs analytic (complex) input
     nchan_in: int = 1  # input channels, each its own convolving filterbank
     #: samples per JA98 correction/excision block (> 0: dynamic 2-bit)
@@ -96,7 +103,7 @@ class MegaPlan:
     detection: str = "auto"
     #: fold the 10 unique second-order Stokes products too (14 planes)
     fourth_moment: bool = False
-    #: 8-bit two's-complement codes (an affine map of the signed byte)
+    #: two's-complement codes, 2/4/8-bit (an affine map of the signed field)
     twos_complement: bool = False
     #: raw byte layout: "tfp" or "caspsr"
     interleave: str = "tfp"
@@ -253,16 +260,6 @@ class MegaPlan:
         return plan
 
 
-def check_supported(plan: MegaPlan) -> None:
-    """Raise ``NotImplementedError`` for a plan outside this slice: the
-    port's step covers 8-bit input, real-sampled or complex, in TFP order or
-    in the CASPSR layout."""
-    if plan.nbit != 8 or plan.npw:
-        raise NotImplementedError(
-            f"nbit={plan.nbit}, npw={plan.npw}: the fused step is ported for "
-            "8-bit input only; see " + _KERNEL_ITEM)
-
-
 def unpack_affine(nbit: int, twos_complement: bool = False) -> Tuple[float, float]:
     """(scale, offset) such that value = code * scale + offset reproduces
     the BitTable uniform level map.  Offset binary: the code is the unsigned
@@ -295,10 +292,35 @@ def window_weight_spans(plan: MegaPlan, npart: int):
     return spans
 
 
+def window_weights(plan: MegaPlan, w_chan: torch.Tensor,
+                   npart: int) -> torch.Tensor:
+    """Each window's weight ``[nchan_in, npart]`` from the blocks' weights
+    ``w_chan [nchan_in, nweights]``: the least over the window's span of
+    :func:`window_weight_spans` (npw divides both the step and the
+    window, so the spans are one sliding window of blocks)."""
+    p = plan
+    spans = w_chan.unfold(-1, p.nsamp_fft // p.npw, p.nsamp_step // p.npw)
+    return spans[:, :npart].amin(dim=-1)
+
+
+def twobit_plain(plan: MegaPlan, cst: "MegaConstants", codes: torch.Tensor,
+                 npart: int):
+    """The JA98 pre-pass of the fused kernels (``mega_ja98``), plain: 2-bit
+    ``codes [nchan_in, npol, ndim, T]`` -> the low-state counts ``nlow``
+    int64 ``[nchan_in, npol, ndim, T // npw]`` and the window weights
+    float32 ``[nchan_in, npart]``."""
+    p = plan
+    nlow = twobit_nlow(codes, p.npw)
+    w_dig = cst.twobit[2][nlow]
+    w_chan = w_dig.reshape(p.nchan_in, p.npol * p.ndim, -1).amin(dim=1)
+    return nlow, window_weights(p, w_chan, npart)
+
+
 @dataclass(frozen=True)
 class MegaConstants:
     """What the fused step reads besides the data: the per-input-channel
-    chirp, the optional Jones response and the unpack map.
+    chirp, the optional Jones response, the unpack map, the JA98 tables and
+    the apodization window.
 
     ``gr``/``gi`` are float32 ``[nchan_in, n_fft]`` in natural bin order
     (for complex input the centred order of ``fftshift``); they equal the
@@ -311,7 +333,13 @@ class MegaConstants:
     ``jxr/jxi``).  With it the output pol ``p`` is ``J[p, 0] X_0 + J[p, 1]
     X_1``, and the scalar chirp multiplies after the mix (reference
     ``ResponseProduct``; ones when the Jones response carries the chirp).
-    Built by :meth:`build` as numpy arrays; :meth:`to` gives tensors.
+    ``twobit`` (JA98 plans, ``npw > 0``) is float32 ``[3, npw + 1]``: the
+    low and high output levels and the excision weight of each low-state
+    count nlow (``unpack.twobit.TwoBitCorrection``, the JAX package's
+    tables bit for bit).  ``window`` is ``None`` or the apodization taper,
+    float32 ``[nsamp_fft]`` in sample order (the JAX package keeps the same
+    values as ``apod [R1, row_len]``).  Built by :meth:`build` as numpy
+    arrays; :meth:`to` gives tensors.
     """
 
     gr: object
@@ -319,23 +347,20 @@ class MegaConstants:
     unpack_scale: float = 1.0
     unpack_offset: float = 0.0
     jones: object = None
+    twobit: object = None
+    window: object = None
 
     @classmethod
     def build(cls, plan: MegaPlan, response_natural: Optional[np.ndarray],
               unpack_scale: float = 1.0, unpack_offset: float = 0.0,
               twobit=None, window: Optional[np.ndarray] = None,
               jones: Optional[np.ndarray] = None) -> "MegaConstants":
-        """The JAX package's float64 formulas for the arrays this slice
+        """The JAX package's float64 formulas for the arrays the step
         reads.  ``jones`` is the natural-order complex ``[nchan_in, n_fft,
-        2, 2]`` Jones response (``ops.polncal``), or None; ``window`` and
-        ``twobit`` raise."""
-        if window is not None:
-            raise NotImplementedError(
-                "apodization on the fused step; see " + _KERNEL_ITEM)
-        if twobit is not None or plan.npw:
-            raise NotImplementedError(
-                "JA98 2-bit levels on the fused step; see " + _KERNEL_ITEM)
-        check_supported(plan)
+        2, 2]`` Jones response (``ops.polncal``), or None; ``twobit`` a
+        ``TwoBitCorrection`` for a JA98 plan (default: one of ``plan.npw``
+        samples a block; ignored when the plan has none); ``window`` the
+        ``nsamp_fft``-sample taper (``ops.apodization.build_window``)."""
         N = plan.n_fft
         if response_natural is not None:
             flat = np.asarray(response_natural).reshape(
@@ -351,19 +376,35 @@ class MegaConstants:
                 raise ValueError(f"jones shape {jn.shape} != "
                                  f"({plan.nchan_in}, {N}, 2, 2)")
             jn = jones_planes(jn)
+        tables = None
+        if plan.npw:
+            if twobit is None:
+                from ..unpack.twobit import TwoBitCorrection
+
+                twobit = TwoBitCorrection(ndat_per_weight=plan.npw)
+            if twobit.ndat_per_weight != plan.npw:
+                raise ValueError("twobit.ndat_per_weight != plan.npw")
+            tables = np.stack([*twobit.level_tables, twobit.weight_table])
+        win = None
+        if window is not None:
+            win = np.asarray(window, np.float64).reshape(-1).astype(np.float32)
+            if win.size != plan.nsamp_fft:
+                raise ValueError("window length != nsamp_fft")
         return cls(gr=np.ascontiguousarray(flat.real).astype(np.float32),
                    gi=np.ascontiguousarray(flat.imag).astype(np.float32),
                    unpack_scale=float(unpack_scale),
-                   unpack_offset=float(unpack_offset), jones=jn)
+                   unpack_offset=float(unpack_offset), jones=jn,
+                   twobit=tables, window=win)
 
     def to(self, device) -> "MegaConstants":
         """A copy whose arrays are float32 tensors on ``device``."""
         def f32(a):
-            return torch.as_tensor(a, dtype=torch.float32).to(device)
+            return (None if a is None
+                    else torch.as_tensor(a, dtype=torch.float32).to(device))
 
         return dataclasses.replace(
-            self, gr=f32(self.gr), gi=f32(self.gi),
-            jones=None if self.jones is None else f32(self.jones))
+            self, gr=f32(self.gr), gi=f32(self.gi), jones=f32(self.jones),
+            twobit=f32(self.twobit), window=f32(self.window))
 
 
 def jones_planes(jones: np.ndarray) -> np.ndarray:
@@ -453,37 +494,73 @@ def voltage_sign_flips(plan: MegaPlan) -> bool:
     return plan.nsub > 1 or not plan.real_input
 
 
+def raw_nbytes(plan: MegaPlan, npart: int) -> int:
+    """Bytes of one block of raw input: ``block_ndat * nchan_in * npol *
+    ndim`` samples of ``nbit`` bits (float32 samples: 4 bytes each)."""
+    p = plan
+    nbits = p.block_ndat(npart) * p.nchan_in * p.npol * p.ndim * p.nbit
+    if nbits % 8:
+        raise ValueError(f"a block of {nbits} bits is not whole bytes")
+    return nbits // 8
+
+
+def _unpack_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
+                  npart: int, dtype):
+    """The plain unpack of one block of raw bytes: the samples
+    ``[nchan_in, npol, ndim, block_ndat]`` in ``dtype`` and, for a JA98
+    plan, the window weights ``[nchan_in, npart]`` (else None)."""
+    p = plan
+    shape = (p.block_ndat(npart), p.nchan_in, p.npol, p.ndim)
+    if p.nbit == 32:
+        return raw.view(torch.float32).to(dtype).reshape(shape).permute(
+            1, 2, 3, 0), None
+    raw = reorder_bytes_tfp(raw, p.interleave, p.npol)
+    if p.nbit == 8 and p.twos_complement:
+        codes = raw.view(torch.int8)
+    else:
+        codes = bytes_to_codes(raw, p.nbit)
+    codes = codes.reshape(shape).permute(1, 2, 3, 0)
+    if p.npw:
+        nlow, wgt = twobit_plain(p, cst, codes, npart)
+        lo, hi = cst.twobit[0].to(dtype), cst.twobit[1].to(dtype)
+        return twobit_levels(codes, nlow, lo, hi, p.npw), wgt
+    x = codes.to(dtype)
+    if p.twos_complement and p.nbit < 8:
+        # sub-byte two's-complement fields wrap to the signed value
+        half = 1 << (p.nbit - 1)
+        x = torch.where(x >= half, x - 2 * half, x)
+    return x * cst.unpack_scale + cst.unpack_offset, None
+
+
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
                  gi=None, voltage: bool = False):
-    """The front end both plain steps share: unpack (CASPSR bytes through
-    the plain reorder), the spectrum of each window (real input: ``rfft``,
-    Nyquist dropped; complex input: ``fft`` then ``fftshift``, natural
-    centred order), chirp (``gr``/``gi``, default the constants'),
-    per-subband ``ifft`` (kept samples only) and detection, in ``dtype``.
-    Returns ``[nchan_in, nplane, npart, nsub, nkeep]`` and the passband
-    (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the sum over
-    windows of every input pol's ``|X|^2`` before the chirp.  With
-    ``voltage`` the first is the undetected complex ``[nchan_in, npol,
+    """The front end both plain steps share: unpack (:func:`_unpack_plain`),
+    the spectrum of each window times the apodization window when there is
+    one (real input: ``rfft``, Nyquist dropped; complex input: ``fft`` then
+    ``fftshift``, natural centred order), chirp (``gr``/``gi``, default the
+    constants'), per-subband ``ifft`` (kept samples only) and detection, in
+    ``dtype``.  Returns ``[nchan_in, nplane, npart, nsub, nkeep]``, the
+    passband (``None`` unless asked for): ``[nchan_in, npol, n_fft]``, the
+    sum over windows of every input pol's ``|X|^2`` before the chirp, and
+    the JA98 window weights ``[nchan_in, npart]`` (``None`` without JA98).
+    With ``voltage`` the first is the undetected complex ``[nchan_in, npol,
     npart, nsub, nkeep]`` of every input pol instead, with the sign of
     :func:`voltage_sign_flips`.  With a Jones response (``cst.jones``) both
     input pols are transformed, and output pol ``p`` is the mix ``J[p, 0]
     X_0 + J[p, 1] X_1`` before the scalar chirp slot."""
     p = plan
-    check_supported(p)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     nchan, M = p.nchan_in, p.freq_res
-    raw = reorder_bytes_tfp(raw, p.interleave, p.npol)
-    codes = raw.view(torch.int8) if p.twos_complement else raw
-    x = codes.to(dtype) * cst.unpack_scale + cst.unpack_offset
-    x = x.reshape(p.block_ndat(npart), nchan, p.npol, p.ndim).permute(
-        1, 2, 0, 3)
-    x = x[..., 0] if p.real_input else torch.complex(x[..., 0], x[..., 1])
+    x, wgt = _unpack_plain(p, cst, raw, npart, dtype)
+    x = x[:, :, 0] if p.real_input else torch.complex(x[:, :, 0], x[:, :, 1])
     pols = list(range(p.npol)) if voltage else list(fold_pols(p))
     jones = cst.jones
     if not passband and jones is None:
         x = x[:, pols]
     win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, L]
+    if cst.window is not None:
+        win = win * cst.window.to(dtype)
     if p.real_input:
         spec = torch.fft.rfft(win, dim=-1)[..., :p.n_fft]
     else:
@@ -504,11 +581,11 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     sub = spec.reshape(nchan, -1, npart, p.nsub, M)
     v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
     if not voltage:
-        return _detect_plain(v, p), pb
+        return _detect_plain(v, p), pb, wgt
     if voltage_sign_flips(p):
         t = torch.arange(p.nfilt_pos, p.nfilt_pos + p.nkeep, device=v.device)
         v = v * (1 - 2 * (t % 2)).to(dtype)
-    return v, pb
+    return v, pb, wgt
 
 
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
@@ -521,26 +598,31 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     profiles ``[nchan_in, nplane, nsub, nbin]``, hits ``[nchan_in, nbin]``,
     raw uint8 flat bytes of one block in the plan's layout, phi0/dphi
     ``[npart]`` per-window anchors, bounds ``None`` or ``(lo, hi)``.
-    Returns new ``(profiles, hits)``.
+    Returns new ``(profiles, hits)``.  A JA98 plan's window weights
+    multiply each window's samples and hits (the reference's weight in the
+    fold's one-hot, ``mega_reference``).
     """
     p = plan
     npart = phi0.shape[0]
     dtype = profiles.dtype
     nchan = p.nchan_in
-    planes, _ = _front_plain(p, cst, raw, npart, dtype)
+    planes, _, wgt = _front_plain(p, cst, raw, npart, dtype)
 
     lo, hi = bounds_pair(bounds)
     g = torch.arange(npart * p.nkeep, device=raw.device)
-    keep = ((g >= lo) & (g < hi)).to(dtype)
+    keep = ((g >= lo) & (g < hi)).to(dtype)[None, :]
+    if wgt is not None:
+        # [nchan, npart * nkeep]: each sample's window weight
+        keep = keep * wgt.to(dtype).repeat_interleave(p.nkeep, dim=1)
     idx = fold_bins(p, phi0, dphi).reshape(-1)
     data = planes.permute(0, 1, 3, 2, 4).reshape(
-        nchan, p.nplane, p.nsub, npart * p.nkeep) * keep
+        nchan, p.nplane, p.nsub, npart * p.nkeep) * keep[:, None, None, :]
     blk = torch.zeros(nchan, p.nplane, p.nsub, p.nbin, dtype=dtype,
                       device=raw.device)
     blk.index_add_(3, idx, data)
-    hblk = torch.zeros(p.nbin, dtype=hits.dtype, device=raw.device)
-    hblk.index_add_(0, idx, keep.to(hits.dtype))
-    return profiles + blk, hits + hblk[None, :]
+    hblk = torch.zeros(nchan, p.nbin, dtype=hits.dtype, device=raw.device)
+    hblk.index_add_(1, idx, keep.to(hits.dtype).expand(nchan, -1))
+    return profiles + blk, hits + hblk
 
 
 def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
@@ -552,7 +634,6 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
     A Jones response raises: it runs on the hybrid engine's front end, as
     in the JAX package (``load_to_fold.py:1127-1144``)."""
     plan.validate()
-    check_supported(plan)
     if cst is not None and cst.jones is not None:
         raise NotImplementedError(
             "a Jones response on the fused fold step; the pipeline runs it "
@@ -589,28 +670,36 @@ def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
 
 def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                   npart: int, dtype=torch.float32, passband: bool = False,
-                  gr=None, gi=None, output: str = "detected"):
+                  gr=None, gi=None, output: str = "detected",
+                  return_weights: bool = False):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
     in ``dtype`` (float32 or float64): raw uint8 flat bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
     (output channel ``c*nsub + s``), or with ``output="voltage"`` the
     undetected complex (complex64 or complex128) ``[nchan_in*nsub, npol,
     npart*nkeep]`` of every input pol, signed as the JAX package restores
-    it (:func:`voltage_sign_flips`); with ``passband`` also the pre-chirp
-    passband ``[nchan_in*nsub, npol, freq_res]`` of every input pol, summed
-    over the block's windows.  ``gr``/``gi`` replace the constants' chirp
-    (float ``[nchan_in, n_fft]``, natural bin order)."""
+    it (:func:`voltage_sign_flips`); with ``return_weights`` then the
+    window weights float32 ``[nchan_in, npart]`` (JA98 excision, else
+    ones); with ``passband`` last the pre-chirp passband ``[nchan_in*nsub,
+    npol, freq_res]`` of every input pol, summed over the block's windows.
+    ``gr``/``gi`` replace the constants' chirp (float ``[nchan_in, n_fft]``,
+    natural bin order).  The data are not weighted, as in the JAX
+    package."""
     p = plan
     voltage = output == "voltage"
-    planes, pb = _front_plain(p, cst, raw, npart, dtype, passband, gr, gi,
-                              voltage)
+    planes, pb, wgt = _front_plain(p, cst, raw, npart, dtype, passband, gr,
+                                   gi, voltage)
     # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
     # nkeep]: time order within each output channel
     data = planes.permute(0, 3, 1, 2, 4).reshape(
         p.nchan_in * p.nsub, planes.shape[1], npart * p.nkeep)
-    if not passband:
-        return data
-    return data, passband_layout(p, pb)
+    out = [data]
+    if return_weights:
+        out.append(wgt if wgt is not None else torch.ones(
+            (p.nchan_in, npart), dtype=torch.float32, device=raw.device))
+    if passband:
+        out.append(passband_layout(p, pb))
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
@@ -628,7 +717,8 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
       input pol (the JAX package returns the same as a split pair), signed
       by the rule of :func:`voltage_sign_flips` (the cyclic fold's input);
     - ``wgt`` (``return_weights``): per-window excision weights ``[nchan_in,
-      npart]``, all ones (8-bit input has no JA98 excision);
+      npart]``: the JA98 window weights (0 or 1) of a plan with ``npw``,
+      else all ones;
     - ``pb`` (``passband``): the pre-chirp passband ``[nchan_in*nsub, npol,
       freq_res]`` of every input pol, summed over the block's windows.
 
@@ -663,7 +753,6 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
             raise NotImplementedError(
                 f"{what} on the fused search front end; see {item}")
     plan.validate()
-    check_supported(plan)
 
     def step(raw, *resp):
         if len(resp) != (2 if response_as_args else 0):
@@ -673,20 +762,10 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
         if raw.is_cuda:
             from ..kernels.megafil import megafil_cuda
 
-            res = megafil_cuda(plan, cst, raw, npart, passband, gr, gi,
-                               output, inverse)
-        else:
-            res = megafil_plain(plan, cst, raw, npart, passband=passband,
-                                gr=gr, gi=gi, output=output)
-        if not (passband or return_weights):
-            return res
-        data, pb = res if passband else (res, None)
-        out = [data]
-        if return_weights:
-            out.append(torch.ones((plan.nchan_in, npart), dtype=torch.float32,
-                                  device=raw.device))
-        if passband:
-            out.append(pb)
-        return tuple(out)
+            return megafil_cuda(plan, cst, raw, npart, passband, gr, gi,
+                                output, inverse, return_weights)
+        return megafil_plain(plan, cst, raw, npart, passband=passband,
+                             gr=gr, gi=gi, output=output,
+                             return_weights=return_weights)
 
     return step

@@ -726,3 +726,116 @@ def test_complex_passband_tap_mirror(detection, store, nchan):
     """The passband tap on complex input: |X|^2 of each pol at its centred
     natural index, summed over the windows before the chirp."""
     _passband_tap(detection, store, nchan, real=False)
+
+
+# --------------------------------------------------------------------------
+# the unpack of the first pass: sub-byte fields, JA98 levels, the window
+# --------------------------------------------------------------------------
+
+
+def code_field(raw, i, nbit):
+    """``code_field<NBIT>``: code ``i`` of the stream in byte ``i >> lg`` at
+    shift ``(per - 1 - (i & (per - 1))) * nbit``, ``per = 8 / nbit``."""
+    lg = {1: 3, 2: 2, 4: 1}[nbit]
+    per = 1 << lg
+    b = raw[i >> lg].astype(np.int64)
+    return (b >> ((per - 1 - (i & (per - 1))) * nbit)) & ((1 << nbit) - 1)
+
+
+def ja98_prepass(raw, ndig, nd_chan, npw, nweights, weight):
+    """``mega_ja98``: one CTA per npw-sample block; byte k of the block
+    holds codes 4k..4k+3 of digitizers (4k + f) mod ndig, the same for
+    every k of one residue r = k mod pb; a byte's fields are low where
+    ``((b >> 1) ^ b) & 0x55`` has their low bit.  Returns nlow [ndig,
+    nweights] and the block weights [ndig / nd_chan, nweights]."""
+    gcd4 = 4 if ndig % 4 == 0 else (2 if ndig % 2 == 0 else 1)
+    pb = ndig // gcd4
+    nb = npw * ndig // 4
+    nlow = np.zeros((ndig, nweights), np.int64)
+    for blk in range(nweights):
+        src = raw[blk * nb:(blk + 1) * nb].astype(np.int64)
+        for r in range(pb):
+            low = ((src[r::pb] >> 1) ^ src[r::pb]) & 0x55
+            for f, sh in enumerate((6, 4, 2, 0)):
+                nlow[(4 * r + f) % ndig, blk] += ((low >> sh) & 1).sum()
+    wblk = weight[nlow].reshape(ndig // nd_chan, nd_chan, nweights).min(1)
+    return nlow, wblk
+
+
+def load_code(raw, i, dig, t, nbit, ja98, twos, scale, offset, tables,
+              nlow, lg_npw):
+    """``load_code<CODE>`` for sub-byte codes: JA98 ``sign * (lo or
+    hi)[nlow]`` with nlow of the sample's block ``t >> lg_npw`` of its
+    digitizer, else the field (two's-complement fields wrapped to signed)
+    times scale plus offset."""
+    code = code_field(raw, i, nbit)
+    if ja98:
+        nl = nlow[dig, t >> lg_npw]
+        mag = np.where((code == 1) | (code == 2), tables[0][nl],
+                       tables[1][nl])
+        return np.where(code >= 2, mag, -mag)
+    v = np.where(twos & (code >= 1 << (nbit - 1)), code - (1 << nbit), code)
+    return v * scale + offset
+
+
+@pytest.mark.parametrize("nbit,twos,real,ja98,nchan", [
+    (1, False, True, False, 1), (2, True, True, False, 2),
+    (4, False, False, False, 1), (4, True, False, False, 2),
+    (2, False, True, True, 1), (2, False, False, True, 2),
+    (2, False, False, True, 3)],
+    ids=["1bit", "2bit-twos-2chan", "4bit-complex", "4bit-twos-complex-2chan",
+         "ja98-real", "ja98-complex-2chan", "ja98-complex-3chan"])
+def test_unpack_mirror_matches_plain(nbit, twos, real, ja98, nchan):
+    """The kernels' code index ``((t*nchan + c)*npol + pol)*ndim + d`` and
+    field extraction, the JA98 pre-pass and level lookup, and the window
+    index ``(j + T*i)*row_len + m`` of ``mega_fwd1``, against the port's
+    plain unpack (``_unpack_plain``, ``twobit_plain``)."""
+    npw = 16 if ja98 else 0
+    fb = FilterbankPlan(real_input=real, nchan_subband=NSUB,
+                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
+    plan = tmk.MegaPlan(**dataclasses.asdict(jmk.MegaPlan.from_filterbank(
+        fb, nbin=2, npol=2, nbit=nbit, nchan_in=nchan, ndat_per_weight=npw,
+        twos_complement=twos)))
+    ndim, T_ = plan.ndim, plan.block_ndat(NPART)
+    ndig = nchan * 2 * ndim
+    rng = np.random.default_rng(nbit * 7 + nchan)
+    raw = rng.integers(0, 256, tmk.raw_nbytes(plan, NPART), dtype=np.uint8)
+    scale, offset = (1.0, 0.0) if ja98 else tmk.unpack_affine(nbit, twos)
+    cst = tmk.MegaConstants.build(plan, None, scale, offset).to("cpu")
+    want, wgt = tmk._unpack_plain(plan, cst, torch.from_numpy(raw), NPART,
+                                  torch.float64)
+    tables = cst.twobit.double().numpy() if ja98 else None
+    nlow = None
+    if ja98:
+        nlow, wblk = ja98_prepass(raw, ndig, 2 * ndim, npw, T_ // npw,
+                                  cst.twobit[2].numpy())
+        codes = tmk.bytes_to_codes(torch.from_numpy(raw), 2).reshape(
+            T_, nchan, 2, ndim).permute(1, 2, 3, 0)
+        pn, pw = tmk.twobit_plain(plan, cst, codes, NPART)
+        assert np.array_equal(nlow.reshape(pn.shape), pn.numpy())
+        # mega_ja98_windows: the least block weight over each window
+        sb, sp = plan.nsamp_step // npw, plan.nsamp_fft // npw
+        ww = np.stack([wblk[:, w * sb:w * sb + sp].min(1)
+                       for w in range(NPART)], 1)
+        assert np.array_equal(ww, pw.numpy()) and np.array_equal(
+            ww, wgt.numpy())
+    t = np.arange(T_)[None, None, None, :]
+    c = np.arange(nchan)[:, None, None, None]
+    pol = np.arange(2)[None, :, None, None]
+    d = np.arange(ndim)[None, None, :, None]
+    i = ((t * nchan + c) * 2 + pol) * ndim + d
+    dig = (c * 2 + pol) * ndim + d
+    got = load_code(raw, i, dig, t, nbit, ja98, twos, scale, offset, tables,
+                    nlow, 4)
+    assert np.array_equal(got, want.numpy())
+    # mega_fwd1's window index: thread j, point i of column m in window w
+    # reads window[(j + T*i)*row_len + m], the sample's offset in its window
+    P = fft_points(plan.R1)
+    T = plan.R1 // P
+    j, ii, m = np.meshgrid(np.arange(T), np.arange(P),
+                           np.arange(plan.row_len), indexing="ij")
+    for w in range(NPART):
+        ts = w * plan.nsamp_step + (j + T * ii) * plan.row_len + m
+        assert np.array_equal((j + T * ii) * plan.row_len + m,
+                              ts - w * plan.nsamp_step)
+        assert ts.max() < T_

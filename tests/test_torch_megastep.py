@@ -161,19 +161,24 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     (dict(), dict(jones=np.ones((1, NSUB * FREQ_RES, 2, 2)))),
 ])
 def test_uncovered_plans_raise(kw, cst_kw):
+    """A Jones response still raises on the fused fold step.  The other
+    plans (JA98 2-bit, 4-bit real and complex, an apodization window) once
+    raised here; they are ported and match the reference (more cases in
+    ``test_torch_twobit.py`` and ``test_torch_subbyte.py``)."""
+    from test_torch_twobit import close, port_step, reference_step, setup
+
     real = kw.pop("real_input", True)
-    fb = FilterbankPlan(real_input=real, nchan_subband=NSUB,
-                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
-    plan = tmk.MegaPlan.from_filterbank(fb, nbin=NBIN, npol=NPOL, **kw)
     if "jones" in cst_kw:
+        fb = FilterbankPlan(real_input=real, nchan_subband=NSUB,
+                            freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
+        plan = tmk.MegaPlan.from_filterbank(fb, nbin=NBIN, npol=NPOL, **kw)
         # Jones constants build (the search front end mixes them in); the
         # fused fold step refuses them
         cst = tmk.MegaConstants.build(plan, None, **cst_kw)
         with pytest.raises(NotImplementedError):
             tmk.build_megastep(plan, cst, NPART)
         return
-    with pytest.raises(NotImplementedError):
-        tmk.MegaConstants.build(plan, None, **cst_kw)
-    if not cst_kw:
-        with pytest.raises(NotImplementedError):
-            tmk.build_megastep(plan, None, NPART)
+    args = list(setup(nbit=kw.get("nbit", 8), real=real,
+                      npw=kw.get("ndat_per_weight", 0), seed=len(str(kw))))
+    args[-1] = cst_kw.get("window")
+    close(port_step(*args), reference_step(*args))

@@ -157,7 +157,9 @@ def test_save_archive(tmp_path, ext):
 # nsub == 1 with DM > 0 (the convolution) and calibration at nsub == 1 run
 # since the nsub == 1 slice (tests/test_torch_conv.py,
 # tests/test_torch_jones.py); nsub == 1 with no FFT stage (DM 0, no
-# calibration) and calibration inside a filterbank still raise
+# calibration) and calibration inside a filterbank still raise.  The
+# apodization window (fft_window) runs since the sub-byte slice, and its
+# case holds the port against the JAX pipeline.
 @pytest.mark.parametrize("kw", [
     dict(cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
     dict(calibration_path="cal.txt"),
@@ -167,6 +169,11 @@ def test_save_archive(tmp_path, ext):
     dict(rfi_filter=True, nchan=1, dispersion_measure=0.0),
 ], ids=lambda kw: "-".join(k for k in kw if k != "dispersion_measure"))
 def test_unsupported_config_raises(tmp_path, kw):
+    if "fft_window" in kw:
+        path = _write_raw(tmp_path, 1 << 15)
+        a, b, _ = _both(lambda pkg: raw_source(pkg, path), **kw)
+        _assert_same(a, b)
+        return
     path = _write_raw(tmp_path, 1 << 12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.FoldPipeline(raw_source("port", path),
@@ -178,13 +185,34 @@ def test_unsupported_config_raises(tmp_path, kw):
     dict(ndim=2, state="ANALYTIC", nbit=4)], ids=["2bit", "4bit", "caspsr",
                                                   "complex"])
 def test_unsupported_input_raises(tmp_path, obs_kw):
-    """Inputs still to port: 2- and 4-bit codes, real, complex or in the
-    CASPSR layout (8-bit complex and CASPSR input are ported:
-    ``test_torch_analytic.py``, ``test_torch_caspsr.py``)."""
-    path = _write_raw(tmp_path, 1 << 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.FoldPipeline(raw_source("port", path, **obs_kw),
-                        tl.FoldConfig(**BASE), device="cpu")
+    """Inputs once refused here: 2-bit (JA98 levels and excision), 4-bit
+    and complex 4-bit codes now run and match the JAX pipeline (more in
+    ``test_torch_twobit.py``, ``test_torch_subbyte.py``); the CASPSR
+    layout at 4 bits raises the same ``ValueError`` in both packages."""
+    if obs_kw.get("instrument") == "CASPSR":
+        path = _write_raw(tmp_path, 1 << 12)
+        for pkg, mod in (("jax", jl), ("port", tl)):
+            extra = {"device": "cpu"} if pkg == "port" else {}
+            with pytest.raises(ValueError, match="CASPSR"):
+                mod.FoldPipeline(raw_source(pkg, path, **obs_kw),
+                                 mod.FoldConfig(**BASE), **extra)
+        return
+    rng = np.random.default_rng(obs_kw["nbit"])
+    path = str(tmp_path / "in.raw")
+    cfg = {}
+    if obs_kw["nbit"] == 2:
+        # JA98: every 16-sample block clean, so no window is excised by
+        # chance; the blocks divide the row (row_len 32 here)
+        from test_torch_twobit import clean_twobit_codes, pack2
+
+        cfg = dict(ndat_per_weight=16, frequency_resolution=128)
+        pack2(clean_twobit_codes(rng, 1 << 14, 4, 16)).tofile(path)
+    else:
+        rng.integers(0, 256, 1 << 15, dtype=np.uint8).tofile(path)
+    a, b, pipe = _both(lambda pkg: raw_source(pkg, path, **obs_kw),
+                       **dict(cfg, folding_period=0.00513))
+    _assert_same(a, b)
+    assert pipe.mega_plan.nbit == obs_kw["nbit"] and b.hits.sum() > 0
 
 
 def test_cuda_without_card_raises(tmp_path):
