@@ -33,6 +33,16 @@ and prints timings:
 Every unpack variant of both kernels (JA98, fixed-level 1/2/4-bit, float32,
 apodization windows) is held against plain at the test geometry first.
 
+Then the general chain, which runs where neither fused kernel can and
+launches neither: the flagship fold with ``use_megakernel=False``
+(``xla_general``) and with in-stream SK (``xla_sk_weights``), each one block
+against the same chain on the CPU from the same bytes, 3 blocks through
+``FoldPipeline.run`` and the rates; and digifil on the flagship input with
+no DM (``freq_res == 1``, 3 blocks to a SIGPROC file) and with Coherence
+output at DM 2.64, bytes against the CPU.  Every fused phase runs with
+``torch.fft`` and ``torch.matmul`` disabled, which also catches a fused
+configuration that takes the general chain by mistake.
+
 Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
 line of standard output is ``{"ok": true, "device": {...}}``.
@@ -731,7 +741,7 @@ def search_path(card: str, kind: str = "real") -> int:
 
 def search_rates(card: str, kind: str = "real") -> None:
     """Host-fed and device-fed rates of the search pipeline (warm)."""
-    from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
+    from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.io.sigproc import SigProcWriter
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
@@ -746,23 +756,7 @@ def search_rates(card: str, kind: str = "real") -> None:
             pipe.run_writer(out, max_blocks=nblocks)
             wall = time.perf_counter() - t0
     host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
-
-    nbytes = block_bytes(pipe)
-    state = (pipe._rescale_state, pipe._mean, pipe._inv)
-
-    def block(b):
-        raw = device_noise_bytes(b * nbytes, nbytes, "cuda")
-        *_, packed = pipe._step(*state, raw, "cumulative")
-        return packed.cpu()
-
-    block(0)
-    nb = 6
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in range(1, nb + 1):
-        block(b)
-    wall = time.perf_counter() - t0
-    dev_msps = nb * pipe.stride_in_samples / wall / 1e6
+    dev_msps = search_device_fed(pipe)
     rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s
     print(f"search pipeline ({kind}) host-fed (DummySource bytes, pinned "
           f"copy, SIGPROC write): {host_msps:.1f} Msamp/s "
@@ -1975,6 +1969,278 @@ def guppi2_rates(card: str) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# the general chain (no fused kernel): xla_general, xla_sk_weights, and the
+# search configurations neither fused kernel takes
+
+
+#: bench.py:456-460 and 500-504, at the flagship's own block (bench.py cut
+#: them to 2^23 and 2^23 samples for the TPU's memory; the card needs no cut)
+GENERAL = {"xla_general": {},
+           "xla_sk_weights": dict(sk_enable=True, sk_m=1024)}
+FUSED_KERNELS = ("megastep", "megafil", "mega_ja98")
+
+
+def general_pipe(name: str, device: str = "cuda"):
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+
+    pipe = FoldPipeline(DummySource(flagship_obs()), flagship_cfg(
+        use_megakernel=False, **GENERAL[name]), device=device)
+    check(pipe.mega_mode is None, f"{name}: mega_mode {pipe.mega_mode}")
+    return pipe
+
+
+def general_fold(pipe, raw, phi0, dphi, weights=None):
+    """One block of ``pipe`` through the general chain and the fold into
+    zeroed accumulators: ``(profiles, hits, weights)``; ``weights``, when
+    given, replace the block's own fold weights."""
+    d, w, wp, _ = pipe._general_block(raw)
+    w = w if weights is None else weights.to(w.device)
+    p, h = pipe._fold_tail_d(torch.zeros_like(pipe._profiles),
+                             torch.zeros_like(pipe._hits), d, w, wp, phi0,
+                             dphi)
+    return p, h, w
+
+
+def no_fused_launches(name: str) -> None:
+    from dspsr_tpu_torch import launch_counts
+
+    counts = launch_counts()
+    check(all(counts[k] == 0 for k in FUSED_KERNELS),
+          f"{name}: fused kernels launched on the general chain: {counts}")
+
+
+def general_block(card: str, name: str) -> None:
+    """One flagship block of the general chain on the card against the same
+    chain on the CPU from the same bytes: no fused launch, profiles within
+    TOL_FLAGSHIP, hits exact.  SK masks are taken on each device from its
+    own power; a cell on the threshold can flip between the two FFTs, so
+    the cells that differ are counted, and the profiles are also compared
+    with the card's weights on both sides."""
+    from dspsr_tpu_torch import reset_launch_counts
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    pipe = general_pipe(name)
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
+    phi0, dphi = cyclic_anchors(pipe)
+    reset_launch_counts()
+    pk, hk, wk = general_fold(pipe, raw, phi0, dphi)
+    torch.cuda.synchronize()
+    no_fused_launches(name)
+    cpipe = general_pipe(name, device="cpu")
+    t0 = time.perf_counter()
+    pc, hc, wc = general_fold(cpipe, raw.cpu(), phi0.cpu(), dphi.cpu())
+    cpu_s = time.perf_counter() - t0
+    ps, hs, _ = general_fold(cpipe, raw.cpu(), phi0.cpu(), dphi.cpu(),
+                             weights=wk)
+    wdiff = int((wk.cpu() != wc).sum())
+    err, err_same = rel_err(pk.cpu(), pc), rel_err(pk.cpu(), ps)
+    hdiff = int((hk.cpu() != hc).sum())
+    fb = pipe.fb_plan
+    print(f"{name} block: general chain, nsub {fb.nchan_subband} freq_res "
+          f"{fb.freq_res} nkeep {fb.nkeep}, npart {pipe.npart}, "
+          f"{pipe.block_in_samples} samples a block ({raw.numel()} B), "
+          f"{pipe.out_per_block} outputs a channel, anchors every "
+          f"{pipe.fold_plan.seg_len}; card against CPU ({cpu_s:.2f} s): "
+          f"profiles rel err {err:.3e} (with the card's weights "
+          f"{err_same:.3e}), hit bins differing {hdiff} of {hk.numel()}, "
+          f"weights differing {wdiff} of {wk.numel()} samples; hits sum "
+          f"{float(hk.sum())}", flush=True)
+    check(bool(torch.isfinite(pk).all()), f"{name}: non-finite profiles")
+    check(err_same < TOL_FLAGSHIP and bool((hk.cpu() == hs).all()),
+          f"{name}: card against CPU with the same weights: {err_same}")
+    # without SK the weights are the same on both devices by construction
+    check(wdiff <= (pipe.sk_plan.M * 8 if pipe.sk_plan else 0),
+          f"{name}: {wdiff} weights differ")
+    if wdiff == 0:
+        check(err < TOL_FLAGSHIP and hdiff == 0,
+              f"{name}: card against CPU {err}, {hdiff} hit bins")
+    if pipe.sk_plan is None:
+        check(float(hk.sum()) == 64 * pipe.out_per_block,
+              f"{name}: hit total {float(hk.sum())}")
+
+
+def general_path(card: str, name: str) -> None:
+    """3 flagship blocks of the general chain through ``FoldPipeline.run``:
+    no fused launch, finite and not flat profiles, every output sample
+    folded (fewer with SK)."""
+    from dspsr_tpu_torch import reset_launch_counts
+
+    nblocks = 3
+    pipe = general_pipe(name)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.run(max_blocks=nblocks)
+    wall = time.perf_counter() - t0
+    no_fused_launches(name)
+    check(res.profiles.shape == (1, 64, 1, 1024),
+          f"{name} profiles shape {res.profiles.shape}")
+    check(bool(np.isfinite(res.profiles).all()), f"{name} non-finite")
+    per_chan = res.hits.sum(axis=(0, 2))
+    full = nblocks * pipe.out_per_block
+    if pipe.sk_plan is None:
+        check(bool((per_chan == full).all()), f"{name} hits {per_chan[:4]}")
+    else:
+        check(bool((per_chan > 0).all() and (per_chan <= full).all()),
+              f"{name} hits {per_chan[:4]}")
+    prof = res.normalized()[0, :, 0, :]
+    check(bool((prof.std(axis=1) > 0).all()), f"{name} flat profiles")
+    msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    print(f"{name} path: {nblocks} blocks, no fused launch; hits/chan min "
+          f"{int(per_chan.min())} max {int(per_chan.max())} of {full}; SK "
+          f"cells zapped {pipe.zapped_share()['sk']}; host-fed incl. "
+          f"first-block warm-up {msps:.1f} Msamp/s, {msps / 800:.4f} x real "
+          f"time [{card}]", flush=True)
+
+
+def general_rates(card: str, name: str) -> None:
+    """Device-fed rate of the general chain (device noise bytes, then the
+    chain and the fold, warm), the step alone with CUDA events, its largest
+    kernels by torch.profiler and its peak device memory."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    pipe = general_pipe(name)
+    nbytes = block_bytes(pipe)
+    phi0, dphi = cyclic_anchors(pipe)
+
+    def step(raw):
+        d, w, wp, _ = pipe._general_block(raw)
+        pipe._profiles, pipe._hits = pipe._fold_tail_d(
+            pipe._profiles, pipe._hits, d, w, wp, phi0, dphi)
+
+    def block(b):
+        step(device_noise_bytes(b * nbytes, nbytes, "cuda"))
+
+    block(0)
+    nb = 6
+    it = iter(range(1, nb + 1))
+    ms = cuda_ms(lambda: block(next(it)), nb)
+    raw0 = device_noise_bytes(0, nbytes, "cuda")
+    step_ms = cuda_ms(lambda: step(raw0), nb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(raw0)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
+    step_msps = pipe.stride_in_samples / (step_ms * 1e-3) / 1e6
+    print(f"{name} device-fed (device_noise_bytes, general chain + fold): "
+          f"{ms:.3f} ms a block ({pipe.stride_in_samples / 800e3:.2f} ms of "
+          f"sky), {msps:.1f} Msamp/s, {msps / 800:.3f} x real time; the step "
+          f"alone {step_ms:.3f} ms ({step_msps / 800:.3f} x real time); "
+          f"peak device memory of a step {peak_mb:.0f} MiB; real time is 800 "
+          f"Msamp/s [{card}]", flush=True)
+    kernel_breakdown(lambda: step(raw0), card, label=f" ({name})",
+                     others=True)
+
+
+def search_device_fed(pipe, nb: int = 6) -> float:
+    """Device-fed Msamp/s of a search pipeline (device noise bytes, the
+    step, rescale, digitize, bytes to host; warm, host clock)."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    nbytes = block_bytes(pipe)
+    state = (pipe._rescale_state, pipe._mean, pipe._inv)
+
+    def block(b):
+        raw = device_noise_bytes(b * nbytes, nbytes, "cuda")
+        *_, packed = pipe._step(*state, raw, "cumulative")
+        return packed.cpu()
+
+    block(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(1, nb + 1):
+        block(b)
+    wall = time.perf_counter() - t0
+    return nb * pipe.stride_in_samples / wall / 1e6
+
+
+#: digifil on the flagship input with no -D (freq_res == 1: the plain
+#: critically sampled search filterbank), and at DM 2.64 with Coherence
+#: output (-d 4); neither runs on the fused front end
+GENERAL_SEARCH = {"search_nodm": dict(dispersion_measure=0.0),
+                  "search_coherence": dict(npol_out=4)}
+
+
+def general_search(card: str) -> None:
+    """Each ``GENERAL_SEARCH`` cell: one block's bytes on the card against
+    the CPU from the same bytes (within 1 LSB, at least 99% exact) and the
+    device-fed rate; ``search_nodm`` also writes 3 blocks to a SIGPROC file
+    through ``FilPipeline.run``.  No fused launch."""
+    import dataclasses
+
+    from dspsr_tpu_torch import reset_launch_counts
+    from dspsr_tpu_torch.io.sigproc import read_sigproc_header
+    from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
+    from dspsr_tpu_torch.models.load_to_fil import FilPipeline
+
+    for name, kw in GENERAL_SEARCH.items():
+        cfg = dataclasses.replace(search_cfg(), **kw)
+        pipe, cpipe = (FilPipeline(DummySource(flagship_obs()), cfg,
+                                   device=dev) for dev in ("cuda", "cpu"))
+        check(pipe.megafil_plan is None, f"{name}: fused front end chosen")
+        o = pipe.obs_out
+        raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
+        reset_launch_counts()
+        got = pipe._step(pipe._rescale_state, pipe._mean, pipe._inv, raw,
+                         "cumulative")[-1].cpu().numpy()
+        no_fused_launches(name)
+        t0 = time.perf_counter()
+        want = cpipe._step(cpipe._rescale_state, cpipe._mean, cpipe._inv,
+                           raw.cpu(), "cumulative")[-1].numpy()
+        cpu_s = time.perf_counter() - t0
+        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        exact = float((diff == 0).mean())
+        nout = got.size // (o.nchan * o.npol)
+        print(f"{name} block: freq_res {pipe.fb_plan.freq_res}, npart "
+              f"{pipe.npart}, {pipe.block_in_samples} samples a block, "
+              f"{o.nchan} chans x {o.npol} pols x {nout} samples; card "
+              f"against CPU ({cpu_s:.2f} s): max diff {int(diff.max())} LSB, "
+              f"{exact:.6f} exact; bytes mean {float(got.mean()):.4f} std "
+              f"{float(got.std()):.4f}", flush=True)
+        check(got.size == want.size == o.nchan * o.npol * pipe.npart
+              * pipe.fb_plan.nkeep, f"{name}: block bytes {got.size}")
+        check(int(diff.max()) <= 1 and exact >= 0.99,
+              f"{name}: bytes against the CPU: {int(diff.max())}, {exact}")
+        if name == "search_nodm":
+            nblocks = 3
+            with tempfile.TemporaryDirectory() as tmp:
+                out = os.path.join(tmp, "nodm.fil")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                pipe.run(out, max_blocks=nblocks)
+                wall = time.perf_counter() - t0
+                no_fused_launches(name)
+                items, hdr = read_sigproc_header(out)
+                size = os.path.getsize(out)
+            check(size == hdr + nblocks * got.size,
+                  f"{name}: file {size} != {hdr} + {nblocks} x {got.size}")
+            check(int(items["nchans"]) == 64 and int(items["nbits"]) == 8,
+                  f"{name}: header {items}")
+            host = nblocks * pipe.stride_in_samples / wall / 1e6
+            print(f"{name} path: {nblocks} blocks to {size} B (header {hdr}),"
+                  f" nchans {items['nchans']} tsamp {items['tsamp']}, no "
+                  f"fused launch; host-fed incl. first-block warm-up "
+                  f"{host:.1f} Msamp/s, {host / 800:.4f} x real time "
+                  f"[{card}]", flush=True)
+        msps = search_device_fed(pipe)
+        step_ms = cuda_ms(lambda: pipe._step(
+            pipe._rescale_state, pipe._mean, pipe._inv, raw, "cumulative"), 6)
+        sky_ms = pipe.stride_in_samples / 800e3
+        print(f"{name} device-fed (device_noise_bytes, step, rescale, "
+              f"digitize, bytes to host): {msps:.1f} Msamp/s "
+              f"({msps / 800:.3f} x real time); the step alone (CUDA "
+              f"events, no copy to the host) {step_ms:.3f} ms a block of "
+              f"{sky_ms:.2f} ms of sky ({sky_ms / step_ms:.3f} x real time) "
+              f"[{card}]", flush=True)
+        kernel_breakdown(lambda: pipe._step(
+            pipe._rescale_state, pipe._mean, pipe._inv, raw, "cumulative"),
+            card, label=f" ({name})", others=True)
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -2045,6 +2311,12 @@ def main() -> None:
     guppi = guppi2_block(card)
     launches += guppi2_path(card)
     guppi2_rates(card)
+    # the general chain: no fused kernel, so nothing for the kernels line
+    for name in GENERAL:
+        general_block(card, name)
+        general_path(card, name)
+        general_rates(card, name)
+    general_search(card)
     flag["max_abs_err"] = max(f["max_abs_err"]
                               for f in (flag, flag_c, flag_k, guppi))
     search["max_abs_err"] = max(search["max_abs_err"],

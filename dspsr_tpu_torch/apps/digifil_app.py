@@ -2,7 +2,8 @@
 search-mode PSRFITS with ``--fits``).
 
 Counterpart of ``dspsr_tpu/apps/digifil_app.py`` (reference ``digifil``,
-``Signal/General/digifil.C``), with the same options plus ``--device``.
+``Signal/General/digifil.C``), with the same options plus ``--device`` and
+``--channelizer`` (``FilConfig.channelizer``: the polyphase filterbank).
 
     python -m dspsr_tpu_torch.apps.digifil_app -F 64 -D 2.64 -o out.fil in.dada
 """
@@ -40,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-P", "--poln-select", type=int, default=None,
                    metavar="POL", help="keep only this input polarization "
                    "(reference PolnSelect)")
+    p.add_argument("--channelizer", default="fft",
+                   choices=["fft", "polyphase"],
+                   help="FFT filterbank or (incoherent) polyphase "
+                        "filterbank")
     p.add_argument("-K", "--interchannel-align", action="store_true",
                    help="remove inter-channel dispersion delays "
                         "(SampleDelay)")
@@ -107,6 +112,7 @@ def main(argv=None) -> int:
         rescale_constant=args.constant_levels,
         rescale_seconds=args.rescale_interval,
         poln_select=args.poln_select,
+        channelizer=args.channelizer,
         interchannel_align=args.interchannel_align,
         apply_weights=not args.no_weights,
         dynamic_twobit=not (args.fixed_twobit or args.no_excision),

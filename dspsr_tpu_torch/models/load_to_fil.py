@@ -1,19 +1,25 @@
-"""Search-mode pipeline on the fused front end: load -> (unpack, filterbank
-with chirp, detect in one step) -> fscrunch -> tscrunch -> rescale ->
+"""Search-mode pipeline: load -> unpack -> [pol select] -> filterbank
+(optionally with the chirp) -> detect -> fscrunch -> tscrunch -> rescale ->
 requantize -> SIGPROC or PSRFITS search file (the ``digifil`` workflow).
 
-Counterpart of ``dspsr_tpu/models/load_to_fil.py`` for the configurations
-the JAX package runs on its fused search front end (``build_megafil``): a
-convolving filterbank (``freq_res > 1``: ``-D`` or ``-x``), Intensity, over
-1/2/4/8-bit codes with fixed levels (two's complement at 2, 4 and 8 bits)
-or float32 samples, real-sampled or complex, in TFP order (8-bit real
-input also in the CASPSR layout), with ``-K``,
-``-t``, ``-f``, ``-c``, ``-I``, ``-s`` and output nbits 1/2/4/8/32.  The
-host reads raw bytes and writes packed bytes; everything between runs on
-the device, one fused step a block.  A configuration that needs the JAX
-package's XLA chain (JA98 2-bit input among them: its excision weights
-zero detected samples there) raises ``NotImplementedError`` naming the
-ROADMAP item that will port it.
+Counterpart of ``dspsr_tpu/models/load_to_fil.py``, with its two engines,
+chosen at construction as it chooses them (``load_to_fil.py:242-265``):
+
+- the fused front end (``build_megafil``: unpack, filterbank with chirp
+  and detection in one step) for a convolving filterbank (``freq_res >
+  1``: ``-D`` or ``-x``; ``-K``) with Intensity output and no pol select, over
+  1/2/4/8-bit codes with fixed levels (two's complement at 2, 4 and 8
+  bits) or float32 samples, real-sampled or complex, in TFP order (8-bit
+  real input also in the CASPSR layout), where the geometry factors;
+- the general chain everywhere else (``megafil_plan is None``): the
+  unpack, pol select (``-P``), ``torch.fft`` filterbank (also ``freq_res
+  == 1``, digifil with no ``-D``) or polyphase channelizer, and detection
+  (``-d 1/2/4``) on ``complex64`` streams; JA98 2-bit excision weights zero
+  the stretches they flag (``apply_weights``).
+
+Both go on through ``-t``, ``-f``, ``-c``, ``-I``, ``-s`` and output nbits
+1/2/4/8/32.  The host reads raw bytes and writes packed bytes; everything
+between runs on the device.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import host_to_device, resolve_device
@@ -30,25 +37,26 @@ from ..io.sigproc import SigProcWriter
 from ..io.sources import Source, open_source
 from ..observation import Observation, Signal
 from ..ops.dedispersion import Dedispersion
-from ..ops.filterbank import FilterbankPlan, update_observation
+from ..ops.detection import detect
+from ..ops.filterbank import (
+    FilterbankPlan, filterbank_block, update_observation)
 from ..ops.response import choose_nfft
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, build_megafil, unpack_affine)
+from ..ops.polyphase import (
+    PolyphasePlan, polyphase_filterbank_block, prototype_lowpass)
 from ..ops.rescale import (
     RescaleState, accumulate, apply_scales, state_mean_scale)
 from ..ops.scrunch import (
-    fscrunch, tscrunch, update_observation_fscrunch,
+    fscrunch, poln_select, tscrunch, update_observation_fscrunch,
     update_observation_tscrunch)
-from ..unpack.unpackers import UnpackPlan
-
-_GENERAL = "ROADMAP.md Queue 1 item 8 (general chain)"
+from ..unpack.unpackers import UnpackPlan, window_weights
 
 
 @dataclass
 class FilConfig:
     """The JAX package's ``FilConfig`` (digifil's options), field for
-    field; ``FilPipeline`` raises ``NotImplementedError`` for the settings
-    that need the XLA chain."""
+    field."""
 
     nchan: int = 128  # -F
     frequency_resolution: Optional[int] = None  # -x
@@ -58,8 +66,8 @@ class FilConfig:
     npol_out: int = 1  # -d
     nbits: int = 8  # -b output bits
     twos_complement: bool = False  # input code convention (BitTable)
-    #: 2-bit JA98 dynamic levels and excision (the JAX package runs them on
-    #: its XLA chain); False: the fixed BitTable levels of the fused path
+    #: 2-bit JA98 dynamic levels and excision (on the general chain);
+    #: False: the fixed BitTable levels, which the fused front end takes
     dynamic_twobit: bool = True
     #: -I: seconds between rescale offset/scale updates; 0 = every block
     rescale_seconds: float = 0.0
@@ -70,9 +78,11 @@ class FilConfig:
     poln_select: Optional[int] = None
     #: -K: remove inter-channel dispersion delays (phase ramps in the chirp)
     interchannel_align: bool = False
-    #: zero excision-flagged stretches (the fused front end carries none)
+    #: zero excision-flagged stretches (JA98 weights; the fused front end
+    #: takes no JA98 input)
     apply_weights: bool = True
     #: channelizer: "fft" (dsp::Filterbank) or "polyphase"
+    #: (dsp::PolyPhaseFilterbank; incoherent only)
     channelizer: str = "fft"
     pfb_ntaps: int = 8
     block_parts: int = 4
@@ -120,33 +130,17 @@ def digitize(y: torch.Tensor, nbits: int, mean: float,
     return (g << shifts).sum(1).to(torch.uint8)
 
 
-def _unsupported(cfg: FilConfig) -> Optional[str]:
-    """Why ``cfg`` needs the XLA chain (None if it does not)."""
-    checks = (
-        (cfg.channelizer == "polyphase", "polyphase channelizer"),
-        (cfg.npol_out != 1, f"npol_out={cfg.npol_out}"),
-        (cfg.poln_select is not None, "poln_select"),
-    )
-    for bad, what in checks:
-        if bad:
-            return f"{what} runs on the XLA chain in the JAX package; see " \
-                + _GENERAL
-    return None
-
-
 class FilPipeline:
-    """Constructed search-mode pipeline over one Source, running the fused
-    front end on ``device`` (``"cuda"`` by default; a CPU run must be asked
-    for by name and uses the plain PyTorch front end)."""
+    """Constructed search-mode pipeline over one Source, running on
+    ``device`` (``"cuda"`` by default; a CPU run must be asked for by name
+    and uses the fused front end's plain PyTorch version).
+    ``megafil_plan`` is None on the general chain."""
 
     def __init__(self, source: Source, config: FilConfig, device="cuda"):
         self.device = resolve_device(device)
         self.source = source
         self.config = config
         self.obs_in = source.obs
-        why = _unsupported(config)
-        if why:
-            raise NotImplementedError(why)
         self._construct()
 
     def _construct(self):
@@ -154,20 +148,14 @@ class FilPipeline:
         obs = self.obs_in
         real_input = obs.state == Signal.NYQUIST
 
-        # the codes the fused front end takes (the JAX package's choice,
-        # load_to_fil.py:244-248); the rest run on its XLA chain
         self.unpack_plan = UnpackPlan(obs,
                                       twos_complement=cfg.twos_complement,
                                       dynamic_twobit=cfg.dynamic_twobit)
         up = self.unpack_plan
-        if up.twobit is not None or (up.twos_complement
-                                     and obs.nbit not in (2, 4, 8)):
-            what = ("JA98 2-bit input (its excision weights zero detected "
-                    "samples)" if up.twobit is not None
-                    else f"two's-complement {obs.nbit}-bit codes")
-            raise NotImplementedError(
-                f"{what} runs on the XLA chain in the JAX package; see "
-                + _GENERAL)
+        if cfg.poln_select is not None \
+                and not 0 <= cfg.poln_select < obs.npol:
+            raise ValueError(f"poln_select={cfg.poln_select} out of range")
+        npol_stream = 1 if cfg.poln_select is not None else obs.npol
         self.nchan_subband = max(1, cfg.nchan // obs.nchan)
         nchan_out = obs.nchan * self.nchan_subband
 
@@ -180,20 +168,28 @@ class FilPipeline:
         else:
             nfp = nfn = 0
         nfilt = nfp + nfn
-        if cfg.frequency_resolution:
-            freq_res = cfg.frequency_resolution
-        elif nfilt == 0:
-            freq_res = 1
+
+        if cfg.channelizer == "polyphase":
+            if dm > 0:
+                raise ValueError(
+                    "polyphase channelizer is incoherent; use the FFT "
+                    "filterbank for coherent dedispersion (-D)")
+            self.pfb_plan = PolyphasePlan(
+                real_input=real_input, nchan_subband=self.nchan_subband,
+                ntaps=cfg.pfb_ntaps)
+            self.fb_plan = None
         else:
-            freq_res = choose_nfft(nfilt)
-        if freq_res == 1:
-            raise NotImplementedError(
-                "freq_res == 1 (no -D and no -x) runs on the XLA chain in the "
-                "JAX package; see " + _GENERAL)
-        self.fb_plan = FilterbankPlan(
-            real_input=real_input, nchan_subband=self.nchan_subband,
-            freq_res=freq_res, nfilt_pos=nfp, nfilt_neg=nfn)
-        self.fb_plan.validate()
+            self.pfb_plan = None
+            if cfg.frequency_resolution:
+                freq_res = cfg.frequency_resolution
+            elif nfilt == 0:
+                freq_res = 1
+            else:
+                freq_res = choose_nfft(nfilt)
+            self.fb_plan = FilterbankPlan(
+                real_input=real_input, nchan_subband=self.nchan_subband,
+                freq_res=freq_res, nfilt_pos=nfp, nfilt_neg=nfn)
+            self.fb_plan.validate()
 
         if dm > 0:
             builder = (Dedispersion.build_interchannel_aligned
@@ -213,45 +209,69 @@ class FilPipeline:
                 raise ValueError("-K needs a dispersion measure")
             response = None
 
+        if cfg.poln_select is not None and cfg.npol_out != 1:
+            raise ValueError("poln_select implies npol_out=1")
         self.det_state = cfg.detection_state()
-        obs_s = update_observation(obs, self.fb_plan).replace(npol=obs.npol)
-        obs_d = obs_s.apply_detection(self.det_state)
+        if self.pfb_plan is not None:
+            obs_s = obs.replace(nchan=nchan_out, ndim=2,
+                                state=Signal.ANALYTIC,
+                                rate=obs.rate / self.pfb_plan.step)
+        else:
+            obs_s = update_observation(obs, self.fb_plan)
+        obs_d = obs_s.replace(npol=npol_stream).apply_detection(
+            self.det_state)
         obs_d = update_observation_fscrunch(obs_d, cfg.fscrunch_factor)
         obs_d = update_observation_tscrunch(obs_d, cfg.tscrunch_factor)
         self.obs_out = obs_d.replace(nbit=cfg.nbits)
         self._digi = cfg.digi_params()
 
-        # --- the fused front end, with its rounded overlap adopted ---
-        mp = MegaPlan.from_filterbank(
-            self.fb_plan, nbin=2, npol=obs.npol, npol_out=1, nbit=obs.nbit,
-            nchan_in=obs.nchan,
-            twos_complement=self.unpack_plan.twos_complement,
-            interleave=self.unpack_plan.layout)
-        if mp is None:
-            raise NotImplementedError(
-                f"filterbank geometry {self.fb_plan} does not factor for the "
-                f"fused front end; see {_GENERAL}")
-        self.megafil_plan = mp
-        self.fb_plan = FilterbankPlan(
-            real_input=mp.real_input, nchan_subband=mp.nsub,
-            freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
-            nfilt_neg=mp.nfilt_neg)
+        # --- the fused front end where the JAX package takes it, with its
+        # rounded overlap adopted; else the general chain ---
+        self.megafil_plan = None
+        if (self.pfb_plan is None
+                and (obs.nbit in (4, 8, 32)
+                     or (obs.nbit in (1, 2) and up.twobit is None))
+                and (not up.twos_complement or obs.nbit in (2, 4, 8))
+                and cfg.npol_out == 1 and cfg.poln_select is None
+                and self.fb_plan.freq_res > 1):
+            mp = MegaPlan.from_filterbank(
+                self.fb_plan, nbin=2, npol=obs.npol, npol_out=1,
+                nbit=obs.nbit, nchan_in=obs.nchan,
+                twos_complement=up.twos_complement, interleave=up.layout)
+            if mp is not None:
+                self.megafil_plan = mp
+                self.fb_plan = FilterbankPlan(
+                    real_input=mp.real_input, nchan_subband=mp.nsub,
+                    freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
+                    nfilt_neg=mp.nfilt_neg)
 
         # --- block geometry ---
-        geom = self.fb_plan
-        want = -(-cfg.min_block_samples // geom.nsamp_step)
+        if self.pfb_plan is not None:
+            geom, step = self.pfb_plan, self.pfb_plan.step
+        else:
+            geom, step = self.fb_plan, self.fb_plan.nsamp_step
+        want = -(-cfg.min_block_samples // step)
         cap = geom.npart(self.source.total_samples)
         self.npart = min(max(want, cfg.block_parts), cap) if cap > 0 \
             else cfg.block_parts
         self.block_in_samples = geom.block_ndat(self.npart)
-        self.stride_in_samples = self.npart * geom.nsamp_step
+        self.stride_in_samples = self.npart * step
 
-        scale, offset = unpack_affine(obs.nbit,
-                                      self.unpack_plan.twos_complement)
-        self.constants = MegaConstants.build(
-            mp, response, unpack_scale=scale, unpack_offset=offset
-        ).to(self.device)
-        self._megafil = build_megafil(mp, self.constants, self.npart)
+        if self.megafil_plan is not None:
+            scale, offset = unpack_affine(obs.nbit, up.twos_complement)
+            self.constants = MegaConstants.build(
+                self.megafil_plan, response, unpack_scale=scale,
+                unpack_offset=offset).to(self.device)
+            self._megafil = build_megafil(self.megafil_plan, self.constants,
+                                          self.npart)
+        else:
+            self._megafil = None
+            self._pfb_h = (torch.from_numpy(prototype_lowpass(
+                self.nchan_subband, cfg.pfb_ntaps)).to(self.device)
+                if self.pfb_plan is not None else None)
+            self._response = (torch.from_numpy(response.astype(
+                np.complex64)).to(self.device) if response is not None
+                else None)
 
         nchan, npol = self.obs_out.nchan, self.obs_out.npol
         self._rescale_state = RescaleState.zeros(nchan, npol, self.device)
@@ -262,9 +282,56 @@ class FilPipeline:
         self._blocks_done = 0
         self._since_update = 0
 
+    def _general_front(self, raw: torch.Tensor):
+        """The general chain's half of a block (JAX ``load_to_fil.py:
+        354-373``): unpack, pol select, polyphase or FFT filterbank, detect.
+        Returns the detected ``[nchan, npol_out, ndat]`` and the unpacker's
+        block weights (None unless JA98)."""
+        cfg = self.config
+        x, w = self.unpack_plan.unpack(raw)
+        if cfg.poln_select is not None:
+            x = poln_select(x, cfg.poln_select)
+        if self.pfb_plan is not None:
+            y = polyphase_filterbank_block(x, self._pfb_h, self.pfb_plan,
+                                           self.npart)
+        else:
+            y = filterbank_block(x, self.fb_plan, self.npart, self._response)
+        return detect(y, self.det_state), w
+
+    def _stream_weights(self, w, nuse: int):
+        """The unpacker's block weights on the output samples after the
+        channelizer and the scrunches (JAX ``load_to_fil.py:299-337``): a
+        window's outputs are bad when any input sample of the window was
+        (``window_weights``), and a scrunched sample when any of its
+        contributors was.
+        ``[nchan_out, nuse]``, or None without weights."""
+        if w is None or w.shape[1] == 0:
+            return None
+        cfg = self.config
+        nchan_in = w.shape[0]
+        npw = self.unpack_plan.ndat_per_weight
+        if self.pfb_plan is not None:
+            step, nfft = self.pfb_plan.step, self.pfb_plan.window_samples
+            nkeep = 1
+        else:
+            step, nfft = self.fb_plan.nsamp_step, self.fb_plan.nsamp_fft
+            nkeep = self.fb_plan.nkeep
+        wwin = window_weights(w, self.npart, step, nfft, npw)
+        ex = wwin[:, :, None].expand(nchan_in, self.npart, nkeep).reshape(
+            nchan_in, -1).repeat_interleave(self.nchan_subband, dim=0)
+        f = cfg.fscrunch_factor
+        if f > 1:
+            ex = ex.reshape(ex.shape[0] // f, f, -1).amin(dim=1)
+        t = cfg.tscrunch_factor
+        if t > 1:
+            n = (ex.shape[-1] // t) * t
+            ex = ex[:, :n].reshape(ex.shape[0], n // t, t).amin(dim=2)
+        return ex[:, :nuse]
+
     def _step(self, rescale_state, mean, inv, raw, mode="cumulative"):
-        """One block: fused front end -> scrunch -> rescale -> digitize.
-        Returns ``(rescale_state, mean, inv, packed bytes)``.
+        """One block: the fused front end or the general chain's ->
+        scrunch -> [weights] -> rescale -> digitize.  Returns
+        ``(rescale_state, mean, inv, packed bytes)``.
 
         ``mode`` selects the Rescale update (``Signal/General/Rescale.C``):
           cumulative  accumulate, then use the running stats
@@ -274,17 +341,22 @@ class FilPipeline:
                       reset the accumulator
         """
         cfg = self.config
-        d = self._megafil(raw)
+        if self._megafil is not None:
+            d, w = self._megafil(raw), None
+        else:
+            d, w = self._general_front(raw)
         d = fscrunch(d, cfg.fscrunch_factor)
         d = tscrunch(d, cfg.tscrunch_factor)
+        weights = (self._stream_weights(w, d.shape[-1])
+                   if cfg.apply_weights else None)
         if mode in ("cumulative", "acc_hold", "acc_update"):
-            rescale_state = accumulate(rescale_state, d)
+            rescale_state = accumulate(rescale_state, d, weights)
         if mode in ("cumulative", "acc_update"):
             mean, inv = state_mean_scale(rescale_state)
         if mode == "acc_update":
             rescale_state = RescaleState.zeros(*rescale_state.count.shape,
                                                device=self.device)
-        z = apply_scales(d, mean, inv)
+        z = apply_scales(d, mean, inv, weights)
         dmean, dscale = self._digi
         packed = digitize(z, cfg.nbits, dmean, dscale * cfg.scale_factor)
         return rescale_state, mean, inv, packed

@@ -1,5 +1,5 @@
-"""Fold-mode pipeline on the fused kernels: load -> (unpack, filterbank with
-chirp, detect, fold) -> archive.
+"""Fold-mode pipeline: load -> unpack -> (filterbank | convolution) ->
+detect -> fold -> archive.
 
 Counterpart of ``dspsr_tpu/models/load_to_fold.py`` for 1/2/4/8-bit codes
 (fixed levels, or JA98 dynamic 2-bit levels whose excision weights zero
@@ -9,7 +9,8 @@ apodized (``fft_window``), through a convolving
 filterbank (``nchan > nchan_in``) or, without one (``nchan_subband == 1``),
 the overlap-save convolution of each input channel (coherent
 dedispersion, optionally with polarization calibration: a Jones response
-mixed into the two pols' spectra), in the JAX package's two fused engines:
+mixed into the two pols' spectra), or no FFT stage at all, in the JAX
+package's three engines, chosen once at construction as it chooses them:
 
 - ``mega_mode == "full"``: one call of the fused fold step
   (``build_megastep``) folds the block; any detection state but NthPower,
@@ -23,10 +24,20 @@ mixed into the two pols' spectra), in the JAX package's two fused engines:
   configuration the full step cannot take goes hybrid, as in the JAX
   package (``_mega_full_eligible``): the ``nsub == 1`` convolution and
   Jones calibration always do.
+- ``mega_mode is None``: the general chain (the JAX package's
+  ``_step_core``), where the fused front end cannot go
+  (``_mega_front_eligible``: ``use_megakernel=False``, no FFT stage, JA98
+  with two's complement, a detection the fused planes cannot give) or the
+  geometry does not factor (``MegaPlan.from_filterbank`` returns None):
+  unpack, ``torch.fft`` filterbank or convolution on ``complex64``
+  streams, detection, then the hybrid engine's tail.  It launches neither
+  kernel.
 
 The host reads raw bytes and computes float64 phase anchors per block.  A
-configuration that needs an engine the port lacks raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+configuration the JAX package runs fused but the port's kernels cannot
+take (``kernels/megastep.py::check_resources``,
+``kernels/megafil.py::inverse_passes``) raises ``NotImplementedError``
+naming its ROADMAP item; it never falls back to the general chain.
 """
 
 from __future__ import annotations
@@ -49,18 +60,24 @@ from ..timing.par import Ephemeris
 from ..timing.polyco import FixedPeriodPredictor, Polyco
 
 from ..device import host_to_device, resolve_device
-from ..ops.convolution import OverlapSavePlan
+from ..ops.convolution import (
+    OverlapSavePlan, overlap_save_convolve, overlap_save_convolve_jones)
 from ..ops.cyclic import CyclicPlan, fold_lag_products, lag_planes
-from ..ops.detection import from_front_planes
-from ..ops.filterbank import FilterbankPlan, update_observation
+from ..ops.detection import detect, from_front_planes
+from ..ops.filterbank import (
+    FilterbankPlan, apply_response_chunked, forward_spectra_chunked,
+    invert_subbands, update_observation)
 from ..ops.fold import FoldPlan, choose_nbin, compute_anchors, fold_block
 from ..ops.fourth_moment import fourth_moment
 from ..ops.apodization import WindowType, build_window
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, build_megafil, build_megastep, unpack_affine)
+from ..ops.polncal import jones_fft_order
+from ..ops.response import Response
 from ..ops.rfifilter import median_filter_freq
 from ..ops.spectral_kurtosis import SKPlan, expand_mask, sk_mask
-from ..unpack.unpackers import UnpackPlan, state_counts_from_byte_counts
+from ..unpack.unpackers import (
+    UnpackPlan, state_counts_from_byte_counts, window_weights)
 
 
 @dataclass
@@ -244,7 +261,16 @@ class FoldResult:
 
 
 _JONES = "ROADMAP.md Queue 1 item 6.3 (Jones calibration)"
-_GENERAL = "ROADMAP.md Queue 1 item 8 (general chain)"
+
+#: output samples per phase-anchor segment on the general chain (the JAX
+#: package's ``FoldConfig.seg_len`` default); the fused engines anchor every
+#: window (``nkeep``)
+SEG_LEN = 2048
+
+
+def _power(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2`` elementwise (``x * x`` for a real stream)."""
+    return x.real * x.real + x.imag * x.imag if x.is_complex() else x * x
 
 
 def _min_pow2_over(n: int) -> int:
@@ -258,21 +284,18 @@ def _min_pow2_over(n: int) -> int:
 
 def _unsupported(cfg: FoldConfig) -> Optional[str]:
     """Why ``cfg`` needs an engine the port lacks (None if it does not)."""
-    checks = (
-        (not cfg.use_megakernel, "use_megakernel=False", _GENERAL),
-        (cfg.use_fft_bench, "measured FFT lengths (use_fft_bench)",
-         "ROADMAP.md Queue 1 item 11"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            return f"{what}; see {item}"
+    if cfg.use_fft_bench:
+        return ("measured FFT lengths (use_fft_bench); see ROADMAP.md "
+                "Queue 1 item 11")
     return None
 
 
 class FoldPipeline:
-    """Constructed, prepared fold pipeline over one Source, running the
-    fused kernels on ``device`` (``"cuda"`` by default; a CPU run must be
-    asked for by name and uses their plain PyTorch versions)."""
+    """Constructed, prepared fold pipeline over one Source, running on
+    ``device`` (``"cuda"`` by default; a CPU run must be asked for by name
+    and uses the fused kernels' plain PyTorch versions).  ``mega_mode``
+    names the engine: ``"full"``, ``"hybrid"`` or None (the general
+    chain)."""
 
     def __init__(self, source: Source, config: FoldConfig,
                  device="cuda"):
@@ -389,21 +412,13 @@ class FoldPipeline:
             dm = obs.dispersion_measure
         self.dm = float(dm or 0.0)
 
-        # --- unpacker; the codes the fused path cannot take go to the
-        # JAX package's general chain (_mega_front_eligible there) ---
+        # --- unpacker ---
         self.unpack_plan = UnpackPlan(
             obs, twos_complement=cfg.twos_complement,
             dynamic_twobit=cfg.dynamic_twobit,
             ndat_per_weight=cfg.ndat_per_weight,
             cutoff_sigma=cfg.cutoff_sigma)
         up = self.unpack_plan
-        if up.twos_complement and (obs.nbit not in (2, 4, 8)
-                                   or up.twobit is not None):
-            raise NotImplementedError(
-                f"two's-complement {obs.nbit}-bit codes"
-                f"{' with JA98 levels' if up.twobit is not None else ''} "
-                f"run on the general chain in the JAX package; see "
-                f"{_GENERAL}")
 
         # --- convolving filterbank geometry (Filterbank.C:55-263), or the
         # nsub == 1 overlap-save convolution (Convolution.C:105-221) ---
@@ -411,11 +426,6 @@ class FoldPipeline:
         self.nchan_subband = max(1, cfg.nchan // obs.nchan) if cfg.nchan \
             else 1
         coherent = cfg.coherent and self.dm > 0
-        if self.nchan_subband == 1 and not (coherent
-                                            or cfg.calibration_path):
-            raise NotImplementedError(
-                "no FFT stage (nchan_subband == 1 without coherent "
-                f"dedispersion or calibration); see {_GENERAL}")
         nchan_out = obs.nchan * self.nchan_subband
         if coherent:
             nfp = Dedispersion._half_smearing_samples(
@@ -499,9 +509,9 @@ class FoldPipeline:
         # --- polarization calibration (PolnCalibration.C; the matrix
         # convolution of Convolution.C:425-436; JAX load_to_fold.py:573-607)
         self.jones = None
+        self._jones_resp = None
         if cfg.calibration_path:
             from ..ops.polncal import PolnCalibration, jones_product
-            from ..ops.response import Response
 
             if self.fb_plan is not None:
                 raise NotImplementedError(
@@ -524,13 +534,19 @@ class FoldPipeline:
                                self.kernel.impulse_neg)
                       if self.kernel is not None else None)
             # natural order [nchan, n_fft, 2, 2], the chirp multiplied in
-            self.jones = jones_product(
-                scalar, cal.match(obs, nchan_out, self.conv_plan.n_fft)
-            ).phasors
+            self._jones_resp = jones_product(
+                scalar, cal.match(obs, nchan_out, self.conv_plan.n_fft))
+            self.jones = self._jones_resp.phasors
 
         # --- cyclic fold (CyclicFold.C; folds lag products, not power) ---
         self.cyclic_plan = (CyclicPlan(cfg.cyclic_nchan, cfg.cyclic_mover)
                             if cfg.cyclic_nchan else None)
+        if self.cyclic_plan is not None \
+                and self.obs_stream.state == Signal.NYQUIST:
+            # the JAX package fails on its first block here: its lag
+            # products unpack the stream as a split-complex pair
+            raise ValueError("cyclic folding needs complex voltages: add "
+                             "an FFT stage (-F or a DM) for real input")
 
         # --- detection ---
         self.det_state = cfg.detection_state()
@@ -566,70 +582,85 @@ class FoldPipeline:
         if self._presk_index is not None:
             self.source_dms.append(None)
 
-        # --- the fused plan, with its rounded overlap adopted; nsub == 1
-        # runs as a one-subband geometry (JAX load_to_fold.py:678-685) ---
-        det_np, det_tag = self._mega_detection()
-        if not ((det_np == 1 or obs.npol == 2)
-                and (self.det_state not in (Signal.PP, Signal.QQ)
-                     or obs.npol == 2)):
+        # --- the engine (JAX load_to_fold.py:659-719): the fused plan, with
+        # its rounded overlap adopted (nsub == 1 runs as a one-subband
+        # geometry), or the general chain ---
+        self.mega_plan = None
+        self.mega_mode = None
+        if self._mega_front_eligible():
+            det_np, det_tag = self._mega_detection()
+            geom = self.fb_plan or FilterbankPlan(
+                real_input=real_input, nchan_subband=1,
+                freq_res=self.conv_plan.n_fft,
+                nfilt_pos=self.conv_plan.nfilt_pos,
+                nfilt_neg=self.conv_plan.nfilt_neg)
+            mp = MegaPlan.from_filterbank(
+                geom, self.nbin, obs.npol, det_np, obs.nbit,
+                nchan_in=obs.nchan,
+                # JA98 dynamic levels only; fixed-level 2-bit is affine
+                ndat_per_weight=(cfg.ndat_per_weight
+                                 if up.twobit is not None else 0),
+                detection=det_tag, fourth_moment=cfg.fourth_moment,
+                twos_complement=up.twos_complement, interleave=up.layout)
+            if mp is not None:
+                self.mega_plan = mp
+                self.mega_mode = ("full" if self._mega_full_eligible()
+                                  else "hybrid")
+                if self.fb_plan is not None:
+                    self.fb_plan = FilterbankPlan(
+                        real_input=mp.real_input, nchan_subband=mp.nsub,
+                        freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
+                        nfilt_neg=mp.nfilt_neg)
+                else:
+                    self.conv_plan = OverlapSavePlan(
+                        mp.real_input, mp.n_fft, mp.nfilt_pos, mp.nfilt_neg)
+        if cfg.rfi_filter and self.fb_plan is None \
+                and self.mega_mode != "hybrid":
+            # the general chain zaps the filterbank's chunked spectra; with
+            # no filterbank it has nothing to zap, and the JAX package
+            # refuses rather than run unfiltered
             raise NotImplementedError(
-                f"{self.det_state.value} detection of npol={obs.npol} input "
-                f"is not on the fused path; see {_GENERAL}")
-        geom = self.fb_plan or FilterbankPlan(
-            real_input=real_input, nchan_subband=1,
-            freq_res=self.conv_plan.n_fft,
-            nfilt_pos=self.conv_plan.nfilt_pos,
-            nfilt_neg=self.conv_plan.nfilt_neg)
-        mp = MegaPlan.from_filterbank(
-            geom, self.nbin, obs.npol, det_np, obs.nbit,
-            nchan_in=obs.nchan,
-            # JA98 dynamic levels only; fixed-level 2-bit is affine
-            ndat_per_weight=(cfg.ndat_per_weight if up.twobit is not None
-                             else 0),
-            detection=det_tag, fourth_moment=cfg.fourth_moment,
-            twos_complement=up.twos_complement, interleave=up.layout)
-        if mp is None:
-            raise NotImplementedError(
-                f"filterbank geometry {geom} does not factor for the "
-                f"fused step; see {_GENERAL}")
-        self.mega_plan = mp
-        self.mega_mode = "full" if self._mega_full_eligible() else "hybrid"
-        if self.fb_plan is not None:
-            self.fb_plan = FilterbankPlan(
-                real_input=mp.real_input, nchan_subband=mp.nsub,
-                freq_res=mp.freq_res, nfilt_pos=mp.nfilt_pos,
-                nfilt_neg=mp.nfilt_neg)
-        else:
-            self.conv_plan = OverlapSavePlan(mp.real_input, mp.n_fft,
-                                             mp.nfilt_pos, mp.nfilt_neg)
+                "the RFI filter without a filterbank stage needs the fused "
+                "hybrid engine, which this configuration cannot take; add "
+                "channelization (-F)")
 
         # --- block geometry ---
         self._plan_blocks()
 
         # one phase anchor per overlap-save window of nkeep output samples
+        # on the fused engines, per SEG_LEN samples on the general chain
         # (halved while longer than the block, which the cyclic lags
         # shorten)
-        seg = mp.nkeep
+        seg = self.mega_plan.nkeep if self.mega_plan is not None else SEG_LEN
         while seg > 1 and seg > self.out_per_block:
             seg //= 2
         self.fold_plan = FoldPlan(self.nbin, seg)
         self.fold_plans = [FoldPlan(nb, seg) for nb in self.nbins]
-        if mp.npw:
-            scale, offset = 1.0, 0.0  # JA98 dynamic levels in the kernel
-        else:
-            scale, offset = unpack_affine(obs.nbit, up.twos_complement)
         resp = self.kernel.phasors if self.kernel is not None else None
         # the apodization taper of each window (Convolution.C:379-387)
-        win = (build_window(WindowType(cfg.fft_window), mp.nsamp_fft)
-               if cfg.fft_window else None)
-        unpack = dict(unpack_scale=scale, unpack_offset=offset,
-                      twobit=up.twobit, window=win)
-        if self.mega_mode == "full":
-            self.constants = MegaConstants.build(mp, resp, **unpack).to(
-                self.device)
-            self._megastep = build_megastep(mp, self.constants, self.npart)
+        win = None
+        if cfg.fft_window:
+            plan = self.fb_plan or self.conv_plan
+            if plan is None:
+                raise ValueError("fft_window needs an FFT stage")
+            win = build_window(WindowType(cfg.fft_window), plan.nsamp_fft)
+        if self.mega_mode is None:
+            self._build_general(win)
         else:
-            self._build_hybrid(resp, unpack)
+            mp = self.mega_plan
+            if mp.npw:
+                scale, offset = 1.0, 0.0  # JA98 dynamic levels in the kernel
+            else:
+                scale, offset = unpack_affine(obs.nbit, up.twos_complement)
+            unpack = dict(unpack_scale=scale, unpack_offset=offset,
+                          twobit=up.twobit, window=win)
+            if self.mega_mode == "full":
+                self.constants = MegaConstants.build(mp, resp, **unpack).to(
+                    self.device)
+                self._megastep = build_megastep(mp, self.constants,
+                                                self.npart)
+            else:
+                self._build_hybrid(resp, unpack)
 
         # --- accumulators ---
         if self.mega_mode == "full":
@@ -672,6 +703,26 @@ class FoldPipeline:
         tag = {Signal.PP: "pp", Signal.QQ: "qq",
                Signal.COHERENCE: "coherence"}.get(self.det_state, "auto")
         return np_map[self.det_state], tag
+
+    def _mega_front_eligible(self) -> bool:
+        """Can the fused front end take this configuration at all
+        (``load_to_fold.py:1083-1125`` of the JAX package, without its
+        environment switch and its TPU-only row-length gate)?  An FFT
+        stage, two's complement only at 2/4/8 bits and never with JA98
+        levels (whose tables index offset-binary codes), and a detection
+        the fused planes give from the input's pols."""
+        cfg = self.config
+        obs = self.obs_in
+        up = self.unpack_plan
+        det_np, _ = self._mega_detection()
+        return (cfg.use_megakernel
+                and (self.fb_plan is not None or self.conv_plan is not None)
+                and obs.state in (Signal.NYQUIST, Signal.ANALYTIC)
+                and (not up.twos_complement or obs.nbit in (2, 4, 8))
+                and not (up.twos_complement and up.twobit is not None)
+                and (det_np == 1 or obs.npol == 2)
+                and (self.det_state not in (Signal.PP, Signal.QQ)
+                     or obs.npol == 2))
 
     def _mega_full_eligible(self) -> bool:
         """Can the fused fold step take the whole block
@@ -767,17 +818,9 @@ class FoldPipeline:
                 for k, v in self._zap.items()}
 
     def _hybrid_block(self, raw: torch.Tensor):
-        """One block through the front end and the per-block half of the
-        tail: ``(d, weights, w_presk, extras)``.
-
-        ``d [nchan_out, npol_out, ndat_out]`` is the target state (with the
-        fourth moments) or, when folding cyclically, the complex voltage
-        ``[nchan_out, npol, ndat_out + nlag - 1]`` whose lag products the
-        fold builds (``_fold``); ``weights [nchan_out, ndat_out]`` are the
-        fold weights after the SK mask, ``w_presk`` those before it
-        (``-noskz_too``), ``extras`` the dump, passband and pdmp moments of
-        the block.  Advances the carried RFI response."""
-        cfg = self.config
+        """One block through the fused front end and the per-block half of
+        the tail (:meth:`_block_tail`): ``(d, weights, w_presk, extras)``.
+        Advances the carried RFI response."""
         p = self.front_plan
         if self._rfi_2pass:
             # measure the block's passband with the bare chirp, then zap
@@ -798,18 +841,109 @@ class FoldPipeline:
         weights = wwin.repeat_interleave(p.nsub, dim=0)[:, :, None].expand(
             nchan_out, self.npart, p.nkeep).reshape(nchan_out, -1)[
                 :, :ndat_out]
-        # the voltage's lag products are built as the fold runs (_fold)
-        d = (data if self.cyclic_plan is not None
-             else from_front_planes(data, self.det_state, p.npol_out))
+        if self.cyclic_plan is not None:
+            # the voltage, whose lag products the fold builds (_fold)
+            d = data
+            power = _power(data) if self.sk_plan is not None else None
+        else:
+            d = from_front_planes(data, self.det_state, p.npol_out)
+            power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
+        return self._block_tail(d, power, weights, pb)
+
+    def _build_general(self, win) -> None:
+        """The general chain's constants on the device: the apodization
+        taper ``win`` (or None) and the response, complex64 — the chirp in
+        natural order for the filterbank, in FFT bin order (the Jones
+        response as its four terms) for the convolution."""
+        dev = self.device
+        self._apod = (torch.from_numpy(win).to(dev) if win is not None
+                      else None)
+        complex_input = self.obs_in.state != Signal.NYQUIST
+        resp = None
+        if self.jones is not None:
+            resp = tuple(t.to(dev) for t in jones_fft_order(
+                self._jones_resp, complex_input=complex_input))
+        elif self.kernel is not None:
+            ph = self.kernel.phasors
+            if self.conv_plan is not None:
+                ph = Response(ph).fft_order(complex_input=complex_input)
+            resp = torch.from_numpy(
+                np.ascontiguousarray(ph, dtype=np.complex64)).to(dev)
+        self._resp = resp
+
+    def _general_block(self, raw: torch.Tensor):
+        """One block through the general chain (the JAX package's
+        ``_step_core``, unsharded) and the per-block half of the tail:
+        ``(d, weights, w_presk, extras)``.  The passband is read from the
+        forward spectra, the RFI filter zaps each block with its own
+        bandpass, and SK power and cyclic lag products come from the
+        voltage ``y``."""
+        cfg = self.config
+        x, w = self.unpack_plan.unpack(raw)
+        pb = None
+        if self.fb_plan is not None:
+            spec = forward_spectra_chunked(x, self.fb_plan, self.npart,
+                                           self._apod)
+            if cfg.passband:
+                pb = _power(spec).sum(2)
+            rfi = ((cfg.rfi_median_width, cfg.rfi_threshold)
+                   if cfg.rfi_filter else None)
+            spec = apply_response_chunked(
+                spec, self._resp, rfi_zap=rfi,
+                nchan_sub_present=self.fb_plan.nchan_subband)
+            y = invert_subbands(spec, self.fb_plan)
+        elif self.conv_plan is not None:
+            conv = (overlap_save_convolve_jones if self.jones is not None
+                    else overlap_save_convolve)
+            y = conv(x, self._resp, self.conv_plan, self.npart, self._apod)
+        else:
+            y = x
+        ndat = y.shape[-1]
+        if self.cyclic_plan is not None:
+            ndat -= self.cyclic_plan.nlag - 1
+        weights = self._stream_weights(w, ndat)
+        d = y if self.cyclic_plan is not None else detect(y, self.det_state)
+        power = _power(y) if self.sk_plan is not None else None
+        return self._block_tail(d, power, weights, pb)
+
+    def _stream_weights(self, w, nuse: int) -> torch.Tensor:
+        """The unpacker's block weights on the output samples, ``[nchan_out,
+        nuse]`` (JAX ``load_to_fold.py:1513-1563``): an output sample is bad
+        when any input sample of the FFT window that made it was
+        (``window_weights``).  Ones without weights (or with a block
+        shorter than one weight span)."""
+        nchan = self.obs_out.nchan
+        if w is None or w.shape[1] == 0:
+            return torch.ones((nchan, nuse), dtype=torch.float32,
+                              device=self.device)
+        nchan_in, nweights = w.shape
+        npw = self.config.ndat_per_weight
+        plan = self.fb_plan or self.conv_plan
+        if plan is not None:
+            nkeep = plan.nkeep if self.fb_plan is not None else plan.nkeep_c
+            wwin = window_weights(w, self.npart, plan.nsamp_step,
+                                  plan.nsamp_fft, npw)
+            expanded = wwin[:, :, None].expand(
+                nchan_in, self.npart, nkeep).reshape(nchan_in, -1)
+        else:
+            # no FFT stage: output sample j is input sample j
+            expanded = w[:, :, None].expand(nchan_in, nweights,
+                                            npw).reshape(nchan_in, -1)
+        return expanded[:, :nuse].repeat_interleave(nchan // nchan_in, dim=0)
+
+    def _block_tail(self, d, power, weights, pb):
+        """The per-block half of the tail both non-full engines share:
+        fourth moments of the detected ``d``, the SK mask from the per-pol
+        ``power`` (over the block's ``weights.shape[1]`` output samples),
+        and the dump, passband (``pb``) and pdmp extras.  Returns ``(d,
+        weights, w_presk, extras)``: ``weights`` after the SK mask,
+        ``w_presk`` those before it (``-noskz_too``)."""
+        cfg = self.config
+        nchan_out, ndat_out = weights.shape
         if cfg.fourth_moment:
             d = fourth_moment(d)
         w_presk = weights if self._presk_index is not None else None
         if self.sk_plan is not None:
-            # per-pol power; from the voltage, over the whole block
-            if self.cyclic_plan is not None:
-                power = data.real * data.real + data.imag * data.imag
-            else:
-                power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
             M = self.sk_plan.M
             skm = sk_mask(power, self.sk_plan, ndat_out // M)
             self._count_zap("sk", skm)
@@ -937,26 +1071,37 @@ class FoldPipeline:
     def _plan_blocks(self):
         cfg = self.config
         p = self.fb_plan or self.conv_plan
-        self.nsamp_step = p.nsamp_step
-        # grow blocks toward min_block_samples, but never beyond the source
-        # nor beyond a subint (so -L granularity holds at block level)
-        want = -(-cfg.min_block_samples // p.nsamp_step)
-        avail = self.source.total_samples
-        if cfg.seek_seconds > 0 and self.obs_in.rate > 0:
-            avail = max(avail - int(cfg.seek_seconds * self.obs_in.rate),
-                        p.block_ndat(1))
-        cap = p.npart(avail)
-        if cfg.subint_seconds > 0 and self.obs_in.rate > 0:
-            sub_samps = int(cfg.subint_seconds * self.obs_in.rate)
-            cap = min(cap, max(p.npart(sub_samps), 1))
-        if cfg.subint_turns > 0 and self.obs_in.rate > 0:
-            period = self.predictor.period(self.obs_in.start_time)
-            sub_samps = int(cfg.subint_turns * period * self.obs_in.rate)
-            cap = min(cap, max(p.npart(sub_samps), 1))
-        self.npart = min(max(want, cfg.block_parts), cap) if cap > 0 \
-            else cfg.block_parts
-        self.block_in_samples = p.block_ndat(self.npart)
-        self.out_per_block = self.npart * self.mega_plan.nkeep
+        if p is None:
+            # no FFT stage (JAX load_to_fold.py:1244-1253): one block of
+            # the sample budget (and the source), whole 4096s
+            block = min(cfg.min_block_samples, self.source.total_samples)
+            block = max((block // 4096) * 4096, 4096)
+            self.nsamp_step = self.block_in_samples = block
+            self.npart = 1
+            self.out_per_block = block
+        else:
+            self.nsamp_step = p.nsamp_step
+            # grow blocks toward min_block_samples, but never beyond the
+            # source nor beyond a subint (so -L granularity holds at block
+            # level)
+            want = -(-cfg.min_block_samples // p.nsamp_step)
+            avail = self.source.total_samples
+            if cfg.seek_seconds > 0 and self.obs_in.rate > 0:
+                avail = max(avail - int(cfg.seek_seconds * self.obs_in.rate),
+                            p.block_ndat(1))
+            cap = p.npart(avail)
+            if cfg.subint_seconds > 0 and self.obs_in.rate > 0:
+                sub_samps = int(cfg.subint_seconds * self.obs_in.rate)
+                cap = min(cap, max(p.npart(sub_samps), 1))
+            if cfg.subint_turns > 0 and self.obs_in.rate > 0:
+                period = self.predictor.period(self.obs_in.start_time)
+                sub_samps = int(cfg.subint_turns * period * self.obs_in.rate)
+                cap = min(cap, max(p.npart(sub_samps), 1))
+            self.npart = min(max(want, cfg.block_parts), cap) if cap > 0 \
+                else cfg.block_parts
+            self.block_in_samples = p.block_ndat(self.npart)
+            nkeep = p.nkeep if self.fb_plan is not None else p.nkeep_c
+            self.out_per_block = self.npart * nkeep
         if self.cyclic_plan is not None:
             # the lag products consume nlag - 1 samples of each block
             self.out_per_block -= self.cyclic_plan.nlag - 1
@@ -971,7 +1116,8 @@ class FoldPipeline:
         return t0 + self.fold_plan_offset_seconds()
 
     def fold_plan_offset_seconds(self) -> float:
-        return self.mega_plan.nfilt_pos / self.obs_out.rate
+        p = self.fb_plan or self.conv_plan
+        return (p.nfilt_pos if p is not None else 0) / self.obs_out.rate
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array to the pipeline's device (through pinned memory on
@@ -981,7 +1127,7 @@ class FoldPipeline:
     def run(self, max_blocks: Optional[int] = None,
             total_seconds: Optional[float] = None,
             seek_seconds: Optional[float] = None) -> FoldResult:
-        """Stream all blocks through the fused engine; returns the result.
+        """Stream all blocks through the engine; returns the result.
 
         total_seconds limits input consumed (reference -T); seek_seconds
         skips that much input first (reference -S).
@@ -1065,6 +1211,9 @@ class FoldPipeline:
                             self._front(raw_t, *self._rfi_resp)[-1])
                         self._rfi_primed = True
                     blk = self._hybrid_block(raw_t)
+                elif self.mega_mode is None:
+                    blk = self._general_block(raw_t)
+                if self.mega_mode != "full":
                     self._take_extras(blk[3])
                 for (lo, hi, dv) in segs:
                     if dv < 0:

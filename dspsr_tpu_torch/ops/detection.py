@@ -11,10 +11,11 @@ Counterpart of ``dspsr_tpu/ops/detection.py`` (reference ``dsp::Detection``,
 - Coherence:  PP, QQ, Re[p* q], Im[p* q]
 - Stokes:     I=PP+QQ, Q=PP-QQ, U=2 Re[p* q], V=2 Im[p* q]
 
-Input is a split-complex pair ``(re, im)`` of ``[nchan, npol, ndat]`` tensors
-or one real tensor (undetected Nyquist data detects as v^2); output is
-``[nchan, npol_out, ndat]``.  Plain PyTorch elementwise arithmetic in the
-reference's order.
+Input is a complex64 ``[nchan, npol, ndat]`` tensor (the general chain's
+voltage), a split-complex pair ``(re, im)`` of such real tensors, or one
+real tensor (undetected Nyquist data detects as v^2); output is ``[nchan,
+npol_out, ndat]``.  Plain PyTorch elementwise arithmetic in the reference's
+order.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from ..observation import Signal
 def _split(x):
     if isinstance(x, tuple):
         return x
+    if x.is_complex():
+        return x.real, x.imag
     return x, torch.zeros_like(x)
 
 

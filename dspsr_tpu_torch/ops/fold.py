@@ -4,8 +4,12 @@ block.
 Counterpart of ``dspsr_tpu/ops/fold.py``.  The predictor is evaluated on the
 host in float64 at the start of each phase-anchor segment (one overlap-save
 window on the fused paths); the device adds ``i * dphi`` in float32 within
-the segment, one operation per rounding as the reference does, so the
-anchors and the phase bins are identical to the reference's.
+the segment.  The fused fold step rounds the product and the sum apart, as
+the JAX package's kernel does (:func:`compute_bins`); the fold of a
+detected block (the hybrid and general engines' tail) rounds ``phi0 + i *
+dphi`` once, as XLA compiles the JAX package's ``fold_block``, a fused
+multiply-add (:func:`fold_bins_for`).  So the anchors and the phase bins
+are identical to the reference's on each path.
 
 ``fold_block`` (the hybrid engine's fold) is the reference's one-hot matmul
 written as ``index_add_`` over the bins: the one-hot operand would be
@@ -73,12 +77,18 @@ def compute_bins(phi0: torch.Tensor, dphi: torch.Tensor, seg_len: int,
 def fold_bins_for(phi0: torch.Tensor, dphi: torch.Tensor, plan: FoldPlan,
                   ndat: int) -> Tuple[torch.Tensor, int]:
     """``(bins, n)``: the phase bins of the first ``n = min(ndat, nseg *
-    seg_len)`` samples.  Anchors that cover a trailing partial segment
-    (``nseg = ceil(ndat / seg_len)``, the JAX package's ``nuse_pad``) fold
-    every sample, as its zero-weight padding does; fewer anchors drop the
-    samples past their last segment."""
+    seg_len)`` samples, with ``phi0 + i * dphi`` rounded once to float32
+    (a fused multiply-add: the float64 product of two float32 values is
+    exact, so only the sum rounds before the cast).  Anchors that cover a
+    trailing partial segment (``nseg = ceil(ndat / seg_len)``, the JAX
+    package's ``nuse_pad``) fold every sample, as its zero-weight padding
+    does; fewer anchors drop the samples past their last segment."""
     n = min(ndat, phi0.shape[-1] * plan.seg_len)
-    return compute_bins(phi0, dphi, plan.seg_len, plan.nbin)[:n], n
+    i = torch.arange(plan.seg_len, dtype=torch.float64, device=phi0.device)
+    phase = (phi0.double()[:, None] + dphi.double()[:, None] * i).float()
+    frac = phase - torch.floor(phase)
+    bins = torch.floor(frac * float(plan.nbin)).long()
+    return bins.clamp_(0, plan.nbin - 1).reshape(-1)[:n], n
 
 
 def fold_block(profiles: torch.Tensor, hits: torch.Tensor, x: torch.Tensor,

@@ -1,14 +1,15 @@
 """Polarization calibration: Jones-matrix frequency responses.
 
-The port's copy of ``dspsr_tpu/ops/polncal.py`` (without
-``jones_fft_order``, which serves the JAX package's XLA chain only).
-Equivalent of ``dsp::PolnCalibration``
+The port's copy of ``dspsr_tpu/ops/polncal.py``; ``jones_fft_order`` returns
+torch ``complex64`` tensors where the JAX package returns split-complex
+pairs.  Equivalent of ``dsp::PolnCalibration``
 (``Signal/General/PolnCalibration.C``): load a calibrator solution, match it
 onto the observation's channelization, and emit a Jones Response whose
 *inverse* is convolved into the voltage stream (matrix convolution,
 ``Convolution.C:425-436``), calibrating the instrumental response during
 coherent dedispersion: the fused front end mixes the two input pols'
-spectra with it (``ops.megakernel``).
+spectra with it (``ops.megakernel``), the general chain through
+``ops.convolution.overlap_save_convolve_jones``.
 
 The reference obtains solutions from a PSRCHIVE ``pac`` database of
 calibrator archives.  Without PSRCHIVE we define an equivalent open format:
@@ -29,6 +30,7 @@ import os
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..observation import Observation
 from .response import Response
@@ -137,3 +139,13 @@ def jones_product(scalar: Response | None, jones: Response) -> Response:
         impulse_pos=max(scalar.impulse_pos, jones.impulse_pos),
         impulse_neg=max(scalar.impulse_neg, jones.impulse_neg),
     )
+
+
+def jones_fft_order(resp: Response, complex_input: bool):
+    """The Jones response as the four complex64 ``[nchan, ndat]`` tensors
+    ``(J00, J01, J10, J11)`` that ``overlap_save_convolve_jones`` takes, in
+    the data's FFT bin order."""
+    ph = resp.fft_order(complex_input)  # [nchan, ndat, 2, 2]
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        ph[:, :, a, b]).astype(np.complex64)) for a in range(2)
+        for b in range(2))

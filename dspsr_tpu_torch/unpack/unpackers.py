@@ -1,15 +1,20 @@
-"""Unpack description (host side) and the plain unpack of the fused steps.
+"""Unpack description (host side), the plain unpack of the fused steps and
+the general chain's unpack.
 
 Counterpart of ``dspsr_tpu/unpack/unpackers.py``.  The fused kernels unpack
 in their first pass, so here live the plan (which byte layout, code width
-and level map a stream has) and the plain PyTorch versions of what the
-kernels compute: the CASPSR reorder, the n-bit field extraction
-(``bytes_to_codes``) and the Jenet & Anderson (1998) dynamic 2-bit levels
-with their excision weights (``twobit_nlow``, ``twobit_levels``,
-``unpack_twobit_dynamic``).  Codes are 1, 2, 4 or 8 bits (offset binary, or
-two's complement at 2, 4 and 8 bits) or float32, real-sampled or complex
-(analytic), in TFP order; 8-bit real single-channel input may come in the
-CASPSR layout.
+and level map a stream has), the plain PyTorch versions of what the
+kernels compute (the CASPSR reorder, the n-bit field extraction
+``bytes_to_codes`` and the Jenet & Anderson (1998) dynamic 2-bit levels
+with their excision weights: ``twobit_nlow``, ``twobit_levels``,
+``unpack_twobit_dynamic``) and the general chain's unpack of a block into
+FPT samples (``UnpackPlan.unpack``; complex input as torch ``complex64``).
+Codes are 1, 2, 4 or 8 bits (offset binary, or two's complement) or
+float32, real-sampled or complex (analytic), in TFP order; 8-bit real
+single-channel input may come in the CASPSR layout.  As in the JAX
+package, JA98 levels read every code as offset binary: its unpack never
+passes ``twos_complement`` on (``unpack_twobit_dynamic``'s sign is ``code
+>= 2``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ..observation import Observation
+from .bittable import BitTable, CodeType
 from .twobit import TwoBitCorrection
 
 #: Instrument-specific unpack options (reference ``Unpacker_registry.C``,
@@ -74,6 +80,50 @@ def bytes_to_codes(raw: torch.Tensor, nbit: int) -> torch.Tensor:
             ).reshape(-1)
 
 
+def tfp_to_fpt(samples: torch.Tensor, nchan: int, npol: int,
+               ndim: int) -> torch.Tensor:
+    """Flat TFP samples (time, channel, pol, dim) -> FPT ``[nchan, npol,
+    ndat]``, complex64 when ``ndim == 2``."""
+    x = samples.reshape(-1, nchan, npol, ndim).permute(1, 2, 0, 3)
+    if ndim == 2:
+        return torch.view_as_complex(x.contiguous())
+    return x[..., 0]
+
+
+def _uniform_levels(codes: torch.Tensor, nbit: int,
+                    twos_complement: bool) -> torch.Tensor:
+    """The BitTable uniform level map (``BitTable.C:165-218``): ascending
+    level index ``i`` -> ``i * step + lo``, the step taken over the full
+    range; two's-complement codes wrap the index.  The JAX package computes
+    it in float32 inside one compiled program, where XLA fuses the multiply
+    and the add (one rounding); the table below is rounded the same way."""
+    n = 1 << nbit
+    table = BitTable(nbit, CodeType.TWOS_COMPLEMENT if twos_complement
+                     else CodeType.OFFSET_BINARY)
+    asc = np.sort(table.values.astype(np.float64))
+    step = np.float32((asc[-1] - asc[0]) / (n - 1)) if n > 1 else 2.0
+    idx = np.arange(n)
+    if twos_complement:
+        idx = np.where(idx >= n // 2, idx - n // 2, idx + n // 2)
+    levels = (idx * np.float64(step) + np.float64(np.float32(asc[0]))
+              ).astype(np.float32)
+    return torch.from_numpy(levels).to(codes.device)[codes.long()]
+
+
+def unpack_fixed(raw: torch.Tensor, nbit: int, nchan: int, npol: int,
+                 ndim: int, twos_complement: bool = False) -> torch.Tensor:
+    """Fixed-level unpack of TFP bytes (reference ``BitUnpacker::unpack``):
+    FPT float32 ``[nchan, npol, ndat]``, complex64 when ``ndim == 2``."""
+    vals = _uniform_levels(bytes_to_codes(raw, nbit), nbit, twos_complement)
+    return tfp_to_fpt(vals, nchan, npol, ndim)
+
+
+def unpack_float32(raw: torch.Tensor, nchan: int = 1, npol: int = 1,
+                   ndim: int = 1) -> torch.Tensor:
+    """Float32 TFP samples as bytes -> FPT (reference ``FloatUnpacker``)."""
+    return tfp_to_fpt(raw.view(torch.float32), nchan, npol, ndim)
+
+
 def twobit_nlow(codes: torch.Tensor, npw: int) -> torch.Tensor:
     """Low-state counts (codes 1 and 2) of each ``npw``-sample block along
     the last axis of 2-bit ``codes [..., T]``: int64 ``[..., T // npw]``."""
@@ -119,6 +169,23 @@ def unpack_twobit_dynamic(raw: torch.Tensor, lo_table: torch.Tensor,
     return xc, w
 
 
+def window_weights(w: torch.Tensor, npart: int, step: int, nfft: int,
+                   npw: int) -> torch.Tensor:
+    """Each FFT window's weight ``[nchan, npart]`` from the unpacker's block
+    weights ``w [nchan, nweights]`` (``WeightedTimeSeries::
+    convolve_weights``; the JAX package's ``_stream_weights``): the least
+    weight of the ``npw``-sample blocks that window ``p``'s ``nfft`` samples
+    from ``p * step`` on touch, and a window whose end passes the last
+    whole block takes that block's weight.  One gather on the device."""
+    nweights = w.shape[1]
+    start = np.arange(npart) * step
+    a = np.minimum(start // npw, nweights - 1)
+    b = np.maximum(np.minimum((start + nfft + npw - 1) // npw, nweights),
+                   a + 1)
+    idx = np.minimum(a[:, None] + np.arange((b - a).max()), b[:, None] - 1)
+    return w[:, torch.from_numpy(idx).to(w.device)].amin(dim=-1)
+
+
 @dataclass
 class UnpackPlan:
     """How a stream is unpacked (the JAX package's ``UnpackPlan``): its
@@ -156,3 +223,25 @@ class UnpackPlan:
                                            self.cutoff_sigma)
         else:
             self.twobit = None
+
+    def unpack(self, raw: torch.Tensor):
+        """One block of raw bytes -> ``(x, w)``: FPT samples ``x [nchan,
+        npol, ndat]`` (float32, complex64 for complex input) and, for JA98
+        2-bit, the blocks' weights ``w [nchan, nweights]`` (else None).
+        JA98 keeps the whole weight blocks only, so ``ndat`` may fall short
+        of the block's samples."""
+        o = self.obs
+        if o.nbit == 32:
+            return unpack_float32(raw, o.nchan, o.npol, o.ndim), None
+        raw = reorder_bytes_tfp(raw, self.layout, o.npol)
+        if self.twobit is not None:
+            lo, hi = (torch.from_numpy(t).to(raw.device)
+                      for t in self.twobit.level_tables)
+            wt = torch.from_numpy(self.twobit.weight_table).to(raw.device)
+            x, w = unpack_twobit_dynamic(raw, lo, hi, wt, o.nchan, o.npol,
+                                         o.ndim, self.ndat_per_weight)
+            if isinstance(x, tuple):
+                x = torch.complex(*x)
+            return x, w
+        return unpack_fixed(raw, o.nbit, o.nchan, o.npol, o.ndim,
+                            self.twos_complement), None

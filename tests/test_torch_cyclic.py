@@ -350,8 +350,11 @@ def test_cyclic_pipeline_matches_jax(tmp_path, name):
 
 def test_cyclic_result_and_refusals(tmp_path):
     """A detected result has no cyclic spectra; fourth moments of lag
-    products and cyclic folding with no FFT stage at all (nsub == 1 at DM
-    0; at DM > 0 it runs, ``test_torch_conv.py``) are refused."""
+    products are refused, and so is cyclic folding of a real stream with no
+    FFT stage at all (nsub == 1 at DM 0: there is no complex voltage; the
+    JAX package fails on its first block; at DM > 0 it runs,
+    ``test_torch_conv.py``, and complex input runs on the general chain,
+    ``test_torch_general.py``)."""
     path = _write_rfi(tmp_path, ndat=1 << 13)
     det = dict(CYC, cyclic_nchan=0)
     res = tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**det),
@@ -361,6 +364,10 @@ def test_cyclic_result_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="fourth moments"):
         tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(
             **dict(CYC, npol_out=4, fourth_moment=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(
-            **dict(CYC, nchan=1, dispersion_measure=0.0)), device="cpu")
+    real_no_fft = dict(CYC, nchan=1, dispersion_measure=0.0)
+    with pytest.raises(ValueError, match="complex voltages"):
+        tl.FoldPipeline(raw_source("port", path),
+                        tl.FoldConfig(**real_no_fft), device="cpu")
+    with pytest.raises(ValueError):
+        jl.FoldPipeline(raw_source("jax", path),
+                        jl.FoldConfig(**real_no_fft)).run(max_blocks=1)

@@ -1,10 +1,12 @@
 """The port stands alone: in a fresh interpreter whose import system refuses
 ``jax`` and ``dspsr_tpu`` (a ``sys.meta_path`` finder that raises on either
 and on their submodules, but not on ``dspsr_tpu_torch``), every module of
-dspsr_tpu_torch imports, and its fold pipeline (full engine, on real and on
-complex input), its hybrid fold engine with in-stream spectral kurtosis and
-its search pipeline (to a SIGPROC file) run on the CPU from inputs built
-with the port's own classes;
+dspsr_tpu_torch imports (the general chain's modules ``ops/fft.py`` and
+``ops/polyphase.py`` among them), and its fold pipeline (full engine, on
+real and on complex input), its hybrid fold engine with in-stream spectral
+kurtosis, its search pipeline (to a SIGPROC file) and the general chain of
+both (fold with ``use_megakernel=False``, polyphase search) run on the CPU
+from inputs built with the port's own classes;
 neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules`` afterwards.  Runs in
 a subprocess, since this test process has both loaded already."""
 
@@ -41,6 +43,7 @@ torch.set_num_threads(2)
 import dspsr_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(dspsr_tpu_torch.__path__,
                                               "dspsr_tpu_torch.")]
+assert {"dspsr_tpu_torch.ops.fft", "dspsr_tpu_torch.ops.polyphase"} <= set(mods)
 for name in mods:
     importlib.import_module(name)
 from dspsr_tpu_torch.io.sources import RawFileSource
@@ -83,6 +86,16 @@ with tempfile.TemporaryDirectory() as d:
                         device="cpu")
     assert pipe.mega_mode == "full" and not pipe.mega_plan.real_input
     assert pipe.run().hits.sum() > 0
+    pipe = FoldPipeline(RawFileSource(raw, obs),
+                        FoldConfig(**dict(fold, use_megakernel=False)),
+                        device="cpu")
+    assert pipe.mega_mode is None
+    assert pipe.run().hits.sum() > 0
+    pipe = FilPipeline(RawFileSource(raw, obs),
+                       FilConfig(nchan=4, channelizer="polyphase",
+                                 min_block_samples=4096), device="cpu")
+    assert pipe.megafil_plan is None
+    pipe.run(fil)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(len(mods), loaded)
 """

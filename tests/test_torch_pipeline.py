@@ -156,10 +156,14 @@ def test_save_archive(tmp_path, ext):
 
 # nsub == 1 with DM > 0 (the convolution) and calibration at nsub == 1 run
 # since the nsub == 1 slice (tests/test_torch_conv.py,
-# tests/test_torch_jones.py); nsub == 1 with no FFT stage (DM 0, no
-# calibration) and calibration inside a filterbank still raise.  The
-# apodization window (fft_window) runs since the sub-byte slice, and its
-# case holds the port against the JAX pipeline.
+# tests/test_torch_jones.py); the apodization window (fft_window) since the
+# sub-byte slice; use_megakernel=False and nsub == 1 with no FFT stage (DM
+# 0, no calibration) on the general chain since the general-chain slice
+# (more in tests/test_torch_general.py).  Those cases hold the port against
+# the JAX pipeline.  Calibration inside a filterbank and use_fft_bench still
+# raise; the RFI filter with no FFT stage raises in both packages, and so
+# does cyclic folding of a real stream with no FFT stage (the JAX package
+# on its first block).
 @pytest.mark.parametrize("kw", [
     dict(cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
     dict(calibration_path="cal.txt"),
@@ -169,15 +173,41 @@ def test_save_archive(tmp_path, ext):
     dict(rfi_filter=True, nchan=1, dispersion_measure=0.0),
 ], ids=lambda kw: "-".join(k for k in kw if k != "dispersion_measure"))
 def test_unsupported_config_raises(tmp_path, kw):
+    cfg = dict(BASE, **kw)
     if "fft_window" in kw:
         path = _write_raw(tmp_path, 1 << 15)
         a, b, _ = _both(lambda pkg: raw_source(pkg, path), **kw)
         _assert_same(a, b)
         return
+    if "use_megakernel" in kw or kw == dict(nchan=1, dispersion_measure=0.0):
+        path = _write_raw(tmp_path, 1 << 15)
+        jpipe = jl.FoldPipeline(raw_source("jax", path), jl.FoldConfig(**cfg))
+        tpipe = tl.FoldPipeline(raw_source("port", path),
+                                tl.FoldConfig(**cfg), device="cpu")
+        assert jpipe.mega_mode is None and tpipe.mega_mode is None
+        a, b = jpipe.run(), tpipe.run()
+        _assert_same(a, b)
+        assert b.hits.sum() > 0
+        return
     path = _write_raw(tmp_path, 1 << 12)
+    if "cyclic_nchan" in kw:
+        with pytest.raises(ValueError, match="complex voltages"):
+            tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**cfg),
+                            device="cpu")
+        with pytest.raises(ValueError):
+            jl.FoldPipeline(raw_source("jax", path),
+                            jl.FoldConfig(**cfg)).run(max_blocks=1)
+        return
+    if "rfi_filter" in kw:
+        for mod, extra in ((jl, {}), (tl, {"device": "cpu"})):
+            with pytest.raises(NotImplementedError, match="-F"):
+                mod.FoldPipeline(raw_source("jax" if mod is jl else "port",
+                                            path), mod.FoldConfig(**cfg),
+                                 **extra)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.FoldPipeline(raw_source("port", path),
-                        tl.FoldConfig(**dict(BASE, **kw)), device="cpu")
+        tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**cfg),
+                        device="cpu")
 
 
 @pytest.mark.parametrize("obs_kw", [

@@ -336,30 +336,63 @@ def test_resume_from_jax_rescale_state(tmp_path):
     _assert_data_close(_samples(j2[len(t1):], 8), _samples(t1, 8), 8)
 
 
+def _general_pipes(path, obs_kw=None, **kw):
+    """Both packages' FilPipeline on ``path`` on their general chain."""
+    cfg = dict(BASE, **kw)
+    obs_kw = obs_kw or {}
+    jp = jl.FilPipeline(raw_source("jax", path, **obs_kw), jl.FilConfig(**cfg))
+    tp = tl.FilPipeline(raw_source("port", path, **obs_kw),
+                        tl.FilConfig(**cfg), device="cpu")
+    assert jp.megafil_plan is None and tp.megafil_plan is None
+    assert (jp.npart, jp.block_in_samples, jp.stride_in_samples) == \
+        (tp.npart, tp.block_in_samples, tp.stride_in_samples)
+    assert plain(jp.obs_out) == plain(tp.obs_out)
+    return jp, tp
+
+
 @pytest.mark.parametrize("kw", [
     dict(channelizer="polyphase"), dict(npol_out=2), dict(npol_out=4),
     dict(poln_select=0), dict(dispersion_measure=0.0)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_xla_chain_configs_raise(tmp_path, kw):
-    path = _write_raw(tmp_path, 1 << 12)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tl.FilPipeline(raw_source("port", path),
-                       tl.FilConfig(**{**BASE, **D, **kw}), device="cpu")
+    """The configurations the JAX package runs on its XLA chain, once
+    refused here, run on the port's general chain and match it:
+    polyphase, -d 2/4, -P and freq_res == 1 (no -D); more in
+    ``test_torch_general.py``."""
+    path = _write_raw(tmp_path, 1 << 16)
+    cfg = {**D, **kw}
+    if kw.get("channelizer") == "polyphase":
+        cfg["dispersion_measure"] = 0.0
+    jp, tp = _general_pipes(path, min_block_samples=1 << 13, **cfg)
+    out = _run_both(tmp_path, jp, tp)
+    assert out["jax"][0] == out["port"][0]
+    assert tp._blocks_done == jp._blocks_done >= 3
+    _assert_data_close(_samples(out["jax"][1], 8),
+                       _samples(out["port"][1], 8), 8)
 
 
 @pytest.mark.parametrize("obs_kw", [
     dict(nbit=2, nchan=2), dict(nbit=4),
     dict(ndim=2, state="ANALYTIC", nbit=4)], ids=["2bit", "4bit", "complex"])
 def test_unported_input_raises(tmp_path, obs_kw):
-    """2-bit input with JA98 levels raises naming item 8: the JAX package
-    runs it on its XLA chain (its excision weights zero detected samples
-    there).  4-bit input, real or complex, once refused here, runs and
-    matches the JAX pipeline (more in ``test_torch_subbyte.py``)."""
+    """Inputs once refused here run and match the JAX pipeline: 2-bit with
+    JA98 levels on the general chain (codes whose clean blocks JA98 keeps,
+    with a saturated stretch it excises), 4-bit real or complex on the
+    fused front end (more in ``test_torch_subbyte.py``)."""
     if obs_kw["nbit"] == 2:
-        path = _write_raw(tmp_path, 1 << 12)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tl.FilPipeline(raw_source("port", path, **obs_kw),
-                           tl.FilConfig(**BASE, **D), device="cpu")
+        from test_torch_twobit import clean_twobit_codes, pack2
+
+        path = str(tmp_path / "c.raw")
+        codes = clean_twobit_codes(np.random.default_rng(3), 1 << 15, 4, 512)
+        codes[5000:6000] = 3
+        pack2(codes).tofile(path)
+        jp, tp = _general_pipes(path, obs_kw, min_block_samples=8192, **D)
+        out = _run_both(tmp_path, jp, tp)
+        assert out["jax"][0] == out["port"][0]
+        a = _samples(out["jax"][1], 8)
+        _assert_data_close(a, _samples(out["port"][1], 8), 8)
+        # the excised stretch is levelled to zero (127.5 rounds to 128)
+        assert 0 < (a == 128).mean() < 0.5
         return
     path = str(tmp_path / "in.raw")
     np.random.default_rng(5).integers(0, 256, 1 << 16,

@@ -392,7 +392,9 @@ def run_both(src_fn, mode, **cfg):
     jp = jl.FoldPipeline(src_fn("jax"), jl.FoldConfig(**cfg))
     tp = tl.FoldPipeline(src_fn("port"), tl.FoldConfig(**cfg), device="cpu")
     assert jp.mega_mode == tp.mega_mode == mode
-    assert dataclasses.asdict(jp.mega_plan) == dataclasses.asdict(tp.mega_plan)
+    if mode is not None:
+        assert dataclasses.asdict(jp.mega_plan) == \
+            dataclasses.asdict(tp.mega_plan)
     return jp.run(), tp.run(), tp
 
 
@@ -430,24 +432,29 @@ def test_fixed_levels_when_asked(tmp_path):
 
 
 def test_npw_not_dividing_row_raises(tmp_path):
-    """npw that does not divide the row: the JAX package takes its XLA
-    chain, the port raises naming it."""
-    from dspsr_tpu_torch.models import load_to_fold as tl
-
+    """npw that does not divide the row: ``MegaPlan.from_filterbank``
+    returns None, and both packages take their general chain, once refused
+    here; the saturated stretch is excised alike.  (With DM > 0: without
+    an overlap the JAX chain cannot frame a block that JA98 shortens to
+    whole weight blocks, ROADMAP Queue 3.)"""
     path = twobit_file(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tl.FoldPipeline(twobit_source("port", path), tl.FoldConfig(
-            **dict(FOLD, dispersion_measure=0.0, nchan=16,
-                   frequency_resolution=256, ndat_per_weight=1 << 14)),
-            device="cpu")
+    a, b, tp = run_both(lambda pkg: twobit_source(pkg, path), None,
+                        **dict(FOLD, dispersion_measure=2.0, nchan=8,
+                               frequency_resolution=256, ndat_per_weight=48))
+    assert_same(a, b)
+    nout = round(b.integration_length.sum() * b.obs.rate)
+    assert 0 < b.hits[:, 0].sum() < nout
 
 
 def test_twos_complement_ja98_raises(tmp_path):
-    from dspsr_tpu_torch.models import load_to_fold as tl
-
+    """JA98 with two's complement, once refused here: both packages run it
+    on their general chain, whose JA98 unpack reads the codes as offset
+    binary (ROADMAP Queue 3)."""
     path = twobit_file(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tl.FoldPipeline(twobit_source("port", path), tl.FoldConfig(
-            **dict(FOLD, dispersion_measure=0.0, nchan=16,
-                   frequency_resolution=256, twos_complement=True)),
-            device="cpu")
+    cfg = dict(FOLD, dispersion_measure=0.0, nchan=16,
+               frequency_resolution=256, twos_complement=True)
+    a, b, tp = run_both(lambda pkg: twobit_source(pkg, path), None, **cfg)
+    assert_same(a, b)
+    off = run_both(lambda pkg: twobit_source(pkg, path), None,
+                   **dict(cfg, twos_complement=False, use_megakernel=False))
+    assert np.array_equal(off[1].profiles, b.profiles)
