@@ -50,6 +50,7 @@ line of standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1287,18 +1288,26 @@ def conv32_obs():
         instrument="DUMMY").replace(ndat=1 << 40)
 
 
-def conv32_pipe(**kw):
-    """hybrid_conv32 (``bench.py:439-442``: the flagship config with 32
-    channels, DM 71, freq_res 2^19, 4 windows a block; J0437's period),
-    through ``FoldPipeline`` on the card."""
-    from dspsr_tpu_torch.io.sources import DummySource
-    from dspsr_tpu_torch.models.load_to_fold import FoldConfig, FoldPipeline
+def conv32_cfg(**kw):
+    """hybrid_conv32's configuration (``bench.py:439-442``: the flagship
+    config with 32 channels, DM 71, freq_res 2^19, 4 windows a block;
+    J0437's period), with ``kw`` replaced."""
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig
 
-    cfg = FoldConfig(**dict(dict(
+    return FoldConfig(**dict(dict(
         folding_period=0.00575745, dispersion_measure=71.0, nchan=32,
         nbin=1024, npol_out=1, frequency_resolution=1 << 19, block_parts=4,
         min_block_samples=0), **kw))
-    pipe = FoldPipeline(DummySource(conv32_obs()), cfg, device="cuda")
+
+
+def conv32_pipe(**kw):
+    """hybrid_conv32 (:func:`conv32_cfg`) through ``FoldPipeline`` on the
+    card."""
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+
+    pipe = FoldPipeline(DummySource(conv32_obs()), conv32_cfg(**kw),
+                        device="cuda")
     p = pipe.mega_plan
     check(pipe.mega_mode == "hybrid" and pipe.fb_plan is None
           and (p.nsub, p.R1, p.R2, p.nkeep, pipe.npart,
@@ -1755,18 +1764,25 @@ def guppi2_source():
     return Ja98Source()
 
 
-def guppi2_pipe():
-    """mega_guppi_2bit (``bench.py:429-431, 496-497``): the flagship
-    config with 2048 channels (64 a coarse channel), DM 71, freq_res 2048,
-    ndat_per_weight 256, 16 windows a block, 1024 bins at J0437's period,
-    through ``FoldPipeline`` on the card."""
-    from dspsr_tpu_torch.models.load_to_fold import FoldConfig, FoldPipeline
+def guppi2_cfg():
+    """mega_guppi_2bit's configuration (``bench.py:429-431, 496-497``): the
+    flagship config with 2048 channels (64 a coarse channel), DM 71,
+    freq_res 2048, ndat_per_weight 256, 16 windows a block, 1024 bins at
+    J0437's period."""
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig
 
-    cfg = FoldConfig(folding_period=0.00575745, dispersion_measure=71.0,
-                     nchan=2048, nbin=1024, npol_out=1,
-                     frequency_resolution=2048, ndat_per_weight=256,
-                     block_parts=16, min_block_samples=0)
-    pipe = FoldPipeline(guppi2_source(), cfg, device="cuda")
+    return FoldConfig(folding_period=0.00575745, dispersion_measure=71.0,
+                      nchan=2048, nbin=1024, npol_out=1,
+                      frequency_resolution=2048, ndat_per_weight=256,
+                      block_parts=16, min_block_samples=0)
+
+
+def guppi2_pipe():
+    """mega_guppi_2bit (:func:`guppi2_cfg`) through ``FoldPipeline`` on the
+    card."""
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+
+    pipe = FoldPipeline(guppi2_source(), guppi2_cfg(), device="cuda")
     p = pipe.mega_plan
     check(pipe.mega_mode == "full"
           and (p.nsub, p.R1, p.R2, p.q, p.npw, p.nkeep, pipe.npart,
@@ -2241,6 +2257,567 @@ def general_search(card: str) -> None:
             card, label=f" ({name})", others=True)
 
 
+# ---- multi-GPU: the sharded pipelines on a mesh that repeats the card ----
+
+#: the device every shard of the mesh runs on: shards on one card run one
+#: after another, so these phases check the sharded dataflow and time its
+#: overheads (halo copies, time sums, stripe reads), not a speed-up
+CARD0 = "cuda:0"
+
+
+def cuda_mesh(nt: int, nc: int = 1):
+    """A (nt, nc) mesh whose every shard is ``cuda:0``."""
+    from dspsr_tpu_torch.parallel.sharded import make_mesh
+
+    return make_mesh(nt * nc, nc, devices=[torch.device(CARD0)] * (nt * nc))
+
+
+def buffer_source(obs, nsamp: int, make):
+    """A ``Source`` of ``nsamp`` samples of ``obs`` held in host memory:
+    ``make(start, n)`` gives the bytes of samples ``[start, start + n)`` on
+    the card (in chunks of about 64 MB, whole JA98 blocks of 256 samples),
+    and every read is a slice, so the sharded and the single run read the
+    same bytes at no cost."""
+    from dspsr_tpu_torch.io.sources import Source
+
+    bps = obs.nbytes_per_sample
+    buf = np.empty(int(round(nsamp * bps)), np.uint8)
+    step = max(256, int((1 << 26) / bps) // 256 * 256)
+    for s in range(0, nsamp, step):
+        n = min(step, nsamp - s)
+        buf[int(round(s * bps)):int(round((s + n) * bps))] = \
+            make(s, n).cpu().numpy()
+
+    class BufferSource(Source):
+        def __init__(self):
+            self.obs = obs.replace(ndat=nsamp)
+
+        @property
+        def total_samples(self) -> int:
+            return nsamp
+
+        def read_samples(self, start: int, n: int) -> np.ndarray:
+            return buf[int(round(start * bps)):int(round((start + n) * bps))]
+
+    return BufferSource()
+
+
+def noise_source(obs, nsamp: int):
+    """``buffer_source`` of ``device_noise_bytes``."""
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    bps = obs.nbytes_per_sample
+    return buffer_source(obs, nsamp, lambda s, n: device_noise_bytes(
+        int(round(s * bps)), int(round(n * bps)), CARD0))
+
+
+def sized_source(probe, obs, nsb: int, make=None):
+    """A source of exactly ``nsb`` superblocks of ``probe``'s geometry
+    (noise bytes unless ``make`` gives others)."""
+    # the search pipeline keeps the overlap, the fold pipeline's inner one
+    ov = getattr(probe, "nsamp_overlap", None)
+    if ov is None:
+        ov = probe.inner.nsamp_overlap
+    total = nsb * probe.superblock_stride + ov
+    return (noise_source(obs, total) if make is None
+            else buffer_source(obs, total, make))
+
+
+def sharded_run(pipe, nsb: int, card: str, name: str, run):
+    """``run()`` (the sharded pipeline's run over ``nsb`` superblocks) with
+    the launch counts set to 0 just before and read just after, timed
+    (CUDA events and the host clock), with the pipeline's halo and
+    reduction seconds and the peak device memory; prints them.  Returns
+    ``(result, launch counts)``."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+
+    pipe.timed = True
+    pipe.seconds = dict.fromkeys(pipe.seconds, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    reset_launch_counts()
+    with NoLibraryFFT():
+        t0 = time.perf_counter()
+        start.record()
+        res = run()
+        stop.record()
+        stop.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    inner = pipe.inner
+    rt = inner.obs_in.rate / 1e6
+    msps = nsb * pipe.superblock_stride / wall / 1e6
+    mesh = pipe.mesh.shape
+    print(f"{name}: mesh {mesh['time']} x {mesh.get('chan', 1)} of "
+          f"{CARD0} (shards run one after another: overheads, not a "
+          f"speed-up), {nsb} superblocks of {pipe.superblock_stride} "
+          f"samples: {start.elapsed_time(stop) / nsb:.3f} ms a superblock "
+          f"(CUDA events; host reads and copies included), {msps:.1f} "
+          f"Msamp/s ({msps / rt:.4f} x real time at {rt:g} Msamp/s); a "
+          f"superblock's host and overhead stages: "
+          + ", ".join(f"{k} {1e3 * v / nsb:.3f} ms"
+                      for k, v in pipe.seconds.items())
+          + "; peak "
+          f"device memory {peak:.0f} MiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]",
+          flush=True)
+    return res, counts
+
+
+def check_same_fold(name: str, a, b, tol: float = TOL_FLAGSHIP) -> float:
+    """The sharded result ``a`` against the single run ``b``: profiles to
+    ``tol`` of their largest value, hits exactly, the same division;
+    returns the relative error."""
+    check(a.profiles.shape == b.profiles.shape,
+          f"{name}: shapes {a.profiles.shape} {b.profiles.shape}")
+    check(bool(np.isfinite(a.profiles).all()), f"{name}: finite")
+    err = float(np.abs(a.profiles - b.profiles).max()
+                / np.abs(b.profiles).max())
+    hdiff = float(np.abs(a.hits - b.hits).max())
+    print(f"{name}: sharded against single: rel err {err:.3e}, hits diff "
+          f"{hdiff}, hits {float(a.hits.sum())}, subints "
+          f"{a.profiles.shape[0]}", flush=True)
+    check(err < tol, f"{name}: rel err {err} >= {tol}")
+    check(hdiff == 0 and float(a.hits.sum()) > 0, f"{name}: hits")
+    check(np.array_equal(a.integration_length, b.integration_length),
+          f"{name}: integration lengths")
+    return err
+
+
+def sharded_small() -> dict:
+    """Both kernel variants of the channel-sharded steps at the test
+    geometry, real and complex input: ``build_megastep(response_as_args=
+    True)`` on input channels 2-3 of 4 with their chirp rows, and
+    ``build_megafil(jones_as_args=True)`` (one-CTA and multi-pass inverse;
+    bare, and with the chirp and passband on the call) with the Jones rows:
+    each launch against the full-band launch's rows of that group and
+    against the float64 plain version, at TOL_SMALL.  Returns the largest
+    absolute error of each kernel against plain."""
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, build_megafil, build_megastep, megafil_plain,
+        megastep_plain, unpack_affine)
+
+    npart, rows = 3, slice(2, 4)
+    rng = np.random.default_rng(21)
+    worst = {"megastep": 0.0, "megafil": 0.0}
+
+    def group_bytes(plan, raw):
+        per = plan.npol * plan.ndim
+        return raw.view(-1, plan.nchan_in, per)[:, rows].reshape(-1) \
+            .contiguous()
+
+    for kind in ("real", "complex"):
+        plan = small_plan(kind, 32, npol=2, nchan_in=4)
+        grp = dataclasses.replace(plan, nchan_in=2)
+        raw = small_raw(plan, npart, rng)
+        graw = group_bytes(plan, raw)
+        resp = np.exp(1j * rng.uniform(-3, 3, (4 * plan.nsub,
+                                               plan.freq_res)))
+        scale, offset = unpack_affine(8)
+        cst = MegaConstants.build(plan, resp, scale, offset).to("cuda")
+        phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(
+            np.float32)).cuda()
+        dphi = torch.full((npart,), 0.013, device="cuda")
+        gr, gi = cst.gr[rows].clone(), cst.gi[rows].clone()
+        shp = (plan.nplane, plan.nsub, plan.nbin)
+        for bounds in (None, (7, 70)):
+            pf, hf = build_megastep(plan, cst, npart)(
+                torch.zeros(4, *shp, device="cuda"),
+                torch.zeros(4, plan.nbin, device="cuda"), raw, phi0, dphi,
+                bounds)
+            pk, hk = build_megastep(grp, cst, npart, response_as_args=True)(
+                torch.zeros(2, *shp, device="cuda"),
+                torch.zeros(2, plan.nbin, device="cuda"), graw, phi0, dphi,
+                gr, gi, bounds=bounds)
+            pp, hp = megastep_plain(
+                grp, cst, torch.zeros(2, *shp, dtype=torch.float64,
+                                      device="cuda"),
+                torch.zeros(2, plan.nbin, dtype=torch.float64,
+                            device="cuda"), graw, phi0, dphi, bounds,
+                gr.double(), gi.double())
+            torch.cuda.synchronize()
+            errs = (rel_err(pk, pf[rows]), rel_err(pk, pp))
+            hdiff = (float((hk - hf[rows]).abs().max()),
+                     float((hk.double() - hp).abs().max()))
+            what = f"sharded_small megastep {kind} chirp rows bounds={bounds}"
+            print(f"{what}: rel err against full band {errs[0]:.3e}, "
+                  f"against plain {errs[1]:.3e}; hits diff {hdiff}",
+                  flush=True)
+            check(max(errs) < TOL_SMALL, f"{what}: {errs}")
+            check(max(hdiff) == 0 and float(hk.sum()) > 0, f"{what}: hits")
+            worst["megastep"] = max(worst["megastep"],
+                                    float((pk.double() - pp).abs().max()))
+
+        for nsub, freq_res, inverse, npol_out in (
+                (4, 64, "auto", 4), (1, 4096, "multipass", 1)):
+            plan = small_plan(kind, 2, nsub=nsub, freq_res=freq_res, npol=2,
+                              nchan_in=4, npol_out=npol_out)
+            grp = dataclasses.replace(plan, nchan_in=2)
+            raw = small_raw(plan, npart, rng)
+            graw = group_bytes(plan, raw)
+            chirp = np.exp(1j * rng.uniform(-3, 3, (4, plan.n_fft)))
+            J = leaky_jones(plan.n_fft, 4) * chirp[:, :, None, None]
+            full = MegaConstants.build(plan, None, scale, offset,
+                                       jones=J).to("cuda")
+            bare = MegaConstants.build(grp, None, scale, offset).to("cuda")
+            jones = full.jones[rows].clone()
+            mr, mi = masked_chirp(bare, rng)
+            for tap in (False, True):
+                kw = dict(output="detected", inverse=inverse, passband=tap)
+                args = (mr, mi) if tap else ()
+                got = build_megafil(grp, bare, npart, jones_as_args=True,
+                                    response_as_args=tap, **kw)(
+                    graw, *args, jones)
+                ref = build_megafil(plan, dataclasses.replace(
+                    full, gr=torch.cat([full.gr[:2], mr]) if tap else full.gr,
+                    gi=torch.cat([full.gi[:2], mi]) if tap else full.gi),
+                    npart, **kw)(raw)
+                want = megafil_plain(
+                    grp, bare, graw, npart, torch.float64, passband=tap,
+                    gr=mr.double() if tap else None,
+                    gi=mi.double() if tap else None, jones=jones.double())
+                got, pb = got if tap else (got, None)
+                ref = ref[0] if tap else ref
+                want, wpb = want if tap else (want, None)
+                orows = slice(2 * plan.nsub, 4 * plan.nsub)
+                torch.cuda.synchronize()
+                errs = (rel_err(got, ref[orows]), rel_err(got, want),
+                        rel_err(pb, wpb) if tap else 0.0)
+                what = (f"sharded_small megafil {kind} Jones rows nsub "
+                        f"{nsub} {inverse}{' masked tap' if tap else ''}")
+                print(f"{what}: rel err against full band {errs[0]:.3e}, "
+                      f"against plain {errs[1]:.3e}, passband {errs[2]:.3e}",
+                      flush=True)
+                check(bool(torch.isfinite(got).all()), f"{what}: finite")
+                check(max(errs) < TOL_SMALL, f"{what}: {errs}")
+                worst["megafil"] = max(
+                    worst["megafil"], float((got.double() - want).abs().max()))
+    return worst
+
+
+def sharded_fold(card: str) -> dict:
+    """``mega_real_8bit`` on a (4 x 1) mesh of the card for 2 superblocks
+    of 4 flagship blocks, against ``FoldPipeline`` on the card over the same
+    bytes at the same per-block geometry: profiles to TOL_FLAGSHIP, hits
+    exact, one ``megastep`` launch a shard a superblock."""
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+    from dspsr_tpu_torch.parallel.pipeline import ShardedFoldPipeline
+
+    nt, nsb = 4, 2
+    mesh = cuda_mesh(nt)
+    obs, cfg = flagship_obs(), flagship_cfg()
+    probe = ShardedFoldPipeline(DummySource(obs), cfg, mesh)
+    src = sized_source(probe, obs, nsb)
+    pipe = ShardedFoldPipeline(src, cfg, mesh)
+    check(pipe.mega and pipe.inner.npart == 75, "sharded_fold: the full "
+          f"engine at the flagship geometry (npart {pipe.inner.npart})")
+    res, counts = sharded_run(pipe, nsb, card, "sharded_fold", pipe.run)
+    check(counts["megastep"] == nt * nsb,
+          f"sharded_fold: {counts['megastep']} megastep launches")
+    one = FoldPipeline(src, pipe.config, device="cuda").run()
+    err = check_same_fold("sharded_fold", res, one)
+    check(res.profiles.shape == (1, 64, 1, 1024), "sharded_fold shape")
+    return dict(launches=counts["megastep"], err=err)
+
+
+def chan_mega(card: str) -> dict:
+    """``mega_guppi_2bit`` (32 channels of JA98 2-bit codes from
+    ``ja98_bytes``, with saturated stretches in both channel groups) on a
+    (2 time x 2 chan) mesh: ``megastep`` at nchan_in 16 with each group's
+    chirp rows per call; against the single run: profiles to
+    TOL_FLAGSHIP, hits exact, and a group's JA98 window weights equal to
+    the full band's rows of that group."""
+    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+    from dspsr_tpu_torch.parallel.pipeline import ShardedFoldPipeline
+
+    nt, nc, nsb = 2, 2, 2
+    mesh = cuda_mesh(nt, nc)
+    probe = ShardedFoldPipeline(guppi2_source(), guppi2_cfg(), mesh)
+    check(probe.mega_chan and probe.local_nchan == 16,
+          "chan_mega: the channel-grouped full engine")
+    src = sized_source(probe, guppi2_obs(), nsb, lambda s, n: ja98_bytes(
+        s, n, 128, 256, guppi2_stretches()))
+    pipe = ShardedFoldPipeline(src, guppi2_cfg(), mesh)
+    res, counts = sharded_run(pipe, nsb, card, "chan_mega", pipe.run)
+    check(counts["megastep"] == nt * nc * nsb
+          and counts["mega_ja98"] == nt * nc * nsb,
+          f"chan_mega: launches {counts}")
+    one = FoldPipeline(src, pipe.config, device="cuda").run()
+    err = check_same_fold("chan_mega", res, one)
+    # the JA98 pre-pass of each group against the full band's rows
+    inner = pipe.inner
+    mp = inner.mega_plan
+    lp = dataclasses.replace(mp, nchan_in=16)
+    raw = src.read_samples(0, inner.block_in_samples)
+    _, wfull = ja98_cuda(mp, inner.constants,
+                         torch.from_numpy(raw).cuda(), inner.npart)
+    groups = pipe._split_chan_groups(raw)
+    want = guppi2_expected_weights(inner, 0)
+    for c in range(nc):
+        _, wg = ja98_cuda(lp, inner.constants,
+                          torch.from_numpy(groups[c]).cuda(), inner.npart)
+        rows = slice(16 * c, 16 * (c + 1))
+        same = bool(torch.equal(wg, wfull[rows]))
+        print(f"chan_mega group {c}: window weights equal to the band's "
+              f"rows {same}, excised {int((wg == 0).sum())}", flush=True)
+        check(same and np.array_equal(wg.cpu().numpy(), want[rows]),
+              f"chan_mega group {c} window weights")
+    stats = group_launch_megastep(card, pipe)
+    return dict(launches=counts["megastep"], err=err, **stats)
+
+
+def shard0_raw(pipe):
+    """Shard (0, 0)'s bytes of the first superblock, halo included, on its
+    device, as the sharded run hands them to its step."""
+    rows, tail = pipe._read_superblock(0)
+    return pipe._shard_raws(*pipe._upload(rows, tail))[0, 0]
+
+
+def group_launch_megastep(card: str, pipe) -> dict:
+    """The chan-mega step at its width (``megastep`` with
+    ``response_as_args``, nchan_in 16 of ``mega_guppi_2bit``) on shard (0,
+    0)'s bytes against its plain version (both f32): profiles to
+    TOL_FLAGSHIP, hits exact; then both timed, with the full band's step
+    and the bound of the group's work."""
+    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+
+    inner = pipe.inner
+    dev = torch.device(CARD0)
+    lp = dataclasses.replace(inner.mega_plan, nchan_in=pipe.local_nchan)
+    step, cst = pipe._chan_steps[dev], inner.constants
+    gr, gi, _ = pipe._chan_resp[dev, 0]
+    raw = shard0_raw(pipe)
+    phi0, dphi = cyclic_anchors(inner)
+    shape = (lp.nchan_in, lp.nplane, lp.nsub, lp.nbin)
+    zp = torch.zeros(shape, device=dev)
+    zh = torch.zeros(lp.nchan_in, lp.nbin, device=dev)
+    pk, hk = step(zp, zh, raw, phi0, dphi, gr, gi)
+    pp, hp = megastep_plain(lp, cst, zp, zh, raw, phi0, dphi, None, gr, gi)
+    torch.cuda.synchronize()
+    err = rel_err(pk, pp)
+    abs_err = float((pk - pp).abs().max())
+    check(err < TOL_FLAGSHIP and float((hk - hp).abs().max()) == 0,
+          f"chan_mega group launch against plain: {err}")
+    ms = cuda_ms(lambda: step(zp, zh, raw, phi0, dphi, gr, gi), 5)
+    plain_ms = cuda_ms(lambda: megastep_plain(lp, cst, zp, zh, raw, phi0,
+                                              dphi, None, gr, gi), 2)
+    nbytes = (raw.numel() + 8 * gr.numel() + 4 * cst.twobit.numel()
+              + 8 * (zp.numel() + zh.numel()) + 8 * phi0.numel())
+    bound = bound_of(nbytes, front_ops(lp, inner.npart, 2, 2))
+    print(f"chan_mega group launch (megastep, per-call chirp, nchan_in "
+          f"{lp.nchan_in}): rel err against plain {err:.3e} (abs "
+          f"{abs_err:.3e}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]",
+          flush=True)
+    return dict(group_ms=ms, group_plain_ms=plain_ms,
+                group_bound_ms=bound["bound_ms"], group_err=abs_err)
+
+
+def chan_hybrid(card: str) -> dict:
+    """Channel-grouped hybrid: ``conv32_jones`` (32 complex channels, nsub
+    1, freq_res 2^19, a Jones calibration, Stokes) on (1 x 2), each group's
+    Jones rows to ``build_megafil(jones_as_args=True)`` with the multi-pass
+    inverse; and ``hybrid_conv32`` with ``sk_m=1024`` on (2 x 2), the SK
+    sums pooled over the channel shards.  Against the single runs:
+    profiles to TOL_FLAGSHIP, hits and the SK zap counts exact."""
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+    from dspsr_tpu_torch.parallel.pipeline import ShardedFoldPipeline
+
+    nsb, launches, err, stats = 2, 0, 0.0, {}
+    J = np.array([[1.0, 0.35 + 0.1j], [-0.2j, 0.9]], np.complex128)
+    with tempfile.TemporaryDirectory() as tmp:
+        cal = os.path.join(tmp, "cal.npz")
+        np.savez(cal, freq=np.linspace(1100.0, 1700.0, 16),
+                 jones=np.broadcast_to(J, (16, 2, 2)))
+        cases = (("chan_hybrid conv32_jones", 1, 2,
+                  conv32_cfg(npol_out=4, calibration_path=cal)),
+                 ("chan_hybrid conv32_sk", 2, 2,
+                  conv32_cfg(sk_enable=True, sk_m=1024)))
+        for name, nt, nc, cfg in cases:
+            mesh = cuda_mesh(nt, nc)
+            probe = ShardedFoldPipeline(DummySource(conv32_obs()), cfg, mesh)
+            check(probe.hybrid_chan and probe.local_nchan == 16,
+                  f"{name}: the channel-grouped hybrid engine")
+            src = sized_source(probe, conv32_obs(), nsb)
+            del probe
+            pipe = ShardedFoldPipeline(src, cfg, mesh)
+            res, counts = sharded_run(pipe, nsb, card, name, pipe.run)
+            check(counts["megafil"] == nt * nc * nsb,
+                  f"{name}: launches {counts}")
+            launches += counts["megafil"]
+            single = FoldPipeline(src, pipe.config, device="cuda")
+            one = single.run()
+            err = max(err, check_same_fold(name, res, one))
+            if cfg.calibration_path:
+                stats = group_launch_megafil(card, pipe)
+            if cfg.sk_enable:
+                zap = sum(p._zap["sk"][0] for p in pipe._inners.values())
+                zap1 = single._zap["sk"][0]
+                print(f"{name}: SK cells zapped {int(zap)} sharded, "
+                      f"{int(zap1)} single", flush=True)
+                check(int(zap) == int(zap1), f"{name}: SK zap counts")
+            del pipe, single, src
+            torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, **stats)
+
+
+def group_launch_megafil(card: str, pipe) -> dict:
+    """The chan-hybrid front end of ``conv32_jones`` at its width
+    (``megafil`` with ``jones_as_args``: the group's Jones rows, 16
+    channels, the multi-pass inverse) on shard (0, 0)'s bytes against its
+    plain version (both f32) within TOL_FLAGSHIP; then both timed, with the
+    bound of the group's work."""
+    from dspsr_tpu_torch.ops.megakernel import build_megafil, megafil_plain
+
+    inner = pipe.inner
+    dev = torch.device(CARD0)
+    fp = dataclasses.replace(inner.front_plan, nchan_in=pipe.local_nchan)
+    ones = torch.ones((fp.nchan_in, fp.n_fft), device=dev)
+    cst = dataclasses.replace(inner.constants, jones=None, gr=ones,
+                              gi=torch.zeros_like(ones))
+    jones = pipe._chan_resp[dev, 0][2]
+    front = build_megafil(fp, cst, inner.npart, jones_as_args=True)
+    raw = shard0_raw(pipe)
+    got = front(raw, jones)
+    want = megafil_plain(fp, cst, raw, inner.npart, jones=jones)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((got - want).abs().max())
+    check(err < TOL_FLAGSHIP, f"chan_hybrid Jones group launch: {err}")
+    ms = cuda_ms(lambda: front(raw, jones), 5)
+    plain_ms = cuda_ms(lambda: megafil_plain(fp, cst, raw, inner.npart,
+                                             jones=jones), 2)
+    nbytes = (raw.numel() + 8 * ones.numel() + 4 * jones.numel()
+              + 4 * got.numel())
+    bound = bound_of(nbytes, front_ops(fp, inner.npart, 2, 2))
+    print(f"chan_hybrid group launch (megafil, per-call Jones, nchan_in "
+          f"{fp.nchan_in}, multi-pass inverse): rel err against plain "
+          f"{err:.3e} (abs {abs_err:.3e}); {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}) [{card}]", flush=True)
+    return dict(group_ms=ms, group_plain_ms=plain_ms,
+                group_bound_ms=bound["bound_ms"], group_err=abs_err)
+
+
+def sharded_search(card: str) -> dict:
+    """``megafil_search`` (constant levels) on a (4 x 1) mesh of the card
+    for 2 superblocks to a SIGPROC file, against ``FilPipeline`` on the card
+    over the same bytes: every byte within 1 LSB, at least 99% exact."""
+    from dspsr_tpu_torch.io.sources import DummySource
+    from dspsr_tpu_torch.models.load_to_fil import FilPipeline
+    from dspsr_tpu_torch.parallel.search import ShardedFilPipeline
+
+    nt, nsb = 4, 2
+    mesh = cuda_mesh(nt)
+    cfg = dataclasses.replace(search_cfg(), rescale_constant=True)
+    probe = ShardedFilPipeline(DummySource(flagship_obs()), cfg, mesh)
+    src = sized_source(probe, flagship_obs(), nsb)
+    pipe = ShardedFilPipeline(src, cfg, mesh)
+    check(pipe.inner.megafil_plan is not None, "sharded_search: fused")
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "n.fil"), os.path.join(tmp, "one.fil")
+        _, counts = sharded_run(pipe, nsb, card, "sharded_search",
+                                lambda: pipe.run(a))
+        FilPipeline(src, cfg, device="cuda").run(b)
+        x = np.fromfile(a, np.uint8).astype(np.int16)
+        y = np.fromfile(b, np.uint8).astype(np.int16)
+    check(counts["megafil"] == nt * nsb,
+          f"sharded_search: {counts['megafil']} megafil launches")
+    check(x.size == y.size and x.size > nt * nsb * 16_896_000,
+          f"sharded_search: file sizes {x.size} {y.size}")
+    diff = np.abs(x - y)
+    exact = float((diff == 0).mean())
+    print(f"sharded_search: {x.size} B against the single run: max diff "
+          f"{int(diff.max())} LSB, {exact:.6f} exact", flush=True)
+    check(diff.max() <= 1 and exact >= 0.99, "sharded_search bytes")
+    return dict(launches=counts["megafil"])
+
+
+def multiproc_phase(card: str) -> None:
+    """``launch_fold``: 2 worker processes of 2 time shards each, both on
+    ``cuda:0``, joined over gloo with their collectives staged through host
+    memory, folding two flagship superblocks from a DADA file; against the
+    in-process (4 x 1) sharded run: profiles to TOL_FLAGSHIP, hits exact.
+    With two or more cards, also NCCL with one card a rank."""
+    from dspsr_tpu_torch.io.dada import (
+        format_ascii_header, header_from_observation)
+    from dspsr_tpu_torch.io.sources import DummySource, open_source
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig
+    from dspsr_tpu_torch.parallel.multiproc import launch_fold
+    from dspsr_tpu_torch.parallel.pipeline import ShardedFoldPipeline
+
+    cfg_kw = dict(folding_period=0.00575745, dispersion_measure=2.64,
+                  nchan=64, nbin=1024, block_parts=8, npol_out=1,
+                  min_block_samples=block_samples("real"))
+    obs = flagship_obs().replace(instrument="RAW")
+    mesh = cuda_mesh(4)
+    probe = ShardedFoldPipeline(DummySource(obs), FoldConfig(**cfg_kw), mesh)
+    # two superblocks, so that the per-shard block cap keeps the flagship
+    # block (a quarter of the file over the shards plus one)
+    src = sized_source(probe, obs, 2)
+    runs = [("gloo", CARD0)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", ["cuda:0", "cuda:1"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mp.dada")
+        with open(path, "wb") as f:
+            f.write(format_ascii_header(header_from_observation(
+                obs.replace(ndat=0))))
+            f.write(src.read_samples(0, src.total_samples).tobytes())
+        del src
+        one = ShardedFoldPipeline(open_source(path), FoldConfig(**cfg_kw),
+                                  mesh).run()
+        for backend, device in runs:
+            t0 = time.perf_counter()
+            d = launch_fold(path, cfg_kw, n_procs=2, shards_per_proc=2,
+                            backend=backend, device=device,
+                            out_path=os.path.join(tmp, f"{backend}.npz"),
+                            timeout=400.0, timed=True)
+            wall = time.perf_counter() - t0
+            err = float(np.abs(d["profiles"] - one.profiles).max()
+                        / np.abs(one.profiles).max())
+            hdiff = float(np.abs(d["hits"] - one.hits).max())
+            print(f"multiproc {backend} (2 processes x 2 shards on "
+                  f"{device}): {wall:.1f} s wall incl. process start; rank "
+                  f"0's halo copies {1e3 * float(d['seconds_halo']):.3f} ms, "
+                  f"time sums {1e3 * float(d['seconds_reduce']):.3f} ms; "
+                  f"against the in-process run: rel err {err:.3e}, hits "
+                  f"diff {hdiff} [{card}]", flush=True)
+            check(d["profiles"].shape == one.profiles.shape
+                  and err < TOL_FLAGSHIP and hdiff == 0,
+                  f"multiproc {backend}: {err}, {hdiff}")
+            check(np.array_equal(d["digitizer_counts"],
+                                 one.digitizer_counts),
+                  f"multiproc {backend}: digitizer counts")
+    ran = ", ".join(b for b, _ in runs)
+    print(f"multiproc: ran {ran}"
+          + ("" if len(runs) > 1 else "; nccl needs 2 cards, "
+             f"{torch.cuda.device_count()} visible"), flush=True)
+
+
+def sharded_all(card: str) -> dict:
+    """The multi-GPU phases; returns the launches of each kernel on the
+    sharded main paths and the largest error of each kernel variant
+    against plain."""
+    small = sharded_small()
+    fold = sharded_fold(card)
+    cm = chan_mega(card)
+    ch = chan_hybrid(card)
+    ss = sharded_search(card)
+    multiproc_phase(card)
+    return dict(megastep=fold["launches"] + cm["launches"],
+                megafil=ch["launches"] + ss["launches"],
+                err_megastep=max(small["megastep"], cm["group_err"]),
+                err_megafil=max(small["megafil"], ch["group_err"]))
+
+
 def build_all() -> None:
     """Build both kernels at once (one nvcc each) and print ptxas lines."""
     from dspsr_tpu_torch.kernels.build import build
@@ -2317,13 +2894,19 @@ def main() -> None:
         general_path(card, name)
         general_rates(card, name)
     general_search(card)
+    # multi-GPU: the sharded pipelines on a mesh that repeats the card
+    sharded = sharded_all(card)
+    launches += sharded["megastep"]
+    hybrid_launches += sharded["megafil"]
     flag["max_abs_err"] = max(f["max_abs_err"]
                               for f in (flag, flag_c, flag_k, guppi))
+    flag["max_abs_err"] = max(flag["max_abs_err"], sharded["err_megastep"])
     search["max_abs_err"] = max(search["max_abs_err"],
                                 search_c["max_abs_err"],
                                 search_k["max_abs_err"], hybrid["err"],
                                 cyclic["err"], conv["max_abs_err"],
-                                conv_j["max_abs_err"])
+                                conv_j["max_abs_err"],
+                                sharded["err_megafil"])
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",

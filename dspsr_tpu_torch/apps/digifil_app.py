@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write search-mode PSRFITS instead of SIGPROC "
                         "(digifits)")
     p.add_argument("--threads", type=int, default=1, metavar="N",
-                   help="shard time blocks over N devices "
+                   help="shard time blocks over N devices: N visible "
+                        "cards, or the CPU N times with --device cpu "
                         "(reference digifil -t threads / LoadToFilN)")
     p.add_argument("-c", "--constant-levels", action="store_true",
                    help="freeze offset/scale after first block (digifil -c)")
@@ -87,10 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.threads > 1:
-        raise NotImplementedError(
-            "--threads > 1 (time-sharded digifil); see ROADMAP.md Queue 1 "
-            "item 10 (multi-GPU)")
     from ..io.sources import MultiFile, open_source
 
     from ..models.load_to_fil import FilConfig, FilPipeline
@@ -122,14 +119,32 @@ def main(argv=None) -> int:
     )
     src = (open_source(args.files[0]) if len(args.files) == 1
            else MultiFile(args.files))
+    fmt = "psrfits" if args.fits else "sigproc"
+    if args.threads > 1:
+        # time shards (LoadToFilN), one a visible card; on the CPU, asked
+        # for by name, the shards share it
+        import torch
+
+        from ..parallel.search import ShardedFilPipeline
+        from ..parallel.sharded import make_mesh
+
+        dev = torch.device(args.device)
+        mesh = make_mesh(args.threads, 1, devices=(
+            [dev] * args.threads if dev.type == "cpu" else None))
+        sh = ShardedFilPipeline(src, cfg, mesh)
+        if not args.quiet:
+            o = sh.inner.obs_out
+            print(f"digifil: {args.threads} shards -> {args.output} nchan "
+                  f"{o.nchan} npol {o.npol} nbit {o.nbit}", file=sys.stderr)
+        sh.run(args.output, format=fmt, total_seconds=args.total)
+        return 0
     pipe = FilPipeline(src, cfg, device=args.device)
     if not args.quiet:
         o = pipe.obs_out
         print(f"digifil: -> {args.output} nchan {o.nchan} npol {o.npol} "
               f"nbit {o.nbit} tsamp {1e6 / o.rate:.3f} us on {pipe.device}",
               file=sys.stderr)
-    pipe.run(args.output, total_seconds=args.total,
-             format="psrfits" if args.fits else "sigproc")
+    pipe.run(args.output, total_seconds=args.total, format=fmt)
     return 0
 
 

@@ -76,7 +76,7 @@ def inverse_passes(res, plan: MegaPlan, limit: int,
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, passband: bool = False, gr=None, gi=None,
                  output: str = "detected", inverse: str = "auto",
-                 return_weights: bool = False):
+                 return_weights: bool = False, jones=None):
     """One fused search front-end step on the card; arguments as
     ``ops.megakernel.megafil_plain``.  Returns float32 ``[nchan_in*nsub,
     nplane, npart*nkeep]`` (``output="voltage"``: complex64
@@ -85,8 +85,9 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     JA98 pre-pass's, else ones), and with ``passband`` last the passband
     ``[nchan_in*nsub, npol, freq_res]``.  ``gr``/``gi`` (default
     ``cst.gr``/``cst.gi``) are the chirp, float32 ``[nchan_in, n_fft]`` in
-    natural bin order; ``cst.jones``, when set, the Jones response mixed in
-    before it.  ``inverse="multipass"`` forces the multi-pass inverse
+    natural bin order; ``jones`` (default ``cst.jones``), when set, the
+    Jones response float32 ``[nchan_in, 4, n_fft, 2]`` mixed in before
+    it.  ``inverse="multipass"`` forces the multi-pass inverse
     (``nsub == 1``) where the one-CTA inverse fits."""
     p = plan
     dev = raw.device
@@ -104,11 +105,11 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     gi = cst.gi if gi is None else gi
     check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
     check_tensor(gi, "gi", f32, (nchan, p.n_fft), dev)
-    jones = cst.jones
+    jones = cst.jones if jones is None else jones
     if jones is not None:
         if p.npol != 2:
             raise ValueError("a Jones response needs npol == 2")
-        check_tensor(jones, "cst.jones", f32, (nchan, 4, p.n_fft, 2), dev)
+        check_tensor(jones, "jones", f32, (nchan, 4, p.n_fft, 2), dev)
     # the kernels index with 64-bit offsets; the sample and window counts
     # they take as int must fit
     if npart * p.nkeep >= 1 << 31 or p.block_ndat(npart) >= 1 << 31:

@@ -268,10 +268,11 @@ def check_resources(res, plan: MegaPlan, passes, limit: int) -> None:
 
 def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                   hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
-                  dphi: torch.Tensor, bounds=None):
+                  dphi: torch.Tensor, bounds=None, gr=None, gi=None):
     """One fused fold step on the card; arguments as
-    ``ops.megakernel.megastep_plain`` (float32 carries).  Returns new
-    ``(profiles, hits)``."""
+    ``ops.megakernel.megastep_plain`` (float32 carries; ``gr``/``gi``, the
+    chirp, default ``cst.gr``/``cst.gi``).  Returns new ``(profiles,
+    hits)``."""
     p = plan
     dev = raw.device
     if dev.type != "cuda":
@@ -287,8 +288,10 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     check_tensor(profiles, "profiles", f32,
                  (nchan, p.nplane, p.nsub, p.nbin), dev)
     check_tensor(hits, "hits", f32, (nchan, p.nbin), dev)
-    check_tensor(cst.gr, "cst.gr", f32, (nchan, p.n_fft), dev)
-    check_tensor(cst.gi, "cst.gi", f32, (nchan, p.n_fft), dev)
+    gr = cst.gr if gr is None else gr
+    gi = cst.gi if gi is None else gi
+    check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
+    check_tensor(gi, "gi", f32, (nchan, p.n_fft), dev)
     if nbytes >= 1 << 31 or npart * p.nkeep >= 1 << 31:
         raise NotImplementedError("blocks of 2^31 bytes or output samples")
 
@@ -320,7 +323,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.megastep_launch(
             raw.data_ptr(), phi0.data_ptr(), dphi.data_ptr(),
-            cst.gr.data_ptr(), cst.gi.data_ptr(), tw.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), tw.data_ptr(),
             profiles.data_ptr(), hits.data_ptr(), prof_out.data_ptr(),
             hits_out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
             ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(), *unpack_ptrs,

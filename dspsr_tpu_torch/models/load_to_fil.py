@@ -328,6 +328,23 @@ class FilPipeline:
             ex = ex[:, :n].reshape(ex.shape[0], n // t, t).amin(dim=2)
         return ex[:, :nuse]
 
+    def _local_chain(self, raw: torch.Tensor):
+        """One block up to the rescale: the fused front end or the general
+        chain's, then the scrunches and the excision weights (JAX
+        ``parallel/search.py::_local_chain``).  Returns the detected,
+        scrunched ``[nchan, npol, ndat]`` and its weights ``[nchan, ndat]``
+        (None without)."""
+        cfg = self.config
+        if self._megafil is not None:
+            d, w = self._megafil(raw), None
+        else:
+            d, w = self._general_front(raw)
+        d = fscrunch(d, cfg.fscrunch_factor)
+        d = tscrunch(d, cfg.tscrunch_factor)
+        weights = (self._stream_weights(w, d.shape[-1])
+                   if cfg.apply_weights else None)
+        return d, weights
+
     def _step(self, rescale_state, mean, inv, raw, mode="cumulative"):
         """One block: the fused front end or the general chain's ->
         scrunch -> [weights] -> rescale -> digitize.  Returns
@@ -341,14 +358,7 @@ class FilPipeline:
                       reset the accumulator
         """
         cfg = self.config
-        if self._megafil is not None:
-            d, w = self._megafil(raw), None
-        else:
-            d, w = self._general_front(raw)
-        d = fscrunch(d, cfg.fscrunch_factor)
-        d = tscrunch(d, cfg.tscrunch_factor)
-        weights = (self._stream_weights(w, d.shape[-1])
-                   if cfg.apply_weights else None)
+        d, weights = self._local_chain(raw)
         if mode in ("cumulative", "acc_hold", "acc_update"):
             rescale_state = accumulate(rescale_state, d, weights)
         if mode in ("cumulative", "acc_update"):

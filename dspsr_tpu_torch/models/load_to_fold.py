@@ -789,21 +789,29 @@ class FoldPipeline:
         self._rfi_resp = self._bare if rfi and not self._rfi_2pass else None
         self._rfi_primed = False
 
-    def _zap_response(self, pb: torch.Tensor):
-        """Chirp x zap mask from a block's passband ``[nchan_out, npol,
-        freq_res]`` (``zap_mask_perm`` of the JAX package, in natural bin
-        order): the passband median-filtered across each input channel's
-        band per (input channel, pol); a bin is zapped when any pol
-        exceeds ``rfi_threshold`` times its median."""
+    def _zap_mask(self, pb: torch.Tensor) -> torch.Tensor:
+        """The RFI zap mask ``[nchan_in, n_fft]`` from a block's passband
+        ``[nchan_in*nsub, npol, freq_res]`` (``zap_mask_perm`` of the JAX
+        package, in natural bin order): the passband median-filtered across
+        each input channel's band per (input channel, pol); a bin is zapped
+        when any pol exceeds ``rfi_threshold`` times its median.  The median
+        stays within each input channel, so a channel group's mask is the
+        band's rows of that group."""
         p = self.front_plan
         npol = self.obs_in.npol
-        flat = pb.reshape(p.nchan_in, p.nsub, npol, p.freq_res).permute(
-            0, 2, 1, 3).reshape(p.nchan_in, npol, p.n_fft)
+        nchan_in = pb.shape[0] // p.nsub
+        flat = pb.reshape(nchan_in, p.nsub, npol, p.freq_res).permute(
+            0, 2, 1, 3).reshape(nchan_in, npol, p.n_fft)
         med = median_filter_freq(flat, self.config.rfi_median_width)
         good = (flat <= self.config.rfi_threshold
                 * torch.clamp(med, min=1e-30)).to(torch.float32)
         mask = torch.amin(good, dim=1)  # [nchan_in, n_fft]
         self._count_zap("rfi", mask)
+        return mask
+
+    def _zap_response(self, pb: torch.Tensor):
+        """Chirp x zap mask (:meth:`_zap_mask`) from a block's passband."""
+        mask = self._zap_mask(pb)
         return self._bare[0] * mask, self._bare[1] * mask
 
     def _count_zap(self, kind: str, keep: torch.Tensor) -> None:
@@ -821,23 +829,44 @@ class FoldPipeline:
         """One block through the fused front end and the per-block half of
         the tail (:meth:`_block_tail`): ``(d, weights, w_presk, extras)``.
         Advances the carried RFI response."""
-        p = self.front_plan
+        return self._block_tail(*self._hybrid_front(raw))
+
+    def _hybrid_front(self, raw: torch.Tensor):
+        """One block through the fused front end: ``(d, power, weights,
+        pb)`` for the tail.  Advances the carried RFI response; the
+        two-pass RFI filter (``rfi_same_block``) carries nothing from block
+        to block, so the sharded pipeline's time shards call this too."""
         if self._rfi_2pass:
-            # measure the block's passband with the bare chirp, then zap
-            # this same block (RFIFilter.C's same-interval semantics)
-            resp = self._zap_response(self._front(raw, *self._bare)[-1])
+            out = self._two_pass(self._front, raw, *self._bare)
         else:
-            resp = self._rfi_resp or ()
-        out = self._front(raw, *resp)
-        data, wwin = out[0], out[1]
-        pb = out[2] if len(out) > 2 else None
+            out = self._front(raw, *(self._rfi_resp or ()))
         if self._rfi_resp is not None:
             # this block's mask applies from the next block on
-            self._rfi_resp = self._zap_response(pb)
+            self._rfi_resp = self._zap_response(out[2])
+        return self._front_planes(out)
+
+    def _two_pass(self, front, raw, gr, gi, extra=()):
+        """The state-free two-pass RFI filter on one block: a pass of
+        ``front`` with the bare chirp ``(gr, gi)`` measures the block's
+        passband, whose zap mask (:meth:`_zap_mask`, channel-local)
+        multiplies the chirp of a second pass over this same block
+        (RFIFilter.C's same-interval semantics).  ``extra`` is the
+        per-call Jones response, if any.  Returns the second pass's
+        outputs."""
+        mask = self._zap_mask(front(raw, gr, gi, *extra)[2])
+        return front(raw, gr * mask, gi * mask, *extra)
+
+    def _front_planes(self, out):
+        """A hybrid front end's outputs ``(data, wwin[, pb])`` as the tail's
+        ``(d, power, weights, pb)``: the per-window weights over each
+        window's nkeep outputs and over the input channel's subbands (the
+        cyclic lags end the block nlag - 1 samples early), the detected
+        state from the front planes (the voltage itself for cyclic
+        folding), and the per-pol power SK reads."""
+        p = self.front_plan
+        data, wwin = out[0], out[1]
+        pb = out[2] if len(out) > 2 else None
         nchan_out, ndat_out = data.shape[0], self.out_per_block
-        # per-window weights over each window's nkeep outputs and over the
-        # input channel's subbands; the cyclic lags end the block nlag - 1
-        # samples early
         weights = wwin.repeat_interleave(p.nsub, dim=0)[:, :, None].expand(
             nchan_out, self.npart, p.nkeep).reshape(nchan_out, -1)[
                 :, :ndat_out]
@@ -848,7 +877,43 @@ class FoldPipeline:
         else:
             d = from_front_planes(data, self.det_state, p.npol_out)
             power = data[:, :2] if p.npol_out >= 2 else data[:, :1]
-        return self._block_tail(d, power, weights, pb)
+        return d, power, weights, pb
+
+    def shard_front(self, front_plan: MegaPlan, cst: MegaConstants):
+        """The hybrid front end of one channel group for the
+        channel-sharded mesh (``_build_hybrid_step(chan_sharded=True)`` of
+        the JAX package, up to its tail): ``step(raw, gr, gi, jones) ->
+        (d, power, weights, pb)`` for the tail (:meth:`_block_tail`).
+        ``front_plan`` is the front plan with the group's ``nchan_in``;
+        ``cst`` its constants, whose chirp slot is ones.  ``gr``/``gi`` are
+        the group's rows of the band's chirp (ones under a Jones response,
+        which carries the chirp), ``jones`` its rows of the Jones response
+        (None without one), handed to ``build_megafil`` on each call
+        (``response_as_args``, ``jones_as_args``).  The RFI filter runs in
+        its state-free two-pass form (the sharded pipeline sets
+        ``rfi_same_block``, :meth:`_two_pass`) on the group's chirp rows."""
+        cfg = self.config
+        rfi = bool(cfg.rfi_filter)
+        if rfi and not cfg.rfi_same_block:
+            raise ValueError("a sharded RFI filter runs in two passes a "
+                             "block (rfi_same_block)")
+        jones_args = self.jones is not None
+        chirp_args = rfi or not jones_args
+        front = build_megafil(
+            front_plan, cst, self.npart, return_weights=True,
+            output="voltage" if self.cyclic_plan is not None else "detected",
+            passband=cfg.passband or rfi, response_as_args=chirp_args,
+            jones_as_args=jones_args)
+
+        def step(raw, gr, gi, jones=None):
+            extra = (jones,) if jones_args else ()
+            if rfi:
+                out = self._two_pass(front, raw, gr, gi, extra)
+            else:
+                out = front(raw, *((gr, gi) if chirp_args else ()), *extra)
+            return self._front_planes(out)
+
+        return step
 
     def _build_general(self, win) -> None:
         """The general chain's constants on the device: the apodization
@@ -874,12 +939,25 @@ class FoldPipeline:
     def _general_block(self, raw: torch.Tensor):
         """One block through the general chain (the JAX package's
         ``_step_core``, unsharded) and the per-block half of the tail:
-        ``(d, weights, w_presk, extras)``.  The passband is read from the
-        forward spectra, the RFI filter zaps each block with its own
+        ``(d, weights, w_presk, extras)``."""
+        return self._block_tail(*self._general_front(raw))
+
+    def _general_front(self, raw: torch.Tensor, chan_ix: int = 0,
+                       n_chan_shards: int = 1):
+        """One block through the general chain up to its tail: ``(d, power,
+        weights, pb)`` for :meth:`_block_tail`.  The passband is read from
+        the forward spectra, the RFI filter zaps each block with its own
         bandpass, and SK power and cyclic lag products come from the
-        voltage ``y``."""
+        voltage ``y``.  On a channel shard (``chan_ix`` of
+        ``n_chan_shards``) only its output channels go on, as in the JAX
+        package's ``_step_core``: the forward transform covers the block,
+        and its spectra (with the filterbank; else the input channels) are
+        sliced before the response and the inverse."""
         cfg = self.config
         x, w = self.unpack_plan.unpack(raw)
+        local = self.obs_out.nchan // n_chan_shards
+        rows = slice(chan_ix * local, (chan_ix + 1) * local)
+        resp = self._resp
         pb = None
         if self.fb_plan is not None:
             spec = forward_spectra_chunked(x, self.fb_plan, self.npart,
@@ -889,33 +967,48 @@ class FoldPipeline:
             rfi = ((cfg.rfi_median_width, cfg.rfi_threshold)
                    if cfg.rfi_filter else None)
             spec = apply_response_chunked(
-                spec, self._resp, rfi_zap=rfi,
-                nchan_sub_present=self.fb_plan.nchan_subband)
+                spec[rows], None if resp is None else resp[rows],
+                rfi_zap=rfi,
+                nchan_sub_present=min(self.fb_plan.nchan_subband, local))
             y = invert_subbands(spec, self.fb_plan)
-        elif self.conv_plan is not None:
-            conv = (overlap_save_convolve_jones if self.jones is not None
-                    else overlap_save_convolve)
-            y = conv(x, self._resp, self.conv_plan, self.npart, self._apod)
         else:
-            y = x
+            # one output channel an input channel: slice the input
+            x = x[rows]
+            if self.conv_plan is None:
+                y = x
+            elif self.jones is not None:
+                y = overlap_save_convolve_jones(
+                    x, tuple(r[rows] for r in resp), self.conv_plan,
+                    self.npart, self._apod)
+            else:
+                y = overlap_save_convolve(x, resp[rows], self.conv_plan,
+                                          self.npart, self._apod)
         ndat = y.shape[-1]
         if self.cyclic_plan is not None:
             ndat -= self.cyclic_plan.nlag - 1
-        weights = self._stream_weights(w, ndat)
+        weights = self._stream_weights(w, ndat, chan_ix, n_chan_shards)
         d = y if self.cyclic_plan is not None else detect(y, self.det_state)
         power = _power(y) if self.sk_plan is not None else None
-        return self._block_tail(d, power, weights, pb)
+        return d, power, weights, pb
 
-    def _stream_weights(self, w, nuse: int) -> torch.Tensor:
+    def _stream_weights(self, w, nuse: int, chan_ix: int = 0,
+                        n_chan_shards: int = 1) -> torch.Tensor:
         """The unpacker's block weights on the output samples, ``[nchan_out,
         nuse]`` (JAX ``load_to_fold.py:1513-1563``): an output sample is bad
         when any input sample of the FFT window that made it was
         (``window_weights``).  Ones without weights (or with a block
-        shorter than one weight span)."""
-        nchan = self.obs_out.nchan
+        shorter than one weight span).  On a channel shard (``chan_ix`` of
+        ``n_chan_shards``), the shard's output channels only, from the
+        input channels that make them."""
+        nchan = self.obs_out.nchan // n_chan_shards
         if w is None or w.shape[1] == 0:
             return torch.ones((nchan, nuse), dtype=torch.float32,
                               device=self.device)
+        if n_chan_shards > 1:
+            nsub = self.obs_out.nchan // self.obs_in.nchan
+            nrows = max(nchan // nsub, 1)
+            start = (chan_ix * nchan) // nsub
+            w = w[start:start + nrows]
         nchan_in, nweights = w.shape
         npw = self.config.ndat_per_weight
         plan = self.fb_plan or self.conv_plan
@@ -931,13 +1024,17 @@ class FoldPipeline:
                                             npw).reshape(nchan_in, -1)
         return expanded[:, :nuse].repeat_interleave(nchan // nchan_in, dim=0)
 
-    def _block_tail(self, d, power, weights, pb):
+    def _block_tail(self, d, power, weights, pb, sk_pooled=None,
+                    chan_offset: int = 0):
         """The per-block half of the tail both non-full engines share:
         fourth moments of the detected ``d``, the SK mask from the per-pol
         ``power`` (over the block's ``weights.shape[1]`` output samples),
         and the dump, passband (``pb``) and pdmp extras.  Returns ``(d,
         weights, w_presk, extras)``: ``weights`` after the SK mask,
-        ``w_presk`` those before it (``-noskz_too``)."""
+        ``w_presk`` those before it (``-noskz_too``).  On a channel shard
+        whose first output channel is ``chan_offset``, ``sk_pooled`` are
+        the band's frequency-scrunched SK sums (``sk_fscr_sums`` of every
+        shard, added)."""
         cfg = self.config
         nchan_out, ndat_out = weights.shape
         if cfg.fourth_moment:
@@ -945,7 +1042,8 @@ class FoldPipeline:
         w_presk = weights if self._presk_index is not None else None
         if self.sk_plan is not None:
             M = self.sk_plan.M
-            skm = sk_mask(power, self.sk_plan, ndat_out // M)
+            skm = sk_mask(power, self.sk_plan, ndat_out // M, sk_pooled,
+                          self.obs_out.nchan, chan_offset)
             self._count_zap("sk", skm)
             skw = expand_mask(skm, M)
             if skw.shape[-1] < ndat_out:
@@ -1106,6 +1204,8 @@ class FoldPipeline:
             # the lag products consume nlag - 1 samples of each block
             self.out_per_block -= self.cyclic_plan.nlag - 1
         self.stride_in_samples = self.npart * self.nsamp_step
+        #: input samples a block shares with the next (its halo, sharded)
+        self.nsamp_overlap = self.block_in_samples - self.stride_in_samples
 
     # ---- host streaming loop (SingleThread::run equivalent) ----
 

@@ -67,9 +67,6 @@ from ..unpack.unpackers import (
     bytes_to_codes, reorder_bytes_tfp, twobit_levels, twobit_nlow)
 from .fold import compute_bins
 
-_SHARDED = "ROADMAP.md Queue 1 item 10 (channel-sharded steps)"
-
-
 def _pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
@@ -534,7 +531,7 @@ def _unpack_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
-                 gi=None, voltage: bool = False):
+                 gi=None, voltage: bool = False, jones=None):
     """The front end both plain steps share: unpack (:func:`_unpack_plain`),
     the spectrum of each window times the apodization window when there is
     one (real input: ``rfft``, Nyquist dropped; complex input: ``fft`` then
@@ -546,16 +543,16 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     the JA98 window weights ``[nchan_in, npart]`` (``None`` without JA98).
     With ``voltage`` the first is the undetected complex ``[nchan_in, npol,
     npart, nsub, nkeep]`` of every input pol instead, with the sign of
-    :func:`voltage_sign_flips`.  With a Jones response (``cst.jones``) both
-    input pols are transformed, and output pol ``p`` is the mix ``J[p, 0]
-    X_0 + J[p, 1] X_1`` before the scalar chirp slot."""
+    :func:`voltage_sign_flips`.  With a Jones response (``jones``, default
+    ``cst.jones``) both input pols are transformed, and output pol ``p`` is
+    the mix ``J[p, 0] X_0 + J[p, 1] X_1`` before the scalar chirp slot."""
     p = plan
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     nchan, M = p.nchan_in, p.freq_res
     x, wgt = _unpack_plain(p, cst, raw, npart, dtype)
     x = x[:, :, 0] if p.real_input else torch.complex(x[:, :, 0], x[:, :, 1])
     pols = list(range(p.npol)) if voltage else list(fold_pols(p))
-    jones = cst.jones
+    jones = cst.jones if jones is None else jones
     if not passband and jones is None:
         x = x[:, pols]
     win = x.unfold(-1, p.nsamp_fft, p.nsamp_step)  # [nchan, npolf, npart, L]
@@ -590,23 +587,24 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                    hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
-                   dphi: torch.Tensor, bounds=None):
+                   dphi: torch.Tensor, bounds=None, gr=None, gi=None):
     """Plain PyTorch version of the fused step (``torch.fft`` and
     ``index_add_``), in the dtype of ``profiles`` (float32 or float64); the
     phase is float32 whatever that dtype.
 
     profiles ``[nchan_in, nplane, nsub, nbin]``, hits ``[nchan_in, nbin]``,
     raw uint8 flat bytes of one block in the plan's layout, phi0/dphi
-    ``[npart]`` per-window anchors, bounds ``None`` or ``(lo, hi)``.
-    Returns new ``(profiles, hits)``.  A JA98 plan's window weights
-    multiply each window's samples and hits (the reference's weight in the
-    fold's one-hot, ``mega_reference``).
+    ``[npart]`` per-window anchors, bounds ``None`` or ``(lo, hi)``,
+    ``gr``/``gi`` the chirp (default the constants', float ``[nchan_in,
+    n_fft]``, natural bin order).  Returns new ``(profiles, hits)``.  A
+    JA98 plan's window weights multiply each window's samples and hits
+    (the reference's weight in the fold's one-hot, ``mega_reference``).
     """
     p = plan
     npart = phi0.shape[0]
     dtype = profiles.dtype
     nchan = p.nchan_in
-    planes, _, wgt = _front_plain(p, cst, raw, npart, dtype)
+    planes, _, wgt = _front_plain(p, cst, raw, npart, dtype, gr=gr, gi=gi)
 
     lo, hi = bounds_pair(bounds)
     g = torch.arange(npart * p.nkeep, device=raw.device)
@@ -625,10 +623,16 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     return profiles + blk, hits + hblk
 
 
-def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
+def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
+                   response_as_args: bool = False):
     """The fused fold step for ``npart`` windows a block:
     ``step(profiles, hits, raw, phi0, dphi, bounds=None) -> (profiles,
-    hits)``.  On CUDA tensors it launches the hand-written kernel
+    hits)``, or with ``response_as_args`` ``step(profiles, hits, raw, phi0,
+    dphi, gr, gi, bounds=None)``: the chirp handed in on each call, float32
+    ``[nchan_in, n_fft]`` in natural bin order (the channel-sharded step
+    passes its channel group's rows of the full-band chirp; the JAX package
+    passes its permuted ``[nchan_in, R1, R2]`` layout instead).  On CUDA
+    tensors it launches the hand-written kernel
     (``kernels.megastep.megastep_cuda``); on CPU tensors it runs
     :func:`megastep_plain`.  ``cst`` holds tensors on the step's device.
     A Jones response raises: it runs on the hybrid engine's front end, as
@@ -640,18 +644,21 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int):
             "on the hybrid engine (build_megafil), as the JAX package does; "
             "see ROADMAP.md Queue 2 item 1")
 
-    def step(profiles, hits, raw, phi0, dphi, bounds=None):
+    def step_args(profiles, hits, raw, phi0, dphi, gr, gi, bounds=None):
         if phi0.shape != (npart,):
             raise ValueError(f"phi0 shape {tuple(phi0.shape)} != ({npart},)")
         if raw.is_cuda:
             from ..kernels.megastep import megastep_cuda
 
             return megastep_cuda(plan, cst, profiles, hits, raw, phi0, dphi,
-                                 bounds)
+                                 bounds, gr, gi)
         return megastep_plain(plan, cst, profiles, hits, raw, phi0, dphi,
-                              bounds)
+                              bounds, gr, gi)
 
-    return step
+    def step(profiles, hits, raw, phi0, dphi, bounds=None):
+        return step_args(profiles, hits, raw, phi0, dphi, None, None, bounds)
+
+    return step_args if response_as_args else step
 
 
 # --------------------------------------------------------------------------
@@ -671,7 +678,7 @@ def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
 def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                   npart: int, dtype=torch.float32, passband: bool = False,
                   gr=None, gi=None, output: str = "detected",
-                  return_weights: bool = False):
+                  return_weights: bool = False, jones=None):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
     in ``dtype`` (float32 or float64): raw uint8 flat bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
@@ -683,12 +690,13 @@ def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     ones); with ``passband`` last the pre-chirp passband ``[nchan_in*nsub,
     npol, freq_res]`` of every input pol, summed over the block's windows.
     ``gr``/``gi`` replace the constants' chirp (float ``[nchan_in, n_fft]``,
-    natural bin order).  The data are not weighted, as in the JAX
-    package."""
+    natural bin order), ``jones`` their Jones response (float ``[nchan_in,
+    4, n_fft, 2]``, the layout of ``MegaConstants.jones``).  The data are
+    not weighted, as in the JAX package."""
     p = plan
     voltage = output == "voltage"
     planes, pb, wgt = _front_plain(p, cst, raw, npart, dtype, passband, gr,
-                                   gi, voltage)
+                                   gi, voltage, jones)
     # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
     # nkeep]: time order within each output channel
     data = planes.permute(0, 3, 1, 2, 4).reshape(
@@ -708,8 +716,10 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
                   response_as_args: bool = False,
                   jones_as_args: bool = False, inverse: str = "auto"):
     """The fused search front end for ``npart`` windows a block (the JAX
-    package's ``build_megafil``).  ``step(raw)``, or ``step(raw, gr, gi)``
-    with ``response_as_args``, returns ``data[, wgt][, pb]``:
+    package's ``build_megafil``).  ``step(raw)``, ``step(raw, gr, gi)``
+    with ``response_as_args``, ``step(raw, jones)`` with ``jones_as_args``
+    and ``step(raw, gr, gi, jones)`` with both, returns ``data[, wgt][,
+    pb]``:
 
     - ``data``: float32 ``[nchan_in*nsub, nplane, npart*nkeep]`` detected,
       time-ordered filterbank samples; with ``output="voltage"`` the
@@ -727,45 +737,48 @@ def build_megafil(plan: MegaPlan, cst: MegaConstants, npart: int,
     response in the permuted ``[k1, k2]`` layout of its TPU kernel and
     permutes every traced mask to match (``permute_response``); here the
     chirp and the passband are both in natural order, so a mask multiplies
-    the chirp as it is and no permutation exists.  A Jones response in
-    ``cst.jones`` mixes the two input pols before that chirp (every input
-    pol is then transformed).
+    the chirp as it is and no permutation exists.  A Jones response mixes
+    the two input pols before that chirp (every input pol is then
+    transformed): ``cst.jones``, or with ``jones_as_args`` the ``jones``
+    handed in on each call, float32 ``[nchan_in, 4, n_fft, 2]`` in the
+    layout of ``MegaConstants.jones`` (the channel-sharded step passes its
+    channel group's rows of the full-band response; the JAX package passes
+    a permuted ``(jxr, jxi)`` pair ``[nchan_in, 4, R1, R2]`` instead).
 
     On CUDA tensors the step launches the hand-written kernel
     (``kernels.megafil.megafil_cuda``; ``inverse="multipass"`` forces its
     multi-pass inverse where the one-CTA inverse would fit, for checks); on
     CPU tensors it runs :func:`megafil_plain`.  ``cst`` holds tensors on the
-    step's device.  The traced Jones planes (``jones_as_args``, which the
-    JAX package uses only for its channel-sharded step) raise
-    ``NotImplementedError``, as do fourth moments (the JAX kernel refuses
-    them too)."""
+    step's device.  Fourth moments raise ``NotImplementedError`` (the JAX
+    kernel refuses them too)."""
     if output not in ("detected", "voltage"):
         raise ValueError(f"unknown output mode: {output}")
     if inverse not in ("auto", "multipass"):
         raise ValueError(f"unknown inverse: {inverse}")
-    uncovered = (
-        (jones_as_args, "jones_as_args=True", _SHARDED),
-        (plan.fourth_moment, "fourth moments (applied after the front end)",
-         "ROADMAP.md Queue 1 item 6 (the hybrid tail applies them)"),
-    )
-    for bad, what, item in uncovered:
-        if bad:
-            raise NotImplementedError(
-                f"{what} on the fused search front end; see {item}")
+    if plan.fourth_moment:
+        raise NotImplementedError(
+            "fourth moments (applied after the front end) on the fused "
+            "search front end; see ROADMAP.md Queue 1 item 6 (the hybrid "
+            "tail applies them)")
+    if jones_as_args and plan.npol != 2:
+        raise ValueError("a Jones response needs npol == 2")
     plan.validate()
+    nargs = 2 * response_as_args + jones_as_args
 
-    def step(raw, *resp):
-        if len(resp) != (2 if response_as_args else 0):
-            raise TypeError("step(raw, gr, gi) with response_as_args, else "
-                            "step(raw)")
-        gr, gi = resp if resp else (None, None)
+    def step(raw, *args):
+        if len(args) != nargs:
+            raise TypeError(
+                "step(raw[, gr, gi][, jones]): gr, gi with "
+                "response_as_args, jones with jones_as_args")
+        gr, gi = args[:2] if response_as_args else (None, None)
+        jones = args[-1] if jones_as_args else None
         if raw.is_cuda:
             from ..kernels.megafil import megafil_cuda
 
             return megafil_cuda(plan, cst, raw, npart, passband, gr, gi,
-                                output, inverse, return_weights)
+                                output, inverse, return_weights, jones)
         return megafil_plain(plan, cst, raw, npart, passband=passband,
                              gr=gr, gi=gi, output=output,
-                             return_weights=return_weights)
+                             return_weights=return_weights, jones=jones)
 
     return step

@@ -12,6 +12,11 @@ A cell whose SK lies outside the Pearson-IV +/- n-sigma thresholds
 per (channel, cell), time-scrunched (one cell per channel over the block)
 and frequency-scrunched (S1 and S2 pooled over the channels).  Plain PyTorch
 reductions; thresholds are compared in float32, as the JAX package does.
+
+Over channel shards the frequency-scrunched round pools the whole band, as
+the JAX package's ``psum`` over its mesh axis does: each shard's
+:func:`sk_fscr_sums` are added across the shards, and :func:`sk_mask` reads
+the pooled sums with the band's channel count.
 """
 
 from __future__ import annotations
@@ -23,9 +28,6 @@ import numpy as np
 import torch
 
 from ..utils.stats import sk_limits
-
-_CHAN_SHARDED = "ROADMAP.md Queue 1 item 10 (channel-sharded pipeline)"
-
 
 @dataclass(frozen=True)
 class SKPlan:
@@ -64,20 +66,36 @@ def _inside(sk: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return ((sk > _f32(lo)) & (sk < _f32(hi))).to(torch.float32)
 
 
+def _cells(power: torch.Tensor, M: int, nblk: int) -> torch.Tensor:
+    nchan, npol = power.shape[0], power.shape[1]
+    return power[:, :, :nblk * M].reshape(nchan, npol, nblk, M)
+
+
+def sk_fscr_sums(power: torch.Tensor, plan: SKPlan,
+                 nblk: int) -> torch.Tensor:
+    """One channel group's share of the frequency-scrunched round: S1 and
+    S2 of every (pol, cell) summed over the group's channels, float32
+    ``[2, npol, nblk]``.  Added over the channel shards of a block, they
+    are :func:`sk_mask`'s ``pooled``."""
+    cells = _cells(power, plan.M, nblk)
+    return torch.stack([torch.sum(torch.sum(cells, dim=-1), dim=0),
+                        torch.sum(torch.sum(cells * cells, dim=-1), dim=0)])
+
+
 def sk_mask(power: torch.Tensor, plan: SKPlan, nblk: int,
-            axis_name: str = None, nchan_total: int = 0,
-            chan_offset=None) -> torch.Tensor:
+            pooled: torch.Tensor = None, nchan_total: int = 0,
+            chan_offset: int = 0) -> torch.Tensor:
     """The SK excision mask of one block: ``power [nchan, npol, ndat]``
     per-pol power ``|x|^2`` (``ndat >= nblk * plan.M``) -> weights
     ``float32 [nchan, nblk]``, 1 keep, 0 zap; a cell is zapped when any pol
-    trips.  The channel-sharded arguments (``axis_name``, ``nchan_total``,
-    ``chan_offset``) raise ``NotImplementedError``."""
-    if axis_name is not None or nchan_total or chan_offset is not None:
-        raise NotImplementedError(
-            "spectral kurtosis over sharded channels; see " + _CHAN_SHARDED)
+    trips.  On a channel shard, ``pooled`` is the band's
+    :func:`sk_fscr_sums` (every shard's added), whose thresholds take
+    ``Nd = nchan_total``, and ``power``'s first channel is channel
+    ``chan_offset`` of the band, for ``--skz_start/--skz_end`` (the JAX
+    package's ``axis_name`` form)."""
     nchan, npol = power.shape[0], power.shape[1]
     M = plan.M
-    cells = power[:, :, :nblk * M].reshape(nchan, npol, nblk, M)
+    cells = _cells(power, M, nblk)
     w = torch.ones((nchan, nblk), dtype=torch.float32, device=power.device)
 
     if plan.detect_cell:
@@ -93,13 +111,13 @@ def sk_mask(power: torch.Tensor, plan: SKPlan, nblk: int,
                            M * nblk)[:, :, 0]
         w = w * torch.amin(_inside(sk_t, lo_t, hi_t), dim=1)[:, None]
 
-    if plan.detect_fscr and nchan > 1:
+    if plan.detect_fscr and (nchan > 1 or pooled is not None):
         # S1/S2 pooled over the channels per (pol, cell): the generalized
-        # estimator with Nd = nchan
-        s1f = torch.sum(torch.sum(cells, dim=-1), dim=0)  # [npol, nblk]
-        s2f = torch.sum(torch.sum(cells * cells, dim=-1), dim=0)
+        # estimator with Nd = nchan (the band's, when sharded)
+        s1f, s2f = (sk_fscr_sums(power, plan, nblk) if pooled is None
+                    else pooled)
         Mf = float(M)
-        nd = float(nchan)
+        nd = float(nchan if pooled is None else nchan_total)
         sk_f = ((Mf * nd + 1.0) / (Mf * nd - 1.0)) * (
             Mf * nd * s2f / torch.clamp(s1f * s1f, min=1e-30) - 1.0)
         one_std = np.sqrt(4.0 / (M * nd))
@@ -108,8 +126,8 @@ def sk_mask(power: torch.Tensor, plan: SKPlan, nblk: int,
         w = w * torch.amin(_inside(sk_f, lo_g, hi_g), dim=0)[None, :]
 
     if plan.chan_start or plan.chan_end:
-        end = plan.chan_end or nchan
-        ix = torch.arange(nchan, device=power.device)
+        end = plan.chan_end or (nchan if pooled is None else nchan_total)
+        ix = torch.arange(nchan, device=power.device) + chan_offset
         in_range = (ix >= plan.chan_start) & (ix < end)
         w = torch.where(in_range[:, None], w, torch.ones_like(w))
 

@@ -6,8 +6,8 @@ nfilt 5/6).  The tolerance is the reference's own for its front end: 2e-5
 relative (``tests/test_megakernel.py:817``).
 
 Also: the step's CPU dispatch, constants carried from JAX, the CUDA
-wrapper's refusal of CPU tensors, the keywords the port does not cover yet
-(the traced Jones planes; the passband and the traced chirp are in
+wrapper's refusal of CPU tensors, the traced Jones planes of the
+channel-sharded step (the passband and the traced chirp are in
 ``test_torch_hybrid.py``, the voltage output in ``test_torch_cyclic.py``,
 the Jones mix in ``test_torch_jones.py``, nsub == 1 in
 ``test_torch_conv.py``), and the kernel build's tracking of shared
@@ -148,13 +148,44 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     dict(jones_as_args=True, response_as_args=True)],
     ids=lambda kw: "-".join(kw))
 def test_uncovered_keywords_raise(kw):
-    """The traced Jones planes serve the JAX package's channel-sharded step
-    only (multi-GPU, item 10); a Jones response in the constants runs
-    (``test_torch_jones.py``)."""
+    """The traced Jones planes (``jones_as_args``, the channel-sharded
+    step's) once raised here; they are ported.  Each keyword set builds,
+    and its step with the Jones response handed in on the call (and the
+    chirp, with ``response_as_args``) matches the JAX package's
+    ``build_megafil`` with the same keywords (Pallas in interpret mode,
+    its permuted ``jxr``/``jxi`` planes) at 2e-5, and the step with the
+    same response in its constants."""
     plan, raw, resp = _setup()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10"):
-        tmk.build_megafil(_tplan(plan), _port_cst(plan, resp), NPART, **kw)
+    rng = np.random.default_rng(len(kw))
+    shape = (plan.nchan_in, plan.n_fft, 2, 2)
+    J = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    scale, offset = jmk.unpack_affine(8)
+    jcst = jmk.MegaConstants(plan, None, dtype=np.float32,
+                             unpack_scale=scale, unpack_offset=offset,
+                             jones=J)
+    jargs = [jnp.asarray(jcst.gr), jnp.asarray(jcst.gi)] \
+        if kw.get("response_as_args") else []
+    jout = jmk.build_megafil(plan, jcst, NPART, interpret=True, **kw)(
+        jnp.asarray(raw), *jargs, jnp.asarray(jcst.jxr),
+        jnp.asarray(jcst.jxi))
+    tplan = _tplan(plan)
+    bare = tmk.MegaConstants.build(tplan, None, scale, offset).to("cpu")
+    jones = convert.jones_from_numpy(jcst.jxr, jcst.jxi, tplan, "cpu")
+    targs = [bare.gr, bare.gi] if kw.get("response_as_args") else []
+    t = torch.from_numpy(raw)
+    tout = tmk.build_megafil(tplan, bare, NPART, **kw)(t, *targs, jones)
+    held = tmk.build_megafil(
+        tplan, dataclasses.replace(bare, jones=jones), NPART,
+        **{k: v for k, v in kw.items() if not k.endswith("_as_args")})(t)
+    if not kw.get("passband"):
+        jout, tout, held = (jout,), (tout,), (held,)
+    if kw.get("output") == "voltage":
+        jout = (np.asarray(jout[0][0]) + 1j * np.asarray(jout[0][1]),
+                *jout[1:])
+    assert len(tout) == len(jout) == len(held)
+    for got, want, same in zip(tout, jout, held):
+        _close(got.numpy(), np.asarray(want))
+        assert torch.equal(got, same)
 
 
 def test_uncovered_plans_raise():

@@ -182,3 +182,43 @@ def test_uncovered_plans_raise(kw, cst_kw):
                       npw=kw.get("ndat_per_weight", 0), seed=len(str(kw))))
     args[-1] = cst_kw.get("window")
     close(port_step(*args), reference_step(*args))
+
+
+@pytest.mark.parametrize("bounds", [None, (7, 90)], ids=["whole", "bounds"])
+def test_chan_group_chirp_matches_full_band_and_jax(bounds):
+    """``build_megastep(response_as_args=True)``, the channel-sharded step:
+    the step of input channels 2-3 of a 4-channel band, fed those channels'
+    bytes and the band chirp's rows 2-3 on the call, equals the full-band
+    step's rows 2-3 (hits exactly), and the JAX package's step with the
+    same per-call chirp (its permuted rows; Pallas in interpret mode) at
+    2e-5.  Positional and keyword bounds both reach the kernel."""
+    plan, raw, resp, phi0, dphi = _setup(nchan_in=4, seed=3)
+    grp = dataclasses.replace(plan, nchan_in=2)
+    rows = slice(2, 4)
+    braw = np.ascontiguousarray(
+        raw.reshape(-1, 4, NPOL)[:, rows]).reshape(-1)
+    tplan, tgrp = (tmk.MegaPlan(**dataclasses.asdict(p)) for p in (plan, grp))
+    scale, offset = tmk.unpack_affine(8)
+    cst = tmk.MegaConstants.build(tplan, resp, scale, offset).to("cpu")
+    full = _port(plan, raw, resp, phi0, dphi, bounds, cst=cst)
+    step = tmk.build_megastep(tgrp, cst, NPART, response_as_args=True)
+    zeros = (torch.zeros(2, 1, NSUB, NBIN), torch.zeros(2, NBIN))
+    args = (*zeros, torch.from_numpy(braw), torch.from_numpy(phi0),
+            torch.from_numpy(dphi), cst.gr[rows], cst.gi[rows])
+    got = tuple(t.numpy() for t in step(*args, bounds))
+    kwd = tuple(t.numpy() for t in step(*args, bounds=bounds))
+    np.testing.assert_array_equal(got[0], kwd[0])
+    np.testing.assert_allclose(got[0], full[0][rows], rtol=1e-6, atol=1e-3)
+    np.testing.assert_array_equal(got[1], full[1][rows])
+    jcst = jmk.MegaConstants(plan, resp, dtype=np.float32,
+                             unpack_scale=scale, unpack_offset=offset)
+    jstep = jmk.build_megastep(grp, jcst, NPART, interpret=True,
+                               response_as_args=True)
+    extra = () if bounds is None else (jnp.asarray(bounds, jnp.float32),)
+    want = jstep(jnp.zeros((2, 1, NSUB, NBIN)), jnp.zeros((2, NBIN)),
+                 jnp.asarray(braw), jnp.asarray(phi0), jnp.asarray(dphi),
+                 jnp.asarray(jcst.gr)[rows], jnp.asarray(jcst.gi)[rows],
+                 *extra)
+    _close(got, tuple(np.asarray(a) for a in want))
+    with pytest.raises(TypeError, match="'gr' and 'gi'"):
+        step(*args[:5])

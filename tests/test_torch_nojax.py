@@ -5,8 +5,10 @@ dspsr_tpu_torch imports (the general chain's modules ``ops/fft.py`` and
 ``ops/polyphase.py`` among them), and its fold pipeline (full engine, on
 real and on complex input), its hybrid fold engine with in-stream spectral
 kurtosis, its search pipeline (to a SIGPROC file) and the general chain of
-both (fold with ``use_megakernel=False``, polyphase search) run on the CPU
-from inputs built with the port's own classes;
+both (fold with ``use_megakernel=False``, polyphase search) and the sharded
+pipelines (``parallel/*`` on a mesh of the CPU four times: fused time
+shards, hybrid channel shards with pooled SK, time-sharded search) run on
+the CPU from inputs built with the port's own classes;
 neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules`` afterwards.  Runs in
 a subprocess, since this test process has both loaded already."""
 
@@ -43,7 +45,10 @@ torch.set_num_threads(2)
 import dspsr_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(dspsr_tpu_torch.__path__,
                                               "dspsr_tpu_torch.")]
-assert {"dspsr_tpu_torch.ops.fft", "dspsr_tpu_torch.ops.polyphase"} <= set(mods)
+assert {"dspsr_tpu_torch.ops.fft", "dspsr_tpu_torch.ops.polyphase",
+        "dspsr_tpu_torch.parallel.sharded", "dspsr_tpu_torch.parallel.pipeline",
+        "dspsr_tpu_torch.parallel.search",
+        "dspsr_tpu_torch.parallel.multiproc"} <= set(mods)
 for name in mods:
     importlib.import_module(name)
 from dspsr_tpu_torch.io.sources import RawFileSource
@@ -96,6 +101,33 @@ with tempfile.TemporaryDirectory() as d:
                                  min_block_samples=4096), device="cpu")
     assert pipe.megafil_plan is None
     pipe.run(fil)
+    # the sharded pipelines on a mesh of the CPU four times: the fused fold
+    # step on time shards, the hybrid engine's SK pooled over 2 chan
+    # shards of 2 complex channels, and the time-sharded search
+    from dspsr_tpu_torch.parallel.pipeline import ShardedFoldPipeline
+    from dspsr_tpu_torch.parallel.search import ShardedFilPipeline
+    from dspsr_tpu_torch.parallel.sharded import make_mesh
+    cpu4 = [torch.device("cpu")] * 4
+    sh = ShardedFoldPipeline(RawFileSource(raw, obs), FoldConfig(**fold),
+                             make_mesh(4, 1, devices=cpu4))
+    assert sh.mega and sh.run().hits.sum() > 0
+    mc = obs.replace(nchan=2, ndim=2, state=Signal.ANALYTIC, rate=5e5)
+    sh = ShardedFoldPipeline(
+        RawFileSource(raw, mc),
+        FoldConfig(**dict(fold, nchan=8, frequency_resolution=128,
+                          sk_enable=True, sk_m=64)),
+        make_mesh(4, 2, devices=cpu4))
+    assert sh.hybrid_chan and sh.run().hits.sum() > 0
+    ShardedFilPipeline(RawFileSource(raw, obs),
+                       FilConfig(nchan=4, dispersion_measure=5.0,
+                                 block_parts=2, min_block_samples=0),
+                       make_mesh(4, 1, devices=cpu4)).run(fil)
+    if not torch.cuda.is_available():
+        try:
+            make_mesh(4)
+            raise AssertionError("make_mesh fell back to the CPU")
+        except RuntimeError:
+            pass
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(len(mods), loaded)
 """

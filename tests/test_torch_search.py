@@ -205,9 +205,20 @@ def test_digifil_cli(tmp_path):
         (tmp_path / "ref.fil").read_bytes()
     items, _ = read_sigproc_header(out)
     assert int(items["nchans"]) == 4 and int(items["nbits"]) == 8
-    with pytest.raises(NotImplementedError, match="item 10"):
-        digifil_app.main([path, "-o", out, "--threads", "2", "--device",
-                          "cpu", "-q"])
+    # --threads N: time shards (once refused, naming ROADMAP item 10), the
+    # JAX app's bytes within the 1-LSB rule
+    from dspsr_tpu.apps import digifil_app as jdigifil
+
+    args = [path, "-F", "4", "-D", "5", "--block-parts", "2",
+            "--block-samples", "0", "-c", "--threads", "2", "-q"]
+    assert digifil_app.main(args + ["-o", out, "--device", "cpu"]) == 0
+    jout = str(tmp_path / "jcli.fil")
+    assert jdigifil.main(args + ["-o", jout]) == 0
+    _, hdr = read_sigproc_header(out)
+    a = np.fromfile(jout, np.uint8)[hdr:].astype(np.int64)
+    b = np.fromfile(out, np.uint8)[hdr:].astype(np.int64)
+    assert a.size == b.size > 0
+    _assert_data_close(a, b, 8)
 
 
 @pytest.mark.parametrize("nbits", [1, 2, 4, 8, 32])

@@ -131,9 +131,43 @@ def test_sk_mask_matches_jax(kw):
 
 
 def test_sk_mask_sharded_raises():
-    p = torch.ones(2, 2, 128)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsk.sk_mask(p, tsk.SKPlan(64), 2, axis_name="chan", nchan_total=4)
+    """The channel-sharded SK round once raised here; it is ported.  Over 3
+    channel shards of 2, each shard's ``sk_fscr_sums`` added across the
+    shards give masks equal to the JAX ``sk_mask`` under ``shard_map`` with
+    its ``psum`` over the mesh axis (global Nd, ``chan_offset`` in global
+    channels), and to the unsharded mask, with the rule of
+    ``_assert_masks_agree``; the whole band and a channel range."""
+    for kw in (dict(), dict(chan_start=1, chan_end=4)):
+        _sharded_sk_case(kw)
+
+
+def _sharded_sk_case(kw):
+    import jax
+    from jax import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    p = _power(11)
+    nchan, nshard = p.shape[0], 3
+    nloc, nblk = nchan // nshard, p.shape[-1] // 64
+    jplan, tplan = jsk.SKPlan(64, **kw), tsk.SKPlan(64, **kw)
+    mesh = Mesh(np.array(jax.devices()[:nshard]), ("chan",))
+
+    def local(x):
+        ci = jax.lax.axis_index("chan")
+        return jsk.sk_mask(x, jplan, nblk, axis_name="chan",
+                           nchan_total=nchan, chan_offset=ci * nloc)
+
+    want = np.asarray(jax.jit(shard_map(
+        local, mesh=mesh, in_specs=P("chan"), out_specs=P("chan"),
+        check_vma=False))(jnp.asarray(p)))
+    parts = torch.from_numpy(p).split(nloc)
+    pooled = sum(tsk.sk_fscr_sums(x, tplan, nblk) for x in parts)
+    got = torch.cat([tsk.sk_mask(x, tplan, nblk, pooled, nchan, c * nloc)
+                     for c, x in enumerate(parts)]).numpy()
+    _assert_masks_agree(got, want, p, jplan, nblk)
+    whole = tsk.sk_mask(torch.from_numpy(p), tplan, nblk).numpy()
+    _assert_masks_agree(got, whole, p, jplan, nblk)
+    assert (got == 0).any() and (got == 1).any()
 
 
 @pytest.mark.parametrize("nbin,seg", [(32, 64), (1024, 250)])
