@@ -30,8 +30,18 @@ and prints timings:
   ``megastep`` after its JA98 pre-pass, on bytes made on the card whose
   clean blocks JA98 keeps, with saturated stretches that it excises.
 
+- the flagship band at the DMs of J1713+0747 (15.99: ``mega_j1713``,
+  ``search_j1713``) and J0613-0200 (38.78: ``mega_j0613``,
+  ``search_j0613``, and ``mega_analytic_j0613`` on complex input), where
+  freq_res (32768, 131072) is past one CTA's inverse: both kernels with
+  the multi-pass inverse at nsub 64 (the fold in its second pass), and at
+  J0613-0200 for real input the long row pass.
+
 Every unpack variant of both kernels (JA98, fixed-level 1/2/4-bit, float32,
-apodization windows) is held against plain at the test geometry first.
+apodization windows) is held against plain at the test geometry first, and
+so are the multi-pass inverse at nsub > 1 (forced, with the fold's
+shared-memory and global-atomic sums), the long row pass (forced) and the
+fold's external window weights.
 
 Then the general chain, which runs where neither fused kernel can and
 launches neither: the flagship fold with ``use_megakernel=False``
@@ -142,21 +152,36 @@ def block_samples(kind: str) -> int:
     return 1 << (24 if kind == "complex" else 25)
 
 
-def flagship_cfg(kind: str = "real", **kw):
+#: the flagship's DM (J0437-4715)
+FLAGSHIP_DM = 2.64
+
+
+def flagship_cfg(kind: str = "real", dm: float = FLAGSHIP_DM, **kw):
     from dspsr_tpu_torch.models.load_to_fold import FoldConfig
 
-    # mega_real_8bit, with J0437-4715's period in place of its polyco
+    # mega_real_8bit, with J0437-4715's period in place of its polyco (at
+    # every DM: the phase model only places the samples)
     kw = dict(dict(min_block_samples=block_samples(kind)), **kw)
-    return FoldConfig(folding_period=0.00575745, dispersion_measure=2.64,
+    return FoldConfig(folding_period=0.00575745, dispersion_measure=dm,
                       nchan=64, nbin=1024, block_parts=8, npol_out=1, **kw)
 
 
-def search_cfg(kind: str = "real"):
+def search_cfg(kind: str = "real", dm: float = FLAGSHIP_DM):
     from dspsr_tpu_torch.models.load_to_fil import FilConfig
 
     # megafil_search (bench.py:445-446)
-    return FilConfig(nchan=64, dispersion_measure=2.64, nbits=8,
+    return FilConfig(nchan=64, dispersion_measure=dm, nbits=8,
                      min_block_samples=block_samples(kind), block_parts=8)
+
+
+#: the flagship band (and its complex form) at the DMs of two millisecond
+#: pulsars that timing arrays time there, past one CTA's inverse: name ->
+#: (input kind, DM).  J1713+0747 (DM 15.99): freq_res 32768, R1 1024, R2
+#: 2048, q 32; J0613-0200 (DM 38.78): freq_res 131072, R2 8192, q 128,
+#: where real input takes the long row pass.
+DM_FOLD = {"mega_j1713": ("real", 15.99), "mega_j0613": ("real", 38.78),
+           "mega_analytic_j0613": ("complex", 38.78)}
+DM_SEARCH = {"search_j1713": ("real", 15.99), "search_j0613": ("real", 38.78)}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -328,6 +353,26 @@ def small_unequal() -> None:
     check(float((hk.double() - hp).abs().max()) == 0, "unequal pols hits")
 
 
+def dm_phases(card: str) -> dict:
+    """The flagship band at J1713+0747's and J0613-0200's DMs
+    (``DM_FOLD``, ``DM_SEARCH``), where the inverse is past one CTA: for
+    each, one block against plain with each kernel's time and the passes'
+    bounds, 3 blocks through the pipeline (launches counted), and the
+    device-fed rate.  Returns the launches and largest errors."""
+    out = dict(megastep=0, megafil=0, err_megastep=0.0, err_megafil=0.0)
+    for name, (kind, dm) in DM_FOLD.items():
+        st = flagship_block(card, kind, dm, name)
+        out["megastep"] += main_path(card, kind, dm, name)
+        pipeline_rates(card, kind, dm, host=False)
+        out["err_megastep"] = max(out["err_megastep"], st["max_abs_err"])
+    for name, (kind, dm) in DM_SEARCH.items():
+        st = search_block(card, kind, dm, name)
+        out["megafil"] += search_path(card, kind, dm, name)
+        search_rates(card, kind, dm, host=False)
+        out["err_megafil"] = max(out["err_megafil"], st["max_abs_err"])
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card (CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -347,9 +392,11 @@ def block_bytes(pipe) -> int:
             * obs.nbit // 8)
 
 
-def flagship_block(card: str, kind: str = "real") -> dict:
-    """One flagship block of ``kind``: kernel against plain (both f32) on
-    device noise, then both timed."""
+def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+                   name: str = "flagship") -> dict:
+    """One flagship block of ``kind`` at ``dm``: kernel against plain (both
+    f32) on device noise, then both timed, with each kernel's time and, on
+    the multi-pass inverse and the long row pass, each pass's bound."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
     from dspsr_tpu_torch.ops.fold import compute_anchors
@@ -357,9 +404,10 @@ def flagship_block(card: str, kind: str = "real") -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
-                        device="cuda")
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)),
+                        flagship_cfg(kind, dm), device="cuda")
     plan = pipe.mega_plan
+    check(pipe.mega_mode == "full", f"{name}: mega_mode {pipe.mega_mode}")
     check(plan.real_input == (kind != "complex")
           and plan.interleave == ("caspsr" if kind == "caspsr" else "tfp"),
           f"flagship {kind} plan {plan}")
@@ -378,16 +426,17 @@ def flagship_block(card: str, kind: str = "real") -> dict:
     err = rel_err(pk, pp)
     abs_err = float((pk - pp).abs().max())
     hdiff = float((hk - hp).abs().max())
-    print(f"flagship {kind} block (nsub {plan.nsub} freq_res {plan.freq_res}"
-          f" R1 {plan.R1} R2 {plan.R2}, npart {pipe.npart}, raw "
+    print(f"{name} {kind} block (DM {dm}: nsub {plan.nsub} freq_res "
+          f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} q {plan.q}, npart "
+          f"{pipe.npart}, raw "
           f"{raw.numel()} B): rel err {err:.3e} (abs {abs_err:.3e}), hits "
           f"diff {hdiff}, hits sum {float(hk.sum())}", flush=True)
-    check(bool(torch.isfinite(pk).all()), f"finite flagship {kind} profiles")
-    check(err < TOL_FLAGSHIP, f"flagship {kind} rel err {err} >= "
+    check(bool(torch.isfinite(pk).all()), f"finite {name} {kind} profiles")
+    check(err < TOL_FLAGSHIP, f"{name} {kind} rel err {err} >= "
           f"{TOL_FLAGSHIP}")
-    check(hdiff == 0, f"flagship {kind} hits differ")
+    check(hdiff == 0, f"{name} {kind} hits differ")
     check(float(hk.sum()) == plan.nkeep * pipe.npart,
-          f"flagship {kind} hit total")
+          f"{name} {kind} hit total")
 
     kernel_ms = cuda_ms(
         lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), 10)
@@ -399,12 +448,15 @@ def flagship_block(card: str, kind: str = "real") -> dict:
     nbytes = (raw.numel() + 8 * pipe.constants.gr.numel()
               + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
     bound = bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf))
-    print(f"kernel per flagship {kind} block: {kernel_ms:.3f} ms; plain: "
+    print(f"kernel per {name} {kind} block: {kernel_ms:.3f} ms; plain: "
           f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}); block = {sky_ms:.2f} ms of sky [{card}]",
           flush=True)
-    kernel_breakdown(lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi),
-                     card, label=f" ({kind} fold)")
+    times = kernel_breakdown(
+        lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), card,
+        label=f" ({name} {kind} fold)")
+    pass_bounds(card, name, plan, pipe.npart, nf,
+                8 * (prof0.numel() + hits0.numel()), times)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 
@@ -454,18 +506,19 @@ def kernel_breakdown(fn, card: str, reps: int = 5, label: str = "",
     return times
 
 
-def main_path(card: str, kind: str = "real") -> int:
-    """The port's fold main path at the flagship size on ``kind`` input;
-    returns the megastep launches of the first (unsplit) run.  For real
-    input it then checks sub-integrations whose boundaries fall
-    mid-block."""
+def main_path(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+              name: str = "main path") -> int:
+    """The port's fold main path at the flagship size on ``kind`` input at
+    ``dm``; returns the megastep launches of the first (unsplit) run.  For
+    the flagship's real input it then checks sub-integrations whose
+    boundaries fall mid-block."""
     from dspsr_tpu_torch import launch_counts, reset_launch_counts
     from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
 
     nblocks = 3
-    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
-                        device="cuda")
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)),
+                        flagship_cfg(kind, dm), device="cuda")
     reset_launch_counts()
     with NoLibraryFFT():
         t0 = time.perf_counter()
@@ -484,13 +537,13 @@ def main_path(card: str, kind: str = "real") -> int:
     prof = res.normalized()[0, :, 0, :]
     check(bool((prof.std(axis=1) > 0).all()), f"{kind}: flat profiles")
     msps = nblocks * pipe.stride_in_samples / wall / 1e6
-    print(f"main path ({kind}, {pipe.mega_plan.interleave}, "
+    print(f"{name} ({kind}, {pipe.mega_plan.interleave}, DM {dm}, "
           f"{pipe.obs_in.rate / 1e6:.0f} Msamp/s): {nblocks} blocks, "
           f"{launches} megastep launches, hits/chan {int(per_chan[0])}; "
           f"host-fed incl. first-block warm-up {msps:.1f} Msamp/s, "
           f"{msps / (pipe.obs_in.rate / 1e6):.4f} x real time [{card}]",
           flush=True)
-    if kind != "real":
+    if kind != "real" or dm != FLAGSHIP_DM:
         return launches
 
     # sub-integrations whose boundary falls mid-block (60 ms divisions,
@@ -515,20 +568,24 @@ def main_path(card: str, kind: str = "real") -> int:
     return launches
 
 
-def pipeline_rates(card: str, kind: str = "real") -> None:
-    """Host-fed and device-fed rates of the flagship fold pipeline (warm),
-    in Msamp/s and as a real-time factor (seconds of sky per second)."""
+def pipeline_rates(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+                   host: bool = True) -> None:
+    """Host-fed (unless not ``host``) and device-fed rates of the flagship
+    fold pipeline at ``dm`` (warm), in Msamp/s and as a real-time factor
+    (seconds of sky per second)."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
     from dspsr_tpu_torch.ops.fold import compute_anchors
 
     nblocks = 3
-    pipe = FoldPipeline(DummySource(flagship_obs(kind)), flagship_cfg(kind),
-                        device="cuda")
-    t0 = time.perf_counter()
-    pipe.run(max_blocks=nblocks)
-    wall = time.perf_counter() - t0
-    host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    pipe = FoldPipeline(DummySource(flagship_obs(kind)),
+                        flagship_cfg(kind, dm), device="cuda")
+    host_msps = 0.0
+    if host:
+        t0 = time.perf_counter()
+        pipe.run(max_blocks=nblocks)
+        wall = time.perf_counter() - t0
+        host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
 
     plan = pipe.mega_plan
     nbytes = block_bytes(pipe)
@@ -549,8 +606,10 @@ def pipeline_rates(card: str, kind: str = "real") -> None:
     ms = cuda_ms(lambda: block(next(it)), nb)
     dev_msps = pipe.stride_in_samples / (ms * 1e-3) / 1e6
     rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s
-    print(f"pipeline ({kind}) host-fed (DummySource bytes, pinned copy): "
-          f"{host_msps:.1f} Msamp/s ({host_msps / rt:.4f} x real time); "
+    host_text = (f"host-fed (DummySource bytes, pinned copy): "
+                 f"{host_msps:.1f} Msamp/s ({host_msps / rt:.4f} x real "
+                 f"time); " if host else "")
+    print(f"pipeline ({kind}, DM {dm}) {host_text}"
           f"device-fed (device_noise_bytes): {ms:.3f} ms a block, "
           f"{dev_msps:.1f} Msamp/s ({dev_msps / rt:.3f} x real time); real "
           f"time is {rt:.0f} Msamp/s [{card}]", flush=True)
@@ -643,24 +702,27 @@ def small_checks_voltage(kind: str = "real") -> None:
                   f"{TOL_SMALL}")
 
 
-def search_block(card: str, kind: str = "real") -> dict:
-    """One flagship search block of ``kind``: the megafil kernel against
-    plain (both f32) on device noise, then both timed."""
+def search_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+                 name: str = "flagship") -> dict:
+    """One flagship search block of ``kind`` at ``dm``: the megafil kernel
+    against plain (both f32) on device noise, then both timed."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
     from dspsr_tpu_torch.ops.megakernel import fold_pols, megafil_plain
 
-    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
+    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind, dm),
                        device="cuda")
     plan = pipe.megafil_plan
+    check(plan is not None, f"{name}: no fused search plan")
     raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
     got = pipe._megafil(raw)
     want = megafil_plain(plan, pipe.constants, raw, pipe.npart)
     torch.cuda.synchronize()
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
-    print(f"flagship {kind} search block: plan nsub {plan.nsub} freq_res "
-          f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} nkeep {plan.nkeep}, "
+    print(f"{name} {kind} search block (DM {dm}): plan nsub {plan.nsub} "
+          f"freq_res {plan.freq_res} R1 {plan.R1} R2 {plan.R2} nkeep "
+          f"{plan.nkeep}, "
           f"npart {pipe.npart}; output {tuple(got.shape)}; rel err "
           f"{err:.3e} (abs {abs_err:.3e})", flush=True)
     check(tuple(got.shape) == (64, 1, pipe.npart * plan.nkeep),
@@ -675,31 +737,35 @@ def search_block(card: str, kind: str = "real") -> dict:
     nf = len(fold_pols(plan))
     nbytes = raw.numel() + 8 * pipe.constants.gr.numel() + 4 * got.numel()
     bound = bound_of(nbytes, front_ops(plan, pipe.npart, nf, nf))
-    print(f"megafil kernel per flagship {kind} search block: "
+    print(f"megafil kernel per {name} {kind} search block: "
           f"{kernel_ms:.3f} ms; plain: {plain_ms:.3f} ms; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); block = "
           f"{sky_ms:.2f} ms of sky [{card}]", flush=True)
-    kernel_breakdown(lambda: pipe._megafil(raw), card,
-                     label=f" ({kind} search)")
+    times = kernel_breakdown(lambda: pipe._megafil(raw), card,
+                             label=f" ({name} {kind} search)")
+    pass_bounds(card, name, plan, pipe.npart, nf, 4 * got.numel(), times)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 
 
-def search_path(card: str, kind: str = "real") -> int:
+def search_path(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+                name: str = "search path") -> int:
     """The port's search main path at the megafil_search width on ``kind``
-    input, through ``FilPipeline.run`` to a SIGPROC file; returns the
-    megafil launches."""
+    input at ``dm``, through ``FilPipeline.run`` to a SIGPROC file; returns
+    the megafil launches."""
     from dspsr_tpu_torch import launch_counts, reset_launch_counts
     from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.io.sigproc import read_sigproc_header
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
-    file_block = 16_896_000  # 64 chans x 264,000 samples x 8 bits
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "search.fil")
-        pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
-                           device="cuda")
+        pipe = FilPipeline(DummySource(flagship_obs(kind)),
+                           search_cfg(kind, dm), device="cuda")
+        # 64 chans x the block's output samples x 8 bits (16,896,000 B at
+        # the flagship's DM)
+        file_block = 64 * pipe.npart * pipe.megafil_plan.nkeep
         reset_launch_counts()
         with NoLibraryFFT():
             t0 = time.perf_counter()
@@ -726,7 +792,7 @@ def search_path(card: str, kind: str = "real") -> int:
     mean, std = float(data.mean()), float(data.std())
     clipped = float((data == 255).mean())
     msps = nblocks * pipe.stride_in_samples / wall / 1e6
-    print(f"search path ({kind}): {nblocks} blocks, {counts['megafil']} "
+    print(f"{name} ({kind}, DM {dm}): {nblocks} blocks, {counts['megafil']} "
           f"megafil and {counts['megastep']} megastep launches; file {size} "
           f"B (header {hdr}); nchans {items['nchans']} nbits "
           f"{items['nbits']} tsamp {items['tsamp']}; bytes mean {mean:.4f} "
@@ -740,28 +806,33 @@ def search_path(card: str, kind: str = "real") -> int:
     return counts["megafil"]
 
 
-def search_rates(card: str, kind: str = "real") -> None:
-    """Host-fed and device-fed rates of the search pipeline (warm)."""
+def search_rates(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
+                 host: bool = True) -> None:
+    """Host-fed (unless not ``host``) and device-fed rates of the search
+    pipeline at ``dm`` (warm)."""
     from dspsr_tpu_torch.io.sources import DummySource
     from dspsr_tpu_torch.io.sigproc import SigProcWriter
     from dspsr_tpu_torch.models.load_to_fil import FilPipeline
 
     nblocks = 3
-    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind),
+    pipe = FilPipeline(DummySource(flagship_obs(kind)), search_cfg(kind, dm),
                        device="cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        with SigProcWriter(os.path.join(tmp, "r.fil"), pipe.obs_out,
-                           8) as out:
-            pipe.run_writer(out, max_blocks=1)  # warm-up
-            t0 = time.perf_counter()
-            pipe.run_writer(out, max_blocks=nblocks)
-            wall = time.perf_counter() - t0
-    host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
+    host_msps = 0.0
+    if host:
+        with tempfile.TemporaryDirectory() as tmp:
+            with SigProcWriter(os.path.join(tmp, "r.fil"), pipe.obs_out,
+                               8) as out:
+                pipe.run_writer(out, max_blocks=1)  # warm-up
+                t0 = time.perf_counter()
+                pipe.run_writer(out, max_blocks=nblocks)
+                wall = time.perf_counter() - t0
+        host_msps = nblocks * pipe.stride_in_samples / wall / 1e6
     dev_msps = search_device_fed(pipe)
     rt = pipe.obs_in.rate / 1e6  # the recording rate, Msamp/s
-    print(f"search pipeline ({kind}) host-fed (DummySource bytes, pinned "
-          f"copy, SIGPROC write): {host_msps:.1f} Msamp/s "
-          f"({host_msps / rt:.4f} x real time); device-fed "
+    host_text = (f"host-fed (DummySource bytes, pinned copy, SIGPROC "
+                 f"write): {host_msps:.1f} Msamp/s ({host_msps / rt:.4f} x "
+                 f"real time); " if host else "")
+    print(f"search pipeline ({kind}, DM {dm}) {host_text}device-fed "
           f"(device_noise_bytes, step, rescale, digitize, bytes to host): "
           f"{dev_msps:.1f} Msamp/s ({dev_msps / rt:.3f} x real time); real "
           f"time is {rt:.0f} Msamp/s [{card}]", flush=True)
@@ -1066,8 +1137,7 @@ def cyclic_block(card: str) -> dict:
     inv = bound_of(2 * npart * plan.n_fft * 8 + 8 * got.numel(),
                    2 * npart * plan.nsub * (5 * M * math.log2(M)
                                             + 2 * plan.nkeep))
-    inv_ms = next((v for k, v in times.items()
-                   if k.startswith("megafil_invvolt")), float("nan"))
+    inv_ms = pass_ms(times, "megafil_invvolt", "cyclic block")
     print(f"megafil (voltage) per cyclic block: {kernel_ms:.3f} ms; plain: "
           f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}); megafil_invvolt {inv_ms:.3f} ms against "
@@ -1209,7 +1279,7 @@ def leaky_jones(n: int, nchan: int) -> np.ndarray:
 
 
 def small_checks_conv(kind: str = "real") -> None:
-    """The multi-pass inverse (``megafil_inva``/``megafil_invb``, forced at
+    """The multi-pass inverse (``mega_inva``/``megafil_invb``, forced at
     nsub 1 and freq_res 2^12-2^13, where one CTA would do) and the Jones
     mix (on the one-CTA and the multi-pass inverse) against the float64
     plain version at TOL_SMALL: one and two pols, Intensity, PPQQ, QQ,
@@ -1275,6 +1345,169 @@ def small_checks_conv(kind: str = "real") -> None:
                   f"{what}: {err}, {perr} >= {TOL_SMALL}")
 
 
+#: geometries of the forced multi-pass checks: (nsub, freq_res), q 4 (the
+#: test geometry: pass A in registers), 32 and 64 (pass A through shared
+#: memory, as at the flagship band's DMs)
+MULTIPASS_GEOMS = ((4, 64), (2, 2048), (2, 16384))
+
+
+def fold_against_plain(plan, cst, raw, npart, nbin, rng, bounds=None,
+                       weights=None, **step_kw) -> tuple:
+    """The fold step (f32, ``megastep_cuda(**step_kw)``: ``inverse`` and
+    ``row_pass`` force its passes) against its plain version (f64) on one
+    block: (rel err, hits diff, hits sum)."""
+    from dspsr_tpu_torch.kernels.megastep import megastep_cuda
+    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+
+    nci, nsub = plan.nchan_in, plan.nsub
+    phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32)).cuda()
+    dphi = torch.full((npart,), 0.013 * 64 / plan.freq_res,
+                      dtype=torch.float32, device="cuda")
+    shp = (nci, plan.nplane, nsub, nbin)
+    pk, hk = megastep_cuda(
+        plan, cst, torch.zeros(shp, device="cuda"),
+        torch.zeros(nci, nbin, device="cuda"), raw, phi0, dphi, bounds,
+        weights=weights, **step_kw)
+    pp, hp = megastep_plain(
+        plan, cst, torch.zeros(shp, dtype=torch.float64, device="cuda"),
+        torch.zeros(nci, nbin, dtype=torch.float64, device="cuda"), raw,
+        phi0, dphi, bounds, weights=weights)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(pk).all()), f"finite profiles {step_kw}")
+    return (rel_err(pk, pp), float((hk.double() - hp).abs().max()),
+            float(hk.sum()))
+
+
+def small_checks_multipass() -> dict:
+    """The multi-pass inverse at nsub > 1, forced where one CTA would do,
+    the long row pass forced at small R2, and the external weights, each
+    kernel (f32) against its plain version (f64) within TOL_SMALL, hits
+    exact:
+
+    - ``megastep`` (pass B folds: shared-memory profile, and forced global
+      atomics) for real, complex and CASPSR input at q 4, 32 and 64:
+      Intensity, coherence, fourth moments, PP, two input channels, bounds;
+      JA98 2-bit input with an excised window;
+    - ``megafil`` (``megafil_invb``): Intensity, PPQQ and Stokes detected,
+      the voltage (the cyclic front end at nsub > 1) bare and with the
+      passband tap and a masked chirp, the Jones mix;
+    - the long row pass (``mega_rowfft``, ``mega_rowpair``), real TFP and
+      CASPSR, both kernels, with the one-CTA and the multi-pass inverse;
+    - ``external_weights`` (a mask and fractional weights) on the one-CTA
+      fold and both multi-pass folds.
+
+    Returns each kernel's largest error."""
+    from dspsr_tpu_torch.kernels.megafil import megafil_cuda
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, megafil_plain, unpack_affine)
+
+    npart, nbin = 3, 32
+    rng = np.random.default_rng(21)
+    worst = {"megastep": 0.0, "megafil": 0.0}
+
+    def consts(plan, jones=False):
+        nci = plan.nchan_in
+        resp = np.exp(1j * rng.uniform(-3, 3, (nci * plan.nsub,
+                                               plan.freq_res)))
+        J = (leaky_jones(plan.n_fft, nci) * resp.reshape(nci, -1)[
+            :, :, None, None] if jones else None)
+        scale, offset = unpack_affine(8, plan.twos_complement)
+        return MegaConstants.build(plan, None if jones else resp, scale,
+                                   offset, jones=J).to("cuda")
+
+    def fold(what, plan, cst, raw, **kw):
+        err, hdiff, hsum = fold_against_plain(plan, cst, raw, npart, nbin,
+                                              rng, **kw)
+        print(f"{what}: rel err {err:.3e}, hits diff {hdiff}", flush=True)
+        check(err < TOL_SMALL and hdiff == 0 and hsum > 0,
+              f"{what}: {err} >= {TOL_SMALL} or hits {hdiff} {hsum}")
+        worst["megastep"] = max(worst["megastep"], err)
+
+    def front(what, plan, cst, raw, output="detected", tap=False, **kw):
+        args = masked_chirp(cst, rng) if tap else ()
+        out = megafil_cuda(plan, cst, raw, npart, passband=tap,
+                           gr=args[0] if tap else None,
+                           gi=args[1] if tap else None, output=output, **kw)
+        got, pb = out if tap else (out, None)
+        want = megafil_plain(
+            plan, cst, raw, npart, torch.float64, passband=tap,
+            gr=args[0].double() if tap else None,
+            gi=args[1].double() if tap else None, output=output)
+        want, wpb = want if tap else (want, None)
+        torch.cuda.synchronize()
+        err = max(rel_err(got, want), rel_err(pb, wpb) if tap else 0.0)
+        print(f"{what}: rel err {err:.3e}", flush=True)
+        check(got.shape == want.shape and err < TOL_SMALL,
+              f"{what}: {err} >= {TOL_SMALL}")
+        worst["megafil"] = max(worst["megafil"], err)
+
+    fold_cases = [dict(npol_out=1), dict(npol_out=4, detection="coherence"),
+                  dict(npol_out=4, fourth_moment=True),
+                  dict(npol_out=1, detection="pp"),
+                  dict(npol_out=2, nchan_in=2)]
+    fil_cases = [(dict(npol_out=1), "detected", False),
+                 (dict(npol_out=2), "detected", True),
+                 (dict(npol_out=4), "detected", False),
+                 (dict(npol_out=1), "voltage", False),
+                 (dict(npol_out=1, nchan_in=2), "voltage", True)]
+    for kind in KINDS:
+        for nsub, freq_res in MULTIPASS_GEOMS:
+            for kw in fold_cases:
+                plan = small_plan(kind, nbin, nsub=nsub, freq_res=freq_res,
+                                  npol=2, **kw)
+                if plan is None:
+                    continue
+                cst, raw = consts(plan), small_raw(plan, npart, rng)
+                for inverse in ("multipass", "global"):
+                    for bounds in (None, (7, 70)):
+                        fold(f"small multipass fold {kind} nsub {nsub} "
+                             f"M={freq_res} q {plan.q} {kw} {inverse} "
+                             f"bounds={bounds}", plan, cst, raw,
+                             bounds=bounds, inverse=inverse)
+            for kw, output, tap in fil_cases:
+                plan = small_plan(kind, 2, nsub=nsub, freq_res=freq_res,
+                                  npol=2, **kw)
+                if plan is None:
+                    continue
+                front(f"small multipass front {kind} nsub {nsub} "
+                      f"M={freq_res} {kw} {output} tap={tap}", plan,
+                      consts(plan), small_raw(plan, npart, rng), output,
+                      tap, inverse="multipass")
+        plan = small_plan(kind, 2, npol=2, npol_out=4)
+        front(f"small multipass front {kind} Jones Stokes", plan,
+              consts(plan, jones=True), small_raw(plan, npart, rng),
+              inverse="multipass")
+    # JA98 2-bit input: the excised window folds nothing
+    for kind in ("real", "complex"):
+        plan, cst, raw = unpack_case(kind, dict(nbit=2, ndat_per_weight=16),
+                                     None, npart, rng)
+        for inverse in ("multipass", "global"):
+            fold(f"small multipass fold {kind} JA98 {inverse}", plan, cst,
+                 raw, inverse=inverse)
+    # the long row pass, forced where mega_fwd2 fits
+    for kind in ("real", "caspsr"):
+        for kw in (dict(npol_out=4), dict(npol_out=1, detection="qq")):
+            plan = small_plan(kind, nbin, npol=2, **kw)
+            cst, raw = consts(plan), small_raw(plan, npart, rng)
+            for inverse in ("auto", "multipass"):
+                fold(f"small long rows fold {kind} {kw} {inverse}", plan,
+                     cst, raw, row_pass="long", inverse=inverse)
+                front(f"small long rows front {kind} {kw} {inverse}", plan,
+                      cst, raw, tap=True, row_pass="long", inverse=inverse)
+            front(f"small long rows voltage {kind} {kw}", plan, cst, raw,
+                  output="voltage", row_pass="long")
+    # external window weights, multiplying the fold's samples and hits
+    for kind in ("real", "complex"):
+        plan = small_plan(kind, nbin, npol=2, npol_out=2)
+        cst, raw = consts(plan), small_raw(plan, npart, rng)
+        for w in ([1.0, 0.0, 1.0], [0.5, 1.0, 0.25]):
+            weights = torch.tensor([w], dtype=torch.float32, device="cuda")
+            for inverse in ("auto", "multipass", "global"):
+                fold(f"small external weights {kind} {w} {inverse}", plan,
+                     cst, raw, weights=weights, inverse=inverse)
+    return worst
+
+
 def conv32_obs():
     """hybrid_conv32's input (``bench.py:438``): 32 complex 8-bit dual-pol
     channels at 12.5 Msamp/s, -400 MHz at 1382 MHz."""
@@ -1321,19 +1554,72 @@ def multipass_bounds(plan, npart: int, nout: int, out_bytes: int,
                      jones: bool) -> dict:
     """Bounds of the multi-pass inverse's passes over one block: pass A
     reads the stored spectra (and the Jones planes) and writes nout windows
-    of N points, nout R1 FFTs of R2 points a window and a twiddle; pass B
-    reads them and writes the output, nout R2 FFTs of R1 points a window."""
-    N, R1, R2 = plan.n_fft, plan.R1, plan.R2
+    of N points, nout R1*nsub FFTs of q points a window and a twiddle; pass
+    B reads them and writes the output (or the folded profile), nout R2
+    FFTs of R1 points a window."""
+    N, R1, q = plan.n_fft, plan.R1, plan.q
     seqs = plan.nchan_in * npart * nout
     nin = 2 if jones else nout
     a_bytes = (8 * plan.nchan_in * npart * N * (nin + nout)
                + (8 * 4 * plan.nchan_in * N if jones else 0))
-    a_ops = seqs * (R1 * 5 * R2 * math.log2(R2) + 6 * N
+    a_ops = seqs * (5 * N * math.log2(q) + 6 * N
                     + (16 * N if jones else 0))
-    b_ops = seqs * R2 * 5 * R1 * math.log2(R1)
+    b_ops = seqs * 5 * N * math.log2(R1)
     return {"A": bound_of(a_bytes, a_ops),
             "B": bound_of(8 * plan.nchan_in * npart * N * nout + out_bytes,
                           b_ops)}
+
+
+def row_bounds(plan, npart: int, nstore: int) -> dict:
+    """Bounds of the long row pass over one block (real input, 2N-point
+    windows): mega_rowfft reads and writes every row once, an R1 FFTs of
+    row_len points a window; mega_rowpair reads the rows and the chirp and
+    writes nstore spectra of N bins, 16 operations a bin and pol."""
+    N2, c = 2 * plan.n_fft, plan.nchan_in * npart
+    return {"rowfft": bound_of(2 * 8 * c * N2,
+                               c * 5 * N2 * math.log2(plan.row_len)),
+            "rowpair": bound_of(8 * c * N2 + 8 * c * nstore * plan.n_fft
+                                + 8 * plan.nchan_in * plan.n_fft,
+                                16 * c * nstore * plan.n_fft)}
+
+
+def pass_ms(times: dict, name: str, tag: str) -> float:
+    """The time of kernel ``name`` (any template arguments) in ``times``
+    (from :func:`kernel_breakdown`); fails when the step did not run it."""
+    ms = next((v for k, v in times.items() if k.split("<")[0] == name),
+              None)
+    check(ms is not None, f"{tag}: {name} missing from {sorted(times)}")
+    return ms
+
+
+def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
+                out_bytes: int, times: dict) -> None:
+    """Print the multi-pass inverse's and the long row pass's kernel times
+    (``times``, from :func:`kernel_breakdown`) against their bounds: the
+    DM phases (``DM_FOLD``, ``DM_SEARCH``) must have run the multi-pass
+    inverse, and real input at R2 = 8192 the long row pass; the other
+    blocks must have run neither."""
+    multipass = name in DM_FOLD or name in DM_SEARCH
+    rows = multipass and plan.real_input and plan.R2 == 8192
+    ran = {k.split("<")[0] for k in times}
+    check(("mega_inva" in ran) == multipass
+          and ("mega_rowfft" in ran) == rows,
+          f"{name}: passes {sorted(ran)}")
+    parts = []
+    if multipass:
+        mb = multipass_bounds(plan, npart, nout, out_bytes, False)
+        pass_b = "mega_invbfold" if name in DM_FOLD else "megafil_invb"
+        parts += [f"pass A {pass_ms(times, 'mega_inva', name):.3f} ms (bound "
+                  f"{mb['A']['bound_ms']:.4f} ms, {mb['A']['bound_by']})",
+                  f"pass B {pass_ms(times, pass_b, name):.3f} ms (bound "
+                  f"{mb['B']['bound_ms']:.4f} ms, {mb['B']['bound_by']})"]
+    if rows:
+        parts += [f"{k} {pass_ms(times, 'mega_' + k, name):.3f} ms (bound "
+                  f"{v['bound_ms']:.4f} ms, {v['bound_by']})"
+                  for k, v in row_bounds(plan, npart, nout).items()]
+    if parts:
+        print(f"{name} passes per block: {'; '.join(parts)} [{card}]",
+              flush=True)
 
 
 def conv32_block(card: str, jones_path: str | None = None) -> dict:
@@ -1393,10 +1679,8 @@ def conv32_block(card: str, jones_path: str | None = None) -> dict:
     bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
     mb = multipass_bounds(plan, npart, 2, 4 * got.numel(), bool(jones_path))
     fwd = sum(v for k, v in times.items() if k.startswith("mega_fwd"))
-    ms_a = next((v for k, v in times.items() if "megafil_inva" in k),
-                float("nan"))
-    ms_b = next((v for k, v in times.items() if "megafil_invb" in k),
-                float("nan"))
+    ms_a = pass_ms(times, "mega_inva", tag)
+    ms_b = pass_ms(times, "megafil_invb", tag)
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
     print(f"{tag} per block ({sky_ms:.2f} ms of sky): front end "
           f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
@@ -1878,8 +2162,7 @@ def guppi2_block(card: str) -> dict:
               "mega_invfold": scratch}
     parts = []
     for name, nb in passes.items():
-        ms = next((v for k, v in times.items()
-                   if k.split("<")[0] == name), float("nan"))
+        ms = pass_ms(times, name, "mega_guppi_2bit")
         parts.append(f"{name} {ms:.3f} ms for {nb / 1e6:.0f} MB "
                      f"({nb / (ms * 1e-3) / 1e12:.2f} TB/s; "
                      f"{nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
@@ -2849,6 +3132,7 @@ def small_all() -> None:
         small_checks_conv(kind)
     small_unequal()
     small_checks_unpack()
+    small_checks_multipass()
 
 
 def main() -> None:
@@ -2888,6 +3172,11 @@ def main() -> None:
     guppi = guppi2_block(card)
     launches += guppi2_path(card)
     guppi2_rates(card)
+    # the flagship band at J1713+0747's and J0613-0200's DMs: the
+    # multi-pass inverse at nsub 64, and the long row pass
+    dm = dm_phases(card)
+    launches += dm["megastep"]
+    search_launches += dm["megafil"]
     # the general chain: no fused kernel, so nothing for the kernels line
     for name in GENERAL:
         general_block(card, name)
@@ -2900,13 +3189,14 @@ def main() -> None:
     hybrid_launches += sharded["megafil"]
     flag["max_abs_err"] = max(f["max_abs_err"]
                               for f in (flag, flag_c, flag_k, guppi))
-    flag["max_abs_err"] = max(flag["max_abs_err"], sharded["err_megastep"])
+    flag["max_abs_err"] = max(flag["max_abs_err"], sharded["err_megastep"],
+                              dm["err_megastep"])
     search["max_abs_err"] = max(search["max_abs_err"],
                                 search_c["max_abs_err"],
                                 search_k["max_abs_err"], hybrid["err"],
                                 cyclic["err"], conv["max_abs_err"],
                                 conv_j["max_abs_err"],
-                                sharded["err_megafil"])
+                                sharded["err_megafil"], dm["err_megafil"])
     print(json.dumps({"kernels": [
         {"name": "megastep", "route": "cuda",
          "source": "dspsr_tpu_torch/csrc/megastep.cu",

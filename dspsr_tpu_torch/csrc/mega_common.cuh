@@ -18,6 +18,9 @@
 //                dropped), optionally add |X|^2 of each pol into the
 //                passband, multiply the chirp, store the spectrum of each
 //                pol the caller keeps in natural bin order k = k2*R1 + k1.
+//                At R2 = 8192 (rows of 16384 points) a row pair fits no
+//                CTA: the long row pass (mega_rowfft, mega_rowpair, see
+//                there) replaces it.
 //
 // Complex (analytic) input.  Each pol is already a complex sequence of N
 // samples, so nothing is packed and there is no mega_polpow: row_len = R2,
@@ -137,6 +140,9 @@
 //    detection transforms both pols (the passband has both) and stores
 //    only the detected pol's spectrum.
 //
+// The multi-pass inverse's pass A (mega_inva, for a subband inverse past
+// one CTA), which both kernels run, lives here too; see the note above it.
+//
 // Each library that includes this header is its own translation unit and
 // shared object, so everything here has internal linkage.
 
@@ -175,8 +181,14 @@ __device__ __forceinline__ float2 csub(float2 a, float2 b) {
 __host__ __device__ constexpr int sidx(int i) { return i + (i >> 4); }
 __host__ __device__ constexpr int seq_ld(int L) { return L + (L >> 4) + 1; }
 
-// Points each thread holds in a length-L transform.
-__host__ __device__ constexpr int fft_points(int L) { return L >= 16 ? 16 : 8; }
+// Points each thread holds in a length-L transform: 16, or below 16 points
+// the whole sequence (one pass, no shared memory).  Pass A of the
+// multi-pass inverse has lengths q down to 1, the complex row pass R2 = 4.
+__host__ __device__ constexpr int fft_points(int L) { return L >= 16 ? 16 : L; }
+
+// Points each thread holds in the long row pass (mega_rowfft): 32, so that
+// a row of 16384 points takes 512 threads.
+constexpr int kRowPoints = 32;
 
 __host__ __device__ constexpr int ilog2c(int x) {
   return x <= 1 ? 0 : 1 + ilog2c(x >> 1);
@@ -250,9 +262,10 @@ __device__ __forceinline__ void dft(float2 (&x)[R]) {
   for (int i = 0; i < R; ++i) x[i] = y[i];
 }
 
-// Bits of pass s of a length-2^logL transform with P points a thread: the
-// first pass is radix P, the rest split the remaining bits as evenly as
-// possible, larger first (512 = 16*8*4, 1024 = 16*8*8, 4096 = 16*16*16).
+// Bits of pass s of a length-2^logL transform whose radix is at most 2^lgP
+// (lgP = log2 of the points a thread holds, capped at 4): the first pass is
+// radix 2^lgP, the rest split the remaining bits as evenly as possible,
+// larger first (512 = 16*8*4, 1024 = 16*8*8, 4096 = 16*16*16).
 __host__ __device__ inline int pass_bits(int s, int logL, int lgP) {
   if (s == 0) return lgP;
   const int rem = logL - lgP;
@@ -313,14 +326,17 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
 // the barrier after one sequence's reads also orders the previous one's
 // writes.  tw is the length-L table: for each pass s >= 1 in turn,
 // (R_s - 1)*Ns_s entries exp(-2 pi i k r / (Ns_s R_s)) at (r-1)*Ns_s + k
-// (L - P entries in all).  Every thread of the block calls it.
+// (L - P entries in all).  Every thread of the block calls it.  With P = 32
+// (the long row pass) no pass is wider than radix 16: a thread runs two
+// butterflies a pass, and the passes (and so the tables) are those of P =
+// 16.
 template <int P, int NS, int DIR, bool KEEP, class Load>
 __device__ __forceinline__ void fft_seqs(float2 (&v)[P], Load load,
                                          float2* seq, int seq_stride, int j,
                                          int L, int logL,
                                          const float2* __restrict__ tw) {
   static_assert(!KEEP || NS == 1, "KEEP holds one sequence");
-  constexpr int lgP = ilog2c(P);
+  constexpr int lgP = ilog2c(P) > 4 ? 4 : ilog2c(P);
   const int T = L / P;
   const int np = num_passes(logL, lgP);
   int Ns = 1;
@@ -761,6 +777,62 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   }
 }
 
+// Where the real-input row passes (mega_fwd2, mega_rowpair) put the
+// separated spectra of one (input channel, window): ya and yb the kept
+// pols' slots of ybuf, pbc the channel's passband or null, grc/gic its
+// chirp; unscale undoes pol b's power-of-two scale.
+struct Sep {
+  float2* ya;
+  float2* yb;
+  float* pbc;
+  const float* grc;
+  const float* gic;
+  long long n;
+  float unscale;
+  int npolf;
+  int store;
+};
+
+__device__ __forceinline__ Sep make_sep(float2* __restrict__ ybuf,
+                                        const float* __restrict__ gr,
+                                        const float* __restrict__ gi,
+                                        const float* __restrict__ psum,
+                                        float* __restrict__ pb, int npolf,
+                                        int store, int npart, int c, int w,
+                                        long long n) {
+  Sep o;
+  o.n = n;
+  o.npolf = npolf;
+  o.store = store;
+  o.unscale =
+      npolf == 2
+          ? ldexpf(1.f, -pol_exponent(psum + 2 * ((long long)c * npart + w)))
+          : 0.f;
+  const int nstore = (store & 1) + (store >> 1);
+  o.ya = ybuf + ((long long)c * nstore * npart + w) * n;
+  o.yb = o.ya + ((store & 1) ? (long long)npart * n : 0LL);
+  o.pbc = pb ? pb + (long long)c * npolf * n : nullptr;
+  o.grc = gr + (long long)c * n;
+  o.gic = gi + (long long)c * n;
+  return o;
+}
+
+// Bin k of both pols from the packed spectrum's Z[k] (z) and Z[2N - k] (p):
+// X_a = (Z + conj P) / 2, X_b = (Z - conj P) / 2i; passband, chirp, store.
+__device__ __forceinline__ void separate_store(float2 z, float2 p,
+                                               long long k, const Sep& o) {
+  const float2 g = make_float2(o.grc[k], o.gic[k]);
+  const float2 xa = make_float2(0.5f * (z.x + p.x), 0.5f * (z.y - p.y));
+  const float2 xb = make_float2(0.5f * (z.y + p.y) * o.unscale,
+                                -0.5f * (z.x - p.x) * o.unscale);
+  if (o.pbc) {
+    atomicAdd(o.pbc + k, xa.x * xa.x + xa.y * xa.y);
+    if (o.npolf == 2) atomicAdd(o.pbc + o.n + k, xb.x * xb.x + xb.y * xb.y);
+  }
+  if (o.store & 1) o.ya[k] = cmul(xa, g);
+  if (o.npolf == 2 && (o.store & 2)) o.yb[k] = cmul(xb, g);
+}
+
 // store: bit 0 keeps pol a's spectrum, bit 1 pol b's, in that order in
 // ybuf; pb, when not null, is the zeroed passband float[nchan, npolf, N].
 template <int P>
@@ -792,16 +864,8 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   fft_seqs<P, 2, -1, false>(v, load, sm + i * ld, tp * ld, j, row_len,
                             __ffs(row_len) - 1, tb.row);
 
-  const long long n = (long long)R1 * R2;
-  const float unscale =
-      npolf == 2 ? ldexpf(1.f, -pol_exponent(psum + 2 * ((long long)c * npart + w)))
-                 : 0.f;
-  const int nstore = (store & 1) + (store >> 1);
-  float2* ya = ybuf + ((long long)c * nstore * npart + w) * n;
-  float2* yb = ya + ((store & 1) ? (long long)npart * n : 0LL);
-  float* pbc = pb ? pb + (long long)c * npolf * n : nullptr;
-  const float* grc = gr + (long long)c * n;
-  const float* gic = gi + (long long)c * n;
+  const Sep o = make_sep(ybuf, gr, gi, psum, pb, npolf, store, npart, c, w,
+                         (long long)R1 * R2);
   const int nslot = 2 * tp;
   const int lg_slot = __ffs(nslot) - 1;
   // consecutive threads on consecutive k1: tp low rows a.., then the tp
@@ -822,21 +886,68 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
       pslot = a + ii == 0 ? slot : ii;
       pcol = row_len - 1 - k2;
     }
-    const float2 z = sm[slot * ld + sidx(k2)];
-    const float2 p = sm[pslot * ld + sidx(pcol)];
-    const long long k = (long long)k2 * R1 + k1;
-    const float2 g = make_float2(grc[k], gic[k]);
-    // X_a = (Z + conj P) / 2, X_b = (Z - conj P) / 2i
-    const float2 xa = make_float2(0.5f * (z.x + p.x), 0.5f * (z.y - p.y));
-    const float2 xb = make_float2(0.5f * (z.y + p.y) * unscale,
-                                  -0.5f * (z.x - p.x) * unscale);
-    if (pbc) {
-      atomicAdd(pbc + k, xa.x * xa.x + xa.y * xa.y);
-      if (npolf == 2) atomicAdd(pbc + n + k, xb.x * xb.x + xb.y * xb.y);
-    }
-    if (store & 1) ya[k] = cmul(xa, g);
-    if (npolf == 2 && (store & 2)) yb[k] = cmul(xb, g);
+    separate_store(sm[slot * ld + sidx(k2)], sm[pslot * ld + sidx(pcol)],
+                   (long long)k2 * R1 + k1, o);
   }
+}
+
+// The long row pass (real input whose rows of row_len = 2*R2 points are too
+// long for mega_fwd2, which holds a row pair in one CTA: at R2 = 8192 a pair
+// needs 278 KB of shared memory).  Two kernels through device memory:
+//   mega_rowfft   per (row k1, window, input channel): the length-row_len
+//                 FFT of the row, kRowPoints points a thread (512 threads
+//                 at 16384 points, 139 KB of shared memory), written back
+//                 over the row in cbuf.
+//   mega_rowpair  per (tile of 8 consecutive k1 and 32 consecutive k2,
+//                 window, input channel): bin k = k2*R1 + k1 from Z[k] and
+//                 its partner Z[2N - k] (row R1 - k1, column row_len-1-k2;
+//                 rows 0 and R1/2 pair with themselves, row 0 at column
+//                 (row_len - k2) mod row_len), read from cbuf, then
+//                 separate_store.  A warp reads 4 consecutive columns (one
+//                 32-byte sector) of 8 rows and stores runs of 8 k1.
+// Against mega_fwd2 it writes and reads the stage-2 rows once more.
+template <int P>
+__global__ void __launch_bounds__(kMaxThreads)
+mega_rowfft(float2* __restrict__ cbuf, Tables tb, int npart, int R1,
+            int row_len) {
+  extern __shared__ float2 sm[];
+  const int T = row_len / P;
+  const int j = threadIdx.x;
+  float2* row = cbuf + (((long long)blockIdx.z * npart + blockIdx.y) * R1 +
+                        blockIdx.x) * row_len;
+  float2 v[P];
+  auto load = [&](int, float2(&x)[P]) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) x[i] = row[j + T * i];
+  };
+  fft_seqs<P, 1, -1, true>(v, load, sm, 0, j, row_len, __ffs(row_len) - 1,
+                           tb.row);
+#pragma unroll
+  for (int i = 0; i < P; ++i) row[j + T * i] = v[i];
+}
+
+constexpr int kPairRows = 8;   // k1 of a mega_rowpair tile
+constexpr int kPairCols = 32;  // k2 of a mega_rowpair tile (at most)
+
+__global__ void __launch_bounds__(kPairRows * kPairCols)
+mega_rowpair(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
+             const float* __restrict__ gr, const float* __restrict__ gi,
+             const float* __restrict__ psum, float* __restrict__ pb,
+             int npolf, int store, int npart, int R1, int R2, int row_len,
+             int kc) {
+  const int w = blockIdx.y;
+  const int c = blockIdx.z;
+  const int ntile = R1 / kPairRows;
+  const int k1 = (blockIdx.x % ntile) * kPairRows + (threadIdx.x & (kPairRows - 1));
+  const int k2 = (blockIdx.x / ntile) * kc + threadIdx.x / kPairRows;
+  const Sep o = make_sep(ybuf, gr, gi, psum, pb, npolf, store, npart, c, w,
+                         (long long)R1 * R2);
+  const float2* win = cbuf + ((long long)c * npart + w) * R1 * row_len;
+  const int pk1 = (k1 == 0 || 2 * k1 == R1) ? k1 : R1 - k1;
+  const int pcol = k1 == 0 ? (row_len - k2) & (row_len - 1) : row_len - 1 - k2;
+  separate_store(win[(long long)k1 * row_len + k2],
+                 win[(long long)pk1 * row_len + pcol],
+                 (long long)k2 * R1 + k1, o);
 }
 
 // The complex-input row pass: blockIdx.z = c * npolf + q (the sequence of
@@ -984,25 +1095,226 @@ __device__ __forceinline__ void inverse_subband(
   fft_seqs<P, NS, +1, false>(v, load, sm, ld, j, M, __ffs(M) - 1, tw);
 }
 
-// Threads of each transform kernel: which 0 = mega_fwd1 (tile of `tile`
-// columns), 1 = mega_fwd2 (tile of `tile` row pairs; mega_fwd2c: `tile`
-// rows, the same count), 2 = the inverse.
-int transform_threads(int which, int R1, int row_len, int M, int tile) {
-  if (which == 0) return tile * (R1 / fft_points(R1));
-  if (which == 1) return tile * (row_len / fft_points(row_len));
-  return M / fft_points(M);
+// The multi-pass inverse, for freq_res M past one CTA's shared memory or
+// threads (M = q*R1, q = M / R1 = R2 / nsub).  With the spectrum in natural
+// order k = k2*R1 + k1 (centred for complex input, as mega_fwd2c stores it,
+// so that the complex input's column shift is already made), subband s
+// holds rows k2 = s*q + k2l (k2l < q), and its sample t = n2 + q*n1 (n2 < q,
+// n1 < R1) is, with X_s[k2l*R1 + k1] its bins,
+//   x[t] = 1/M sum_{k1} exp(2 pi i k1 n1 / R1) exp(2 pi i k1 n2 / M)
+//          sum_{k2l} exp(2 pi i k2l n2 / q) X_s[k2l*R1 + k1],
+// so the inverse runs as two passes through device memory, as the forward
+// does, with zbuf between (the forward's cbuf, free by then and as large):
+//   mega_inva  (pass A) per (tile of S consecutive k1 and G subbands,
+//              window, input channel): for each output pol, the length-q
+//              inverse over k2l of each (k1, s) (the Jones mix in its
+//              load), times exp(+2 pi i k1 n2 / M), stored at Z[s*M +
+//              n2*R1 + k1] (runs of S consecutive k1, as mega_fwd1's
+//              columns).  Up to q = 16 a thread holds a whole sequence and
+//              no shared memory is used.
+//   pass B     per (tile of S consecutive rows r = s*q + n2, window, input
+//              channel): the length-R1 inverse over k1 of each row of every
+//              output pol (inverse_rows), then 1/M, and sample t of output
+//              channel c*nsub + s: megafil_invb detects it or stores its
+//              voltage, mega_invbfold (megastep.cu) folds it.
+// At nsub == 1, q = R2 and M = N: the hybrid_conv32 convolution.  The TPU
+// kernel ran the same split as dense DFT matmuls in VMEM (the
+// block-diagonal radix-q matrix, the twiddle and the radix-R1 matrix,
+// dspsr_tpu/ops/megakernel.py:385-406); here each stage is the
+// register-resident FFT.  tb is the table buffer of (R1, q, M): tb.row the
+// length-q FFT table, tb.r1 the length-R1 one, the inter-stage factors
+// lo/hi over M.  zbuf is float2[nchan*nout, npart, N].
+constexpr int kInvaCols = 8;  // k1 of a pass-A tile at most
+
+// Columns S and subbands G of a pass-A tile of `tile` sequences.
+__host__ __device__ inline void inva_tile(int tile, int R1, int* S, int* G) {
+  const int cap = R1 < kInvaCols ? R1 : kInvaCols;
+  *S = tile < cap ? tile : cap;
+  *G = tile / *S;
 }
 
-// Shared-memory bytes of the inverse's transform (npolf sequences of M).
-int inv_smem_bytes(int M, int npolf) {
-  return npolf * seq_ld(M) * (int)sizeof(float2);
+// ONE: nsub == 1 (q = R2, G = 1): the tile's subband and its offset are
+// the constant 0.  Under the 128-register cap of 512 threads that instance
+// spills 72 B (Jones: 24 B) where the run-time subband indexing spills 104
+// (208) B, and runs hybrid_conv32's pass A 6% (Jones 30%) faster on an
+// H100.
+template <int P, bool JONES, bool ONE>
+__global__ void __launch_bounds__(kMaxThreads)
+mega_inva(const float2* __restrict__ ybuf, float2* __restrict__ zbuf,
+          const float2* __restrict__ jones, Tables tb, int nout, int jpol0,
+          int npart, int R1, int R2, int q, int S, int G) {
+  extern __shared__ float2 sm[];
+  const int T = q / P;
+  const int col = threadIdx.x & (S - 1);
+  const int j = ONE ? threadIdx.x / S : (threadIdx.x / S) & (T - 1);
+  const int g = ONE ? 0 : threadIdx.x / (S * T);
+  const int ntile = R1 / S;
+  const int k1 = (ONE ? blockIdx.x : blockIdx.x % ntile) * S + col;
+  const int s = ONE ? 0 : (blockIdx.x / ntile) * G + g;
+  const int w = blockIdx.y;
+  const int c = blockIdx.z;
+  const long long n = (long long)R1 * R2;
+  const long long off = (long long)s * q * R1 + k1;
+  const int mask = (1 << tb.log2n) - 1;
+  const int lo_mask = (1 << tb.lo_bits) - 1;
+  float2 v[P];
+  for (int p = 0; p < nout; ++p) {
+    const float2* y = ybuf + ((long long)(c * (JONES ? 2 : nout) +
+                                          (JONES ? 0 : p)) * npart + w) * n +
+                      off;
+    const float2* jp = JONES ? jones + ((long long)c * 4 + 2 * (jpol0 + p)) *
+                                           n + off
+                             : nullptr;
+    auto load = [&](int, float2(&x)[P]) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const long long k = (long long)(j + T * i) * R1;
+        if constexpr (JONES)
+          x[i] = jones_mix(y, jp, (long long)npart * n, n, k);
+        else
+          x[i] = y[k];
+      }
+    };
+    if constexpr (P == 1) {
+      load(0, v);  // q == 1: nothing to transform
+    } else {
+      // one sequence a (k1, s); the last pass's reads end at a barrier, so
+      // the next pol's first pass may write the same shared memory
+      fft_seqs<P, 1, +1, true>(v, load, sm + (g * S + col) * seq_ld(q), 0, j,
+                               q, __ffs(q) - 1, tb.row);
+    }
+    float2* dst = zbuf + ((long long)(c * nout + p) * npart + w) * n + off;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int n2 = j + T * i;
+      const int e = (k1 * n2) & mask;
+      const float2 t = cmul(__ldg(tb.hi + (e >> tb.lo_bits)),
+                            __ldg(tb.lo + (e & lo_mask)));
+      dst[(long long)n2 * R1] = cmul(v[i], make_float2(t.x, -t.y));
+    }
+  }
 }
 
-// Shared-memory bytes of the forward passes (which as above; for complex
-// input the tile of mega_fwd2c is `tile` rows, one sequence each).
-int fwd_smem_bytes(int which, int R1, int row_len, int tile, int cplx) {
-  if (which == 0) return tile * seq_ld(R1) * (int)sizeof(float2);
-  return (cplx ? 1 : 2) * tile * seq_ld(row_len) * (int)sizeof(float2);
+// Pass B's transform: rows a .. a + S - 1 of zbuf (R1 points each, row r
+// at r*R1) of each of NS output pols, window w, input channel c,
+// inverse-FFT'd (unscaled): pol q's row a + i ends at sm[(q*S + i) *
+// seq_ld(R1) + sidx(n1)].  Ends with a barrier.
+template <int P, int NS>
+__device__ __forceinline__ void inverse_rows(
+    const float2* __restrict__ zbuf, float2* sm, const float2* __restrict__ tw,
+    int npart, int R1, long long n, int a, int w, int c, int S) {
+  const int T = R1 / P;
+  const int ld = seq_ld(R1);
+  const int i = threadIdx.x / T;  // row of the tile
+  const int j = threadIdx.x - i * T;
+  const float2* src =
+      zbuf + ((long long)(c * NS) * npart + w) * n + (long long)(a + i) * R1;
+  float2 v[P];
+  auto load = [&](int q, float2(&x)[P]) {
+    const float2* z = src + (long long)q * npart * n;
+#pragma unroll
+    for (int ii = 0; ii < P; ++ii) x[ii] = z[j + T * ii];
+  };
+  fft_seqs<P, NS, +1, false>(v, load, sm + i * ld, S * ld, j, R1,
+                             __ffs(R1) - 1, tw);
+}
+
+// The passes a resource query names (the wrappers' `which`).
+enum Pass {
+  kFwd1 = 0,        // mega_fwd1, tile of `tile` columns
+  kFwd2 = 1,        // mega_fwd2 (`tile` row pairs) or mega_fwd2c (`tile` rows)
+  kInv = 2,         // the one-CTA inverse (megafil_invdet/invvolt, mega_invfold)
+  kInvA = 3,        // mega_inva, tile of `tile` (k1, subband) sequences
+  kInvB = 4,        // pass B, tile of `tile` rows (the fold: shared profile)
+  kInvBGlobal = 5,  // the fold's pass B with global atomics
+  kRowFft = 6,      // mega_rowfft
+  kRowPair = 7,     // mega_rowpair
+};
+
+// Columns of a mega_rowpair tile.
+__host__ __device__ inline int pair_cols(int R2) {
+  return R2 < kPairCols ? R2 : kPairCols;
+}
+
+// Shared-memory bytes (kind 0) or threads (kind 1) of pass `which` (Pass):
+// nout pols inverted, cplx the complex input's layout, prof_bytes the fold's
+// shared-memory profile (kInv and kInvB; 0 for megafil).
+int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
+                   int tile, int cplx, int prof_bytes) {
+  const int F2 = (int)sizeof(float2);
+  const int R2 = cplx ? row_len : row_len / 2;
+  switch (which) {
+    case kFwd1:
+      return kind ? tile * (R1 / fft_points(R1)) : tile * seq_ld(R1) * F2;
+    case kFwd2:
+      return kind ? tile * (row_len / fft_points(row_len))
+                  : (cplx ? 1 : 2) * tile * seq_ld(row_len) * F2;
+    case kInv:
+      return kind ? M / fft_points(M) : nout * seq_ld(M) * F2 + prof_bytes;
+    case kInvA: {
+      const int q = M / R1;
+      const int T = q / fft_points(q);
+      return kind ? tile * T : (T > 1 ? tile * seq_ld(q) * F2 : 0);
+    }
+    case kInvB:
+    case kInvBGlobal:
+      return kind ? tile * (R1 / fft_points(R1))
+                  : nout * tile * seq_ld(R1) * F2 +
+                        (which == kInvB ? prof_bytes : 0);
+    case kRowFft:
+      return kind ? row_len / kRowPoints : seq_ld(row_len) * F2;
+    case kRowPair:
+      return kind ? kPairRows * pair_cols(R2) : 0;
+    default:
+      return -1;
+  }
+}
+
+// Set a kernel's dynamic shared-memory limit and launch it (grid, threads
+// and shared memory from the caller) on `stream`.
+template <class K, class... A>
+cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The mega_inva instance for length q of R2 and the Jones mix (J) or not
+// (the one-subband form from 16 points a thread).
+template <bool J>
+decltype(&mega_inva<16, J, false>) inva_kernel(int q, int R2) {
+  switch (fft_points(q)) {
+    case 16:
+      return q == R2 ? &mega_inva<16, J, true> : &mega_inva<16, J, false>;
+    case 8: return &mega_inva<8, J, false>;
+    case 4: return &mega_inva<4, J, false>;
+    case 2: return &mega_inva<2, J, false>;
+    default: return &mega_inva<1, J, false>;
+  }
+}
+
+// Pass A on the caller's stream: ybuf -> zbuf (see mega_inva); tw2 is the
+// table buffer of (R1, q, M), ta the tile.
+cudaError_t launch_inva(const void* ybuf, void* zbuf, const void* jones,
+                        const void* tw2, int nchan, int nout, int jpol0,
+                        int npart, int R1, int R2, int M, int ta,
+                        cudaStream_t stream) {
+  const int q = M / R1;
+  int S, G;
+  inva_tile(ta, R1, &S, &G);
+  if (ta < 1 || (R2 / q) % G) return cudaErrorInvalidValue;
+  const dim3 grid((R1 / S) * (R2 / q / G), npart, nchan);
+  const int threads = pass_resources(1, kInvA, R1, R2, M, nout, ta, 1, 0);
+  const int smem = pass_resources(0, kInvA, R1, R2, M, nout, ta, 1, 0);
+  const Tables t2 = tables(tw2, R1, q, M);
+  const auto k =
+      jones ? inva_kernel<true>(q, R2) : inva_kernel<false>(q, R2);
+  return launch(k, grid, threads, smem, stream, (const float2*)ybuf,
+                (float2*)zbuf, (const float2*)jones, t2, nout, jpol0, npart,
+                R1, R2, q, S, G);
 }
 
 // The mega_polpow instance of code kind `code`.
@@ -1092,36 +1404,45 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealCaspsr>(code)
                     : fwd1_kernel<8, kRealCaspsr>(code);
   const int nseq = cplx ? npolf : 1;
-  const int smem1 = fwd_smem_bytes(0, R1, row_len, tc, cplx);
-  const int smem2 = fwd_smem_bytes(1, R1, row_len, tk, cplx);
-  if ((err = cudaFuncSetAttribute(fwd1,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1)) != cudaSuccess)
+  const int smem1 = pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx, 0);
+  if ((err = launch(fwd1, dim3(row_len / tc, npart, nchan * nseq),
+                    pass_resources(1, kFwd1, R1, row_len, M, 0, tc, cplx, 0),
+                    smem1, stream, (const uint8_t*)raw, (float2*)cbuf,
+                    (const float*)psum, tb, nchan, npol, pol0, npolf, npart,
+                    R1, row_len, nsamp_step, tc, u)) != cudaSuccess)
     return err;
-  fwd1<<<dim3(row_len / tc, npart, nchan * nseq),
-         transform_threads(0, R1, row_len, M, tc), smem1, stream>>>(
-      (const uint8_t*)raw, (float2*)cbuf, (const float*)psum, tb, nchan, npol,
-      pol0, npolf, npart, R1, row_len, nsamp_step, tc, u);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int threads2 = transform_threads(1, R1, row_len, M, tk);
+  const int threads2 = pass_resources(1, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
+  const int smem2 = pass_resources(0, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
   if (cplx) {
-    auto fwd2 = row_len >= 16 ? &mega_fwd2c<16> : &mega_fwd2c<8>;
-    if ((err = cudaFuncSetAttribute(fwd2,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem2)) != cudaSuccess)
+    auto fwd2 = row_len >= 16 ? &mega_fwd2c<16>
+                : (row_len == 8 ? &mega_fwd2c<8> : &mega_fwd2c<4>);
+    return launch(fwd2, dim3(R1 / tk, npart, nchan * npolf), threads2, smem2,
+                  stream, (const float2*)cbuf, (float2*)ybuf,
+                  (const float*)gr, (const float*)gi, (float*)pb, tb, npolf,
+                  store, npart, R1, R2, tk);
+  }
+  if (tk == 0) {
+    // the long row pass (see mega_rowfft)
+    if (row_len < kRowPoints) return cudaErrorInvalidValue;
+    if ((err = launch(&mega_rowfft<kRowPoints>, dim3(R1, npart, nchan),
+                      pass_resources(1, kRowFft, R1, row_len, M, 0, 0, 0, 0),
+                      pass_resources(0, kRowFft, R1, row_len, M, 0, 0, 0, 0),
+                      stream, (float2*)cbuf, tb, npart, R1, row_len)) !=
+        cudaSuccess)
       return err;
-    fwd2<<<dim3(R1 / tk, npart, nchan * npolf), threads2, smem2, stream>>>(
-        (const float2*)cbuf, (float2*)ybuf, (const float*)gr,
-        (const float*)gi, (float*)pb, tb, npolf, store, npart, R1, R2, tk);
-    return cudaGetLastError();
+    const int kc = pair_cols(R2);
+    return launch(&mega_rowpair, dim3((R1 / kPairRows) * (R2 / kc), npart,
+                                      nchan),
+                  kPairRows * kc, 0, stream, (const float2*)cbuf,
+                  (float2*)ybuf, (const float*)gr, (const float*)gi,
+                  (const float*)psum, (float*)pb, npolf, store, npart, R1, R2,
+                  row_len, kc);
   }
   auto fwd2 = row_len >= 16 ? &mega_fwd2<16> : &mega_fwd2<8>;
-  if ((err = cudaFuncSetAttribute(fwd2,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem2)) != cudaSuccess)
-    return err;
-  fwd2<<<dim3(R1 / (2 * tk), npart, nchan), threads2, smem2, stream>>>(
-      (const float2*)cbuf, (float2*)ybuf, (const float*)gr, (const float*)gi,
-      (const float*)psum, (float*)pb, tb, npolf, store, npart, R1, R2,
-      row_len, tk);
-  return cudaGetLastError();
+  return launch(fwd2, dim3(R1 / (2 * tk), npart, nchan), threads2, smem2,
+                stream, (const float2*)cbuf, (float2*)ybuf, (const float*)gr,
+                (const float*)gi, (const float*)psum, (float*)pb, tb, npolf,
+                store, npart, R1, R2, row_len, tk);
 }
 
 }  // namespace

@@ -6,8 +6,10 @@ and its de-permute), on every input ``build_megastep`` takes (1/2/4/8-bit
 codes, JA98 2-bit with its window weights as the weights output, float32,
 an apodization window): detected or voltage output, the scalar chirp or the
 Jones 2x2 mix followed by it, with the passband tap and a chirp handed in
-on each call, and at ``nsub == 1`` past one CTA's shared memory (the
-``hybrid_conv32`` convolution) the multi-pass inverse.  The source note in
+on each call, and past one CTA's shared memory or threads (the ``nsub ==
+1`` convolution of ``hybrid_conv32``; ``-F nsub:D`` at the DMs of most
+pulsars) the multi-pass inverse, with the long row pass for real input at
+``R2 = 8192``.  The source note in
 ``csrc/megafil.cu`` says what bounds it and how it is laid out.  This
 wrapper checks every operand, chooses the inverse from the geometry,
 allocates the output and scratch with ``torch.empty``, launches the
@@ -28,18 +30,18 @@ from ..ops.megakernel import (
     voltage_sign_flips)
 from . import build
 from .megastep import (
-    MAX_THREADS, cbuf_seqs, check_resources, check_tensor, code_kind,
-    device_tables, fitting_tile, forward_tiles, layout_code, smem_limit,
-    unpack_operands)
+    FWD1, INV, INVA, INVA_COLS, INVB, cbuf_seqs, check_resources,
+    check_tensor, code_kind, device_tables, fits, forward_tiles, layout_code,
+    multipass_tiles, smem_limit, step_passes, unpack_operands)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _LAUNCH_ARGTYPES = [_c] * 16 + [_i] * 19 + [_f, _f] + [_i] * 8 + [_c]
 
-#: largest tiles of the multi-pass inverse: columns k1 of ``megafil_inva``,
-#: rows n2 of ``megafil_invb``
-MULTIPASS_CAPS = (8, 4)
+#: largest tiles of the multi-pass inverse: columns k1 of ``mega_inva``
+#: (times every subband that fits), rows of ``megafil_invb``
+MULTIPASS_CAPS = (INVA_COLS, 4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,25 +60,20 @@ def inverse_passes(res, plan: MegaPlan, limit: int,
                    inverse: str = "auto") -> tuple[int, int]:
     """The inverse for ``plan``: ``(0, 0)`` for the one-CTA inverse
     (``megafil_invdet``/``megafil_invvolt``) while its shared memory and
-    threads (``res(kind, 2, 0)``) fit, else the tiles ``(ta, tb)`` of the
-    multi-pass inverse (``nsub == 1`` only), which ``inverse="multipass"``
-    also forces."""
-    fits = res(0, 2, 0) <= limit and res(1, 2, 0) <= MAX_THREADS
-    if inverse == "auto" and fits:
+    threads (``res(kind, INV, 0)``) fit, else the tiles ``(ta, tb)`` of the
+    multi-pass inverse (``mega_inva``, ``megafil_invb``: any ``nsub``),
+    which ``inverse="multipass"`` also forces."""
+    if inverse == "auto" and fits(res, INV, 0, limit):
         return 0, 0
-    if plan.nsub != 1:
-        raise NotImplementedError(
-            f"the multi-pass inverse is the nsub == 1 convolution's; nsub "
-            f"{plan.nsub} with freq_res {plan.freq_res} past one CTA is open "
-            "work (ROADMAP.md Queue 2 item 2)")
-    return (fitting_tile(res, 3, min(MULTIPASS_CAPS[0], plan.R1), limit),
-            fitting_tile(res, 4, min(MULTIPASS_CAPS[1], plan.R2), limit))
+    return multipass_tiles(res, plan, limit,
+                           min(MULTIPASS_CAPS[1], plan.R2))
 
 
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, passband: bool = False, gr=None, gi=None,
                  output: str = "detected", inverse: str = "auto",
-                 return_weights: bool = False, jones=None):
+                 return_weights: bool = False, jones=None,
+                 row_pass: str = "auto"):
     """One fused search front-end step on the card; arguments as
     ``ops.megakernel.megafil_plain``.  Returns float32 ``[nchan_in*nsub,
     nplane, npart*nkeep]`` (``output="voltage"``: complex64
@@ -87,8 +84,9 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     ``cst.gr``/``cst.gi``) are the chirp, float32 ``[nchan_in, n_fft]`` in
     natural bin order; ``jones`` (default ``cst.jones``), when set, the
     Jones response float32 ``[nchan_in, 4, n_fft, 2]`` mixed in before
-    it.  ``inverse="multipass"`` forces the multi-pass inverse
-    (``nsub == 1``) where the one-CTA inverse fits."""
+    it.  ``inverse="multipass"`` forces the multi-pass inverse where the
+    one-CTA inverse fits, ``row_pass="long"`` the long row pass where
+    ``mega_fwd2`` fits (real input), for checks."""
     p = plan
     dev = raw.device
     if dev.type != "cuda":
@@ -132,10 +130,10 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                                      p.freq_res, nout, tile, layout_code(p))
 
     limit = smem_limit(dev)
-    tc, tk = forward_tiles(res, p, limit)
+    tc, tk = forward_tiles(res, p, limit, row_pass)
     ta, tb = inverse_passes(res, p, limit, inverse)
-    check_resources(res, p, ((0, tc), (1, tk)) + (
-        ((3, ta), (4, tb)) if ta else ((2, 0),)), limit)
+    inv = ((INVA, ta), (INVB, tb)) if ta else ((INV, 0),)
+    check_resources(res, p, ((FWD1, tc),) + step_passes(tk, inv), limit)
 
     if voltage:
         out = torch.empty((nchan * p.nsub, p.npol, npart * p.nkeep),
@@ -144,8 +142,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
         out = torch.empty((nchan * p.nsub, p.nplane, npart * p.nkeep),
                           dtype=f32, device=dev)
     tw = device_tables(p, dev)
-    # the multi-pass inverse's tables: lengths R1 and R2, factors over N
-    tw2 = device_tables(p, dev, row_len=p.R2) if ta else tw
+    # the multi-pass inverse's tables: lengths R1 and q, factors over M
+    tw2 = device_tables(p, dev, row_len=p.q) if ta else tw
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
     # stage-1 columns; the multi-pass inverse reuses them for its own
     # nchan*nout windows of N points (no larger)

@@ -4,7 +4,10 @@ Replaces ``dspsr_tpu/ops/megakernel.py::build_megastep`` (the Pallas
 kernel) and, for JA98 2-bit input, the nlow counts, level tables and window
 weights its XLA pre-stage computed (``_prepare_input``).  The source note
 in ``csrc/megastep.cu`` says what bounds it and how it is laid out.  This
-wrapper checks every operand, allocates the outputs and scratch with
+wrapper checks every operand, chooses each pass from the geometry and the
+card's limits (``forward_tiles``, ``fold_passes``: the multi-pass inverse
+past one CTA, the long row pass at R2 = 8192; these choosers serve
+``kernels.megafil`` too), allocates the outputs and scratch with
 ``torch.empty``, builds the plan's twiddle tables once (``twiddle_tables``,
 plain numpy, cached on the device), launches the kernels on the current
 stream through the library's C entry point, raises on any CUDA error, and
@@ -28,7 +31,7 @@ from . import build
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 20 + [_i] * 16 + [_f, _f] + [_i] * 8 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 22 + [_i] * 16 + [_f, _f] + [_i] * 11 + [_c]
 _JA98_ARGTYPES = [_c] * 5 + [_i] * 7 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
@@ -36,6 +39,16 @@ MAX_THREADS = 512
 #: largest tiles tried: columns of ``mega_fwd1``, row pairs of ``mega_fwd2``
 #: (real input), rows of ``mega_fwd2c`` (complex input)
 TILE_CAPS = (8, 4, 8)
+#: the passes a resource query names (``Pass`` in ``csrc/mega_common.cuh``):
+#: the forward's two, the one-CTA inverse, the multi-pass inverse's pass A
+#: and pass B (the fold's with its shared-memory profile, or with global
+#: atomics), and the long row pass's two kernels
+FWD1, FWD2, INV, INVA, INVB, INVB_GLOBAL, ROWFFT, ROWPAIR = range(8)
+#: k1 columns of a pass-A tile at most (``kInvaCols``); the tile then takes
+#: as many subbands as fit
+INVA_COLS = 8
+#: rows of the fold's pass-B tile at most (``mega_invbfold``)
+FOLD_ROWS = 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,9 +87,12 @@ def smem_limit(dev: torch.device) -> int:
 
 def fft_pass_bits(L: int) -> list[int]:
     """Bits of each pass of the kernels' length-L FFT (``pass_bits`` in
-    ``csrc/mega_common.cuh``): radix P = 16 first (8 for L = 8), then the
-    remaining bits split as evenly as possible, larger first."""
-    lgp = 4 if L >= 16 else 3
+    ``csrc/mega_common.cuh``): radix 16 first (the whole sequence below 16
+    points), then the remaining bits split as evenly as possible, larger
+    first."""
+    lgp = min(4, L.bit_length() - 1)
+    if lgp == L.bit_length() - 1:
+        return [lgp]
     rem = L.bit_length() - 1 - lgp
     n = -(-rem // lgp)
     return [lgp] + [rem // n + (1 if s < rem % n else 0) for s in range(n)]
@@ -152,15 +168,64 @@ def fitting_tile(res, which: int, start: int, limit: int) -> int:
     return t
 
 
-def forward_tiles(res, plan: MegaPlan, limit: int) -> tuple[int, int]:
+def forward_tiles(res, plan: MegaPlan, limit: int,
+                  row_pass: str = "auto") -> tuple[int, int]:
     """Tiles (columns of ``mega_fwd1``; row pairs of ``mega_fwd2`` for real
     input, rows of ``mega_fwd2c`` for complex input): the largest powers of
     two up to ``TILE_CAPS`` (and row_len; R1/2 pairs or R1 rows) that fit
-    (``fitting_tile``)."""
-    rows = (min(TILE_CAPS[1], plan.R1 // 2) if plan.real_input
-            else min(TILE_CAPS[2], plan.R1))
-    return (fitting_tile(res, 0, min(TILE_CAPS[0], plan.row_len), limit),
-            fitting_tile(res, 1, rows, limit))
+    (``fitting_tile``).  The second is 0 for the long row pass
+    (``mega_rowfft``, ``mega_rowpair``): real input whose row pair fits no
+    CTA (R2 = 8192), or any real input with ``row_pass="long"``."""
+    if row_pass not in ("auto", "long"):
+        raise ValueError(f"unknown row pass: {row_pass}")
+    tc = fitting_tile(res, FWD1, min(TILE_CAPS[0], plan.row_len), limit)
+    if plan.real_input:
+        if row_pass == "long" or not fits(res, FWD2, 1, limit):
+            if plan.row_len < 32:
+                raise ValueError("the long row pass needs rows of 32 points "
+                                 "or more")
+            return tc, 0
+        return tc, fitting_tile(res, FWD2, min(TILE_CAPS[1], plan.R1 // 2),
+                                limit)
+    if row_pass == "long":
+        raise ValueError("the long row pass is for real input")
+    return tc, fitting_tile(res, FWD2, min(TILE_CAPS[2], plan.R1), limit)
+
+
+def fits(res, which: int, tile: int, limit: int) -> bool:
+    """Whether pass ``which`` at ``tile`` fits a block: its shared memory
+    in ``limit`` and its threads in ``MAX_THREADS``."""
+    return res(0, which, tile) <= limit and res(1, which, tile) <= MAX_THREADS
+
+
+def multipass_tiles(res, plan: MegaPlan, limit: int, rows: int,
+                    which_b: int = INVB) -> tuple[int, int]:
+    """Tiles of the multi-pass inverse: ``(k1, subband)`` sequences of pass
+    A (``mega_inva``: up to ``INVA_COLS`` columns times every subband,
+    halved until it fits) and rows of pass B ``which_b`` (up to ``rows``)."""
+    return (fitting_tile(res, INVA, min(INVA_COLS, plan.R1) * plan.nsub,
+                         limit),
+            fitting_tile(res, which_b, rows, limit))
+
+
+def fold_passes(res, plan: MegaPlan, limit: int,
+                inverse: str = "auto") -> tuple[int, int, int]:
+    """The fold step's inverse: ``(0, 0, 0)`` for the one-CTA
+    ``mega_invfold`` while it fits, else ``(ta, tb, gfold)``: the multi-pass
+    inverse's tiles (pass B's rows at most q, so a tile is one subband's)
+    with the fold in pass B, by global atomics (``gfold`` 1) when the
+    ``[nplane, nbin]`` profile fits no CTA beside pass B's tile.
+    ``inverse="multipass"`` forces the multi-pass inverse,
+    ``inverse="global"`` its global-atomic fold."""
+    if inverse not in ("auto", "multipass", "global"):
+        raise ValueError(f"unknown inverse: {inverse}")
+    if inverse == "auto" and fits(res, INV, 0, limit):
+        return 0, 0, 0
+    gfold = inverse == "global" or not fits(res, INVB, 1, limit)
+    which = INVB_GLOBAL if gfold else INVB
+    ta, tb = multipass_tiles(res, plan, limit, min(FOLD_ROWS, plan.q),
+                             which)
+    return ta, tb, int(gfold)
 
 
 def layout_code(plan: MegaPlan) -> int:
@@ -249,30 +314,40 @@ def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:
 def check_resources(res, plan: MegaPlan, passes, limit: int) -> None:
     """Raise ``NotImplementedError`` when a pass needs more shared memory
     than ``limit`` or more threads than a block holds.  ``passes`` are
-    ``(which, tile)`` pairs: 0 and 1 the forward passes, 2 the one-CTA
-    inverse (with the fold, for ``megastep``), 3 and 4 ``megafil``'s
-    multi-pass inverse."""
+    ``(which, tile)`` pairs (``FWD1`` .. ``ROWPAIR``).  The pass choosers
+    (``forward_tiles``, ``fold_passes``, ``kernels.megafil.inverse_passes``)
+    fit every plan ``MegaPlan.choose_r1`` accepts on a card with 227 KB of
+    shared memory a block, so this guards a smaller card."""
     for which, tile in passes:
         need, threads = res(0, which, tile), res(1, which, tile)
         if need > limit or threads > MAX_THREADS:
-            what = ("the fold step's inverse at nsub > 1 past one CTA "
-                    "needs a multi-pass inverse" if which == 2
-                    else "a forward pass this long is not written")
             raise NotImplementedError(
                 f"geometry (R1={plan.R1}, R2={plan.R2}, freq_res="
                 f"{plan.freq_res}, nbin={plan.nbin}) needs {need} B of shared "
                 f"memory and {threads} threads in pass {which}, over the "
-                f"card's {limit} B or {MAX_THREADS} threads: {what} "
-                "(ROADMAP.md Queue 2 item 1)")
+                f"card's {limit} B or {MAX_THREADS} threads")
+
+
+def step_passes(tk: int, inverse_tiles) -> tuple:
+    """The ``(which, tile)`` pairs a step launches: ``mega_fwd1`` at its
+    tile, the row pass (``mega_fwd2``/``mega_fwd2c`` at ``tk``, or the long
+    row pass when ``tk`` is 0), then ``inverse_tiles``."""
+    rows = ((ROWFFT, 0), (ROWPAIR, 0)) if tk == 0 else ((FWD2, tk),)
+    return rows + tuple(inverse_tiles)
 
 
 def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                   hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
-                  dphi: torch.Tensor, bounds=None, gr=None, gi=None):
+                  dphi: torch.Tensor, bounds=None, gr=None, gi=None,
+                  weights=None, inverse: str = "auto",
+                  row_pass: str = "auto"):
     """One fused fold step on the card; arguments as
     ``ops.megakernel.megastep_plain`` (float32 carries; ``gr``/``gi``, the
-    chirp, default ``cst.gr``/``cst.gi``).  Returns new ``(profiles,
-    hits)``."""
+    chirp, default ``cst.gr``/``cst.gi``; ``weights``, when given, float32
+    ``[nchan_in, npart]`` window weights that multiply the JA98 ones).
+    ``inverse`` (``fold_passes``) and ``row_pass`` (``forward_tiles``)
+    force the multi-pass inverse and the long row pass, for checks.
+    Returns new ``(profiles, hits)``."""
     p = plan
     dev = raw.device
     if dev.type != "cuda":
@@ -288,6 +363,8 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     check_tensor(profiles, "profiles", f32,
                  (nchan, p.nplane, p.nsub, p.nbin), dev)
     check_tensor(hits, "hits", f32, (nchan, p.nbin), dev)
+    if weights is not None:
+        check_tensor(weights, "weights", f32, (nchan, npart), dev)
     gr = cst.gr if gr is None else gr
     gi = cst.gi if gi is None else gi
     check_tensor(gr, "gr", f32, (nchan, p.n_fft), dev)
@@ -305,34 +382,42 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                                       tile, layout_code(p))
 
     limit = smem_limit(dev)
-    tc, tk = forward_tiles(res, p, limit)
-    check_resources(res, p, ((0, tc), (1, tk), (2, 0)), limit)
+    tc, tk = forward_tiles(res, p, limit, row_pass)
+    ta, tb, gfold = fold_passes(res, p, limit, inverse)
+    inv = (((INVA, ta), (INVB_GLOBAL if gfold else INVB, tb)) if ta
+           else ((INV, 0),))
+    check_resources(res, p, ((FWD1, tc),) + step_passes(tk, inv), limit)
 
     prof_out = torch.empty_like(profiles)
     hits_out = torch.empty_like(hits)
     tw = device_tables(p, dev)
+    # the multi-pass inverse's tables: lengths R1 and q, factors over M
+    tw2 = device_tables(p, dev, row_len=p.q) if ta else tw
     psum = torch.empty((nchan, npart, 2), dtype=f32, device=dev)
+    # stage-1 columns; the multi-pass inverse reuses them for its own
+    # nchan*npolf windows of N points (no larger)
     cbuf = torch.empty((nchan * cbuf_seqs(p, npolf), npart, p.R1,
                         p.row_len, 2), dtype=f32, device=dev)
     ybuf = torch.empty((nchan * npolf, npart, p.n_fft, 2), dtype=f32,
                        device=dev)
     pacc = torch.empty_like(profiles)
-    hacc = torch.empty((nchan, p.nbin), dtype=torch.int32, device=dev)
+    hacc = torch.empty_like(hits)
     lo, hi = bounds_pair(bounds)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.megastep_launch(
             raw.data_ptr(), phi0.data_ptr(), dphi.data_ptr(),
-            gr.data_ptr(), gi.data_ptr(), tw.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), tw.data_ptr(), tw2.data_ptr(),
             profiles.data_ptr(), hits.data_ptr(), prof_out.data_ptr(),
             hits_out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
-            ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(), *unpack_ptrs,
+            ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(),
+            None if weights is None else weights.data_ptr(), *unpack_ptrs,
             nchan, p.npol, pols[0], npolf, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, lo, hi, layout_code(p), code_kind(p),
-            p.npw, stream)
+            p.nsamp_step, tc, tk, ta, tb, gfold, lo, hi, layout_code(p),
+            code_kind(p), p.npw, stream)
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()
         raise RuntimeError(f"megastep launch failed: CUDA error {rc}: {msg}")

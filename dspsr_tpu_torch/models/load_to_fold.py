@@ -33,11 +33,13 @@ package's three engines, chosen once at construction as it chooses them:
   streams, detection, then the hybrid engine's tail.  It launches neither
   kernel.
 
-The host reads raw bytes and computes float64 phase anchors per block.  A
-configuration the JAX package runs fused but the port's kernels cannot
-take (``kernels/megastep.py::check_resources``,
-``kernels/megafil.py::inverse_passes``) raises ``NotImplementedError``
-naming its ROADMAP item; it never falls back to the general chain.
+The host reads raw bytes and computes float64 phase anchors per block.
+Every plan the JAX package runs fused (``MegaPlan.choose_r1``: R1 up to
+1024, R2 up to 8192) runs on the port's kernels: past one CTA's inverse
+they take the multi-pass inverse (``kernels/megastep.py::fold_passes``,
+``kernels/megafil.py::inverse_passes``) and, for real input at R2 = 8192,
+the long row pass (``forward_tiles``); the pipeline never falls back to
+the general chain.
 """
 
 from __future__ import annotations

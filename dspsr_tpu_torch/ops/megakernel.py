@@ -44,6 +44,8 @@ steps 1-4 and the undetected voltage (the cyclic fold's input), optionally
 with the pre-chirp passband and with the chirp handed in per call (the
 hybrid fold engine's front end); its kernel is ``kernels.megafil``.  Both
 plain versions share one front end (``_front_plain``).
+``inverse_subbands_twopass`` is the plain twin of the kernels' multi-pass
+inverse (the two-pass split they run past one CTA), for the tests.
 
 The TPU kernel's dense DFT, twiddle and row-select matrices are not ported:
 they existed for the TPU's matrix unit, and the Hopper kernels run
@@ -529,9 +531,47 @@ def _unpack_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     return x * cst.unpack_scale + cst.unpack_offset, None
 
 
+def inverse_subbands_twopass(spec: torch.Tensor,
+                             plan: MegaPlan) -> torch.Tensor:
+    """Each subband's inverse FFT, split into the two passes of the
+    kernels' multi-pass inverse (``mega_inva`` and pass B in
+    ``csrc/mega_common.cuh``), indexed as they index it: plain PyTorch, the
+    twin of the kernels, which the tests hold against the plain inverse
+    (``torch.fft.ifft`` of each subband) and ``mega_reference``; no step
+    runs it on the card.
+
+    ``spec [..., n_fft]`` is each window's chirped spectrum in the forward
+    FFT's bin order (real input: bins 0..N-1; complex input: unshifted).
+    Viewed as ``[k2, k1]`` (bin k = k2*R1 + k1), row k2 lands at the
+    kernels' stored row ``js = (k2 + R2/2) mod R2`` for complex input (the
+    ``fftshift`` that ``mega_fwd2c`` makes as it stores, the column shift of
+    the JAX package's block-diagonal matrix), at ``k2`` for real input;
+    subband ``s`` is stored rows ``s*q .. s*q + q - 1``.  Pass A: the
+    length-q inverse over ``k2l`` of each ``(s, k1)``, times ``exp(+2 pi i
+    k1 n2 / M)``; pass B: the length-R1 inverse over ``k1`` of each row
+    ``(s, n2)``, times ``1/M``; sample ``t = n2 + q*n1``.  Returns ``[...,
+    nsub, freq_res]`` complex samples in time order."""
+    p = plan
+    R1, R2, q, M = p.R1, p.R2, p.q, p.freq_res
+    lead = spec.shape[:-1]
+    y = spec.reshape(*lead, R2, R1)
+    if not p.real_input:
+        # stored row js holds FFT row k2 = (js + R2/2) mod R2
+        y = y[..., (torch.arange(R2, device=spec.device) + R2 // 2) % R2, :]
+    y = y.reshape(*lead, p.nsub, q, R1)  # [s, k2l, k1]
+    a = torch.fft.ifft(y, dim=-2) * q  # [s, n2, k1], unscaled
+    rdt = spec.real.dtype
+    n2 = torch.arange(q, dtype=rdt, device=spec.device)
+    k1 = torch.arange(R1, dtype=rdt, device=spec.device)
+    a = a * torch.exp(2j * torch.pi * torch.outer(n2, k1) / M)
+    x = torch.fft.ifft(a, dim=-1) * (R1 / M)  # [s, n2, n1]
+    return x.transpose(-1, -2).reshape(*lead, p.nsub, M)
+
+
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
-                 gi=None, voltage: bool = False, jones=None):
+                 gi=None, voltage: bool = False, jones=None,
+                 twopass: bool = False):
     """The front end both plain steps share: unpack (:func:`_unpack_plain`),
     the spectrum of each window times the apodization window when there is
     one (real input: ``rfft``, Nyquist dropped; complex input: ``fft`` then
@@ -545,7 +585,9 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     npart, nsub, nkeep]`` of every input pol instead, with the sign of
     :func:`voltage_sign_flips`.  With a Jones response (``jones``, default
     ``cst.jones``) both input pols are transformed, and output pol ``p`` is
-    the mix ``J[p, 0] X_0 + J[p, 1] X_1`` before the scalar chirp slot."""
+    the mix ``J[p, 0] X_0 + J[p, 1] X_1`` before the scalar chirp slot.
+    ``twopass`` runs the inverse as :func:`inverse_subbands_twopass` (for
+    the tests) in place of ``torch.fft.ifft``."""
     p = plan
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     nchan, M = p.nchan_in, p.freq_res
@@ -575,8 +617,14 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     gr = cst.gr if gr is None else gr
     gi = cst.gi if gi is None else gi
     spec = spec * torch.complex(gr, gi).to(cdtype)[:, None, None, :]
-    sub = spec.reshape(nchan, -1, npart, p.nsub, M)
-    v = torch.fft.ifft(sub, dim=-1)[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
+    if twopass:
+        fft_order = spec if p.real_input else torch.fft.ifftshift(spec,
+                                                                 dim=-1)
+        v = inverse_subbands_twopass(fft_order, p)
+    else:
+        v = torch.fft.ifft(spec.reshape(nchan, -1, npart, p.nsub, M),
+                           dim=-1)
+    v = v[..., p.nfilt_pos:p.nfilt_pos + p.nkeep]
     if not voltage:
         return _detect_plain(v, p), pb, wgt
     if voltage_sign_flips(p):
@@ -587,7 +635,8 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                    hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
-                   dphi: torch.Tensor, bounds=None, gr=None, gi=None):
+                   dphi: torch.Tensor, bounds=None, gr=None, gi=None,
+                   weights=None, twopass: bool = False):
     """Plain PyTorch version of the fused step (``torch.fft`` and
     ``index_add_``), in the dtype of ``profiles`` (float32 or float64); the
     phase is float32 whatever that dtype.
@@ -596,15 +645,23 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     raw uint8 flat bytes of one block in the plan's layout, phi0/dphi
     ``[npart]`` per-window anchors, bounds ``None`` or ``(lo, hi)``,
     ``gr``/``gi`` the chirp (default the constants', float ``[nchan_in,
-    n_fft]``, natural bin order).  Returns new ``(profiles, hits)``.  A
-    JA98 plan's window weights multiply each window's samples and hits
-    (the reference's weight in the fold's one-hot, ``mega_reference``).
+    n_fft]``, natural bin order), ``weights`` ``None`` or float
+    ``[nchan_in, npart]`` external window weights (the JAX package's
+    ``external_weights``: SK or RFI masks computed outside the step).
+    Returns new ``(profiles, hits)``.  A JA98 plan's window weights, times
+    the external ones, multiply each window's samples and hits (the
+    reference's weight in the fold's one-hot, ``mega_reference``).
+    ``twopass`` runs the inverse as :func:`inverse_subbands_twopass`.
     """
     p = plan
     npart = phi0.shape[0]
     dtype = profiles.dtype
     nchan = p.nchan_in
-    planes, _, wgt = _front_plain(p, cst, raw, npart, dtype, gr=gr, gi=gi)
+    planes, _, wgt = _front_plain(p, cst, raw, npart, dtype, gr=gr, gi=gi,
+                                  twopass=twopass)
+    if weights is not None:
+        weights = weights.to(dtype)
+        wgt = weights if wgt is None else wgt.to(dtype) * weights
 
     lo, hi = bounds_pair(bounds)
     g = torch.arange(npart * p.nkeep, device=raw.device)
@@ -624,41 +681,61 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
 
 
 def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
-                   response_as_args: bool = False):
+                   response_as_args: bool = False,
+                   external_weights: bool = False, inverse: str = "auto"):
     """The fused fold step for ``npart`` windows a block:
-    ``step(profiles, hits, raw, phi0, dphi, bounds=None) -> (profiles,
-    hits)``, or with ``response_as_args`` ``step(profiles, hits, raw, phi0,
-    dphi, gr, gi, bounds=None)``: the chirp handed in on each call, float32
-    ``[nchan_in, n_fft]`` in natural bin order (the channel-sharded step
-    passes its channel group's rows of the full-band chirp; the JAX package
-    passes its permuted ``[nchan_in, R1, R2]`` layout instead).  On CUDA
-    tensors it launches the hand-written kernel
-    (``kernels.megastep.megastep_cuda``); on CPU tensors it runs
-    :func:`megastep_plain`.  ``cst`` holds tensors on the step's device.
-    A Jones response raises: it runs on the hybrid engine's front end, as
-    in the JAX package (``load_to_fold.py:1127-1144``)."""
+    ``step(profiles, hits, raw, phi0, dphi[, weights | gr, gi],
+    bounds=None) -> (profiles, hits)`` (the JAX package's signature).
+    With ``external_weights`` it takes ``weights``, float32 ``[nchan_in,
+    npart]`` window weights that multiply each window's samples and hits
+    (SK or RFI masks computed outside the step; times the JA98 weights of a
+    JA98 plan).  With ``response_as_args`` it takes the chirp on each call,
+    float32 ``[nchan_in, n_fft]`` in natural bin order (the channel-sharded
+    step passes its channel group's rows of the full-band chirp; the JAX
+    package passes its permuted ``[nchan_in, R1, R2]`` layout instead).  On
+    CUDA tensors it launches the hand-written kernel
+    (``kernels.megastep.megastep_cuda``; ``inverse="multipass"`` or
+    ``"global"`` forces its multi-pass inverse, with the fold's
+    shared-memory or global-atomic sums, where one CTA would do, for
+    checks); on CPU tensors it runs :func:`megastep_plain`.  ``cst`` holds tensors on the step's
+    device.  A Jones response raises: it runs on the hybrid engine's front
+    end, as in the JAX package (``load_to_fold.py:1127-1144``)."""
     plan.validate()
     if cst is not None and cst.jones is not None:
         raise NotImplementedError(
             "a Jones response on the fused fold step; the pipeline runs it "
             "on the hybrid engine (build_megafil), as the JAX package does; "
             "see ROADMAP.md Queue 2 item 1")
+    if inverse not in ("auto", "multipass", "global"):
+        raise ValueError(f"unknown inverse: {inverse}")
+    if external_weights and response_as_args:
+        raise ValueError("external_weights or response_as_args, not both "
+                         "(the JAX package's step takes one or the other)")
 
-    def step_args(profiles, hits, raw, phi0, dphi, gr, gi, bounds=None):
+    def run(profiles, hits, raw, phi0, dphi, weights, gr, gi, bounds):
         if phi0.shape != (npart,):
             raise ValueError(f"phi0 shape {tuple(phi0.shape)} != ({npart},)")
         if raw.is_cuda:
             from ..kernels.megastep import megastep_cuda
 
             return megastep_cuda(plan, cst, profiles, hits, raw, phi0, dphi,
-                                 bounds, gr, gi)
+                                 bounds, gr, gi, weights, inverse)
         return megastep_plain(plan, cst, profiles, hits, raw, phi0, dphi,
-                              bounds, gr, gi)
+                              bounds, gr, gi, weights)
 
-    def step(profiles, hits, raw, phi0, dphi, bounds=None):
-        return step_args(profiles, hits, raw, phi0, dphi, None, None, bounds)
+    if external_weights:
+        def step(profiles, hits, raw, phi0, dphi, weights, bounds=None):
+            return run(profiles, hits, raw, phi0, dphi, weights, None, None,
+                       bounds)
+    elif response_as_args:
+        def step(profiles, hits, raw, phi0, dphi, gr, gi, bounds=None):
+            return run(profiles, hits, raw, phi0, dphi, None, gr, gi, bounds)
+    else:
+        def step(profiles, hits, raw, phi0, dphi, bounds=None):
+            return run(profiles, hits, raw, phi0, dphi, None, None, None,
+                       bounds)
 
-    return step_args if response_as_args else step
+    return step
 
 
 # --------------------------------------------------------------------------
@@ -678,7 +755,8 @@ def passband_layout(plan: MegaPlan, pb: torch.Tensor) -> torch.Tensor:
 def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                   npart: int, dtype=torch.float32, passband: bool = False,
                   gr=None, gi=None, output: str = "detected",
-                  return_weights: bool = False, jones=None):
+                  return_weights: bool = False, jones=None,
+                  twopass: bool = False):
     """Plain PyTorch version of the fused search front end (``torch.fft``),
     in ``dtype`` (float32 or float64): raw uint8 flat bytes of one block
     -> detected, time-ordered ``[nchan_in*nsub, nplane, npart*nkeep]``
@@ -692,11 +770,12 @@ def megafil_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     ``gr``/``gi`` replace the constants' chirp (float ``[nchan_in, n_fft]``,
     natural bin order), ``jones`` their Jones response (float ``[nchan_in,
     4, n_fft, 2]``, the layout of ``MegaConstants.jones``).  The data are
-    not weighted, as in the JAX package."""
+    not weighted, as in the JAX package.  ``twopass`` runs the inverse as
+    :func:`inverse_subbands_twopass`."""
     p = plan
     voltage = output == "voltage"
     planes, pb, wgt = _front_plain(p, cst, raw, npart, dtype, passband, gr,
-                                   gi, voltage, jones)
+                                   gi, voltage, jones, twopass)
     # [nchan, nplane, npart, nsub, nkeep] -> [nchan, nsub, nplane, npart,
     # nkeep]: time order within each output channel
     data = planes.permute(0, 3, 1, 2, 4).reshape(

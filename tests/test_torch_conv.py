@@ -6,15 +6,16 @@ channel, the ``hybrid_conv32`` cell's path) in the port, on the CPU:
   package's ``build_megafil`` (its Pallas kernel in interpret mode), real
   and complex input, detected and voltage output, with the passband tap and
   a masked chirp: 2e-5 relative (the reference's own front-end tolerance);
-- a float64 numpy mirror of the CUDA multi-pass inverse
-  (``megafil_inva``/``megafil_invb`` in ``csrc/megafil.cu``): the k/n split,
+- a float64 numpy mirror of the CUDA multi-pass inverse at nsub == 1
+  (``mega_inva`` in ``csrc/mega_common.cuh``, ``megafil_invb`` in
+  ``csrc/megafil.cu``; nsub > 1 in ``test_torch_multipass.py``): the k/n split,
   the length-R2 and length-R1 passes on the register-FFT mirror of
   ``test_torch_fourstep.py``, the twiddle from the lo/hi tables of the
   geometry (R1, R2, N), the tile walk, the time-order store index and the
   voltage sign, held to 1e-12 against ``numpy.fft.ifft`` and to the plain
   front end;
 - the wrapper's choice of inverse (one CTA while it fits, multi-pass past
-  it, forced by an argument);
+  it at any nsub, forced by an argument);
 - ``FoldPipeline`` at ``nsub == 1`` against the JAX ``FoldPipeline`` (its
   hybrid engine): Intensity, Stokes, PPQQ with sub-integrations, the RFI
   filter (carried masks exact), cyclic folding (with SK), ``-K`` and
@@ -195,7 +196,7 @@ def out_bins(ybuf, jones, nchan, nout, jpol0):
 
 
 def inva(y, R1, R2, tb, S):
-    """``megafil_inva`` over every tile of ``S`` columns k1: the length-R2
+    """``mega_inva`` over every tile of ``S`` columns k1: the length-R2
     inverse over k2 of y[seq, w, k2*R1 + k1], times exp(+2 pi i k1 n2 / N)
     from the lo/hi tables; z[seq, w, n2*R1 + k1]."""
     N = R1 * R2
@@ -354,25 +355,24 @@ def test_multipass_mirror_matches_plain_front_end(real, jones):
 
 
 def _res(R1, R2, M, nout, real):
-    """The C library's ``megafil_resources`` in Python (the formulas of
-    ``csrc/mega_common.cuh`` and ``csrc/megafil.cu``)."""
+    """The C library's ``megafil_resources`` in Python (``pass_resources``
+    of ``csrc/mega_common.cuh``)."""
+    from test_torch_multipass import pass_resources
+
     row_len = 2 * R2 if real else R2
 
     def res(kind, which, tile):
-        if which >= 3:
-            L = R2 if which == 3 else R1
-            if kind == 1:
-                return tile * (L // fft_points(L))
-            return (1 if which == 3 else nout) * tile * seq_ld(L) * 8
-        assert which == 2
-        return M // fft_points(M) if kind == 1 else nout * seq_ld(M) * 8
+        return pass_resources(kind, which, R1, row_len, M, nout, tile,
+                              not real, 0)
 
     return res
 
 
 def test_inverse_choice():
     """One CTA while it fits; the multi-pass inverse past it (the
-    hybrid_conv32 geometry) or when forced; nsub > 1 past one CTA raises."""
+    hybrid_conv32 geometry) or when forced; at nsub 4 and freq_res 16384,
+    past one CTA's 512 threads, the multi-pass inverse with pass A's tile
+    of 8 columns and all 4 subbands (q = 256: 512 threads)."""
     limit = 232448
     small = tmk.MegaPlan(**dataclasses.asdict(conv_plan(freq_res=4096)))
     assert inverse_passes(_res(64, 64, 4096, 2, True), small, limit) == (0, 0)
@@ -389,8 +389,16 @@ def test_inverse_choice():
         assert res(0, which, tile) <= limit
         assert res(1, which, tile) <= MAX_THREADS
     sub = dataclasses.replace(small, nsub=4, freq_res=16384)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        inverse_passes(_res(64, 1024, 16384, 2, True), sub, limit)
+    assert (sub.R1, sub.R2, sub.q) == (64, 1024, 256)
+    res = _res(64, 1024, 16384, 2, True)
+    assert res(1, 2, 0) > MAX_THREADS
+    assert inverse_passes(res, sub, limit) == (
+        MULTIPASS_CAPS[0] * sub.nsub, MULTIPASS_CAPS[1])
+    for which, tile in ((3, MULTIPASS_CAPS[0] * sub.nsub),
+                        (4, MULTIPASS_CAPS[1])):
+        assert res(0, which, tile) <= limit
+        assert res(1, which, tile) <= MAX_THREADS
+    assert res(1, 3, MULTIPASS_CAPS[0] * sub.nsub) == MAX_THREADS
 
 
 def test_hybrid_conv32_geometry():

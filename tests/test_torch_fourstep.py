@@ -47,7 +47,7 @@ def seq_ld(L):
 
 
 def fft_points(L):
-    return 16 if L >= 16 else 8
+    return 16 if L >= 16 else L
 
 
 def pass_bits(s, logL, lgP):
@@ -90,7 +90,8 @@ def fft_regs(v, L, d, tw):
     ``tw`` is the length-L block of the wrapper's tables."""
     P = v.shape[0]
     T = L // P
-    lgP, logL = P.bit_length() - 1, L.bit_length() - 1
+    # no pass wider than radix 16 (P = 32: two butterflies a pass)
+    lgP, logL = min(P.bit_length() - 1, 4), L.bit_length() - 1
     j = np.arange(T)
     seq = np.zeros((seq_ld(L),) + v.shape[2:], complex)
     v = v.astype(complex).copy()

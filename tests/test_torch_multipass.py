@@ -1,0 +1,826 @@
+"""Every geometry the JAX package fuses, in the port, on the CPU:
+
+- the plain twin of the kernels' multi-pass inverse
+  (``ops.megakernel.inverse_subbands_twopass``) against each subband's
+  ``torch.fft.ifft`` (1e-6), and through the plain steps against the
+  plain inverse and the JAX package's float64 ``mega_reference`` (2e-5,
+  hits exact): real, complex and CASPSR input, nsub 2 and 4, detected and
+  voltage output;
+- float64 numpy mirrors of the CUDA passes at nsub > 1: ``mega_inva``
+  (tiles of S columns and G subbands, the length-q inverse on the register
+  FFT of ``test_torch_fourstep.py``, the lo/hi twiddle over M),
+  ``megafil_invb`` (the time-order store of each subband), the tile walk of
+  ``mega_invbfold`` (every kept sample folded once, hits from subband 0),
+  and the long row pass (``mega_rowfft`` with 32 points a thread,
+  ``mega_rowpair``), against ``numpy.fft`` and the mirror of
+  ``mega_fwd2``;
+- the resource map: a Python copy of ``pass_resources``
+  (``csrc/mega_common.cuh``) run through the wrappers' pass choosers over
+  every plan ``MegaPlan.choose_r1`` accepts, real and complex, nplane 1, 2,
+  4 and 14, nbin 64-8192: every pass fits a CTA of the H100 (232448 B of
+  shared memory, 512 threads), so no plan is refused;
+- ``external_weights`` on the fused fold step against ``mega_reference``;
+- ``FoldPipeline`` (full and hybrid engines) and ``FilPipeline`` at a
+  geometry the card refused before (nsub 4, freq_res 16384) against the
+  JAX package's.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from dspsr_tpu.models import load_to_fil as jfil
+from dspsr_tpu.models import load_to_fold as jl
+from dspsr_tpu.ops import megakernel as jmk
+from dspsr_tpu.ops.filterbank import FilterbankPlan
+
+from dspsr_tpu_torch.kernels import megafil as kfil
+from dspsr_tpu_torch.kernels import megastep as kstep
+from dspsr_tpu_torch.kernels.megastep import twiddle_tables
+from dspsr_tpu_torch.models import load_to_fil as tfil
+from dspsr_tpu_torch.models import load_to_fold as tl
+from dspsr_tpu_torch.ops import megakernel as tmk
+from test_megakernel import _write_raw
+from test_torch_fourstep import (
+    Geom, _raw, fft_points, fft_regs, fwd1, fwd2, polpow, seq_ld, tables64)
+from test_torch_pipeline import BASE, raw_source
+from test_torch_search import _assert_data_close, _run_both
+
+torch.set_num_threads(2)
+
+TOL = 2e-5
+TOL_TWIN = 1e-6
+TOL_MIRROR = 1e-12
+NPART = 3
+#: the H100's shared memory a block may opt in to, and the kernels' threads
+LIMIT = 232448
+MAX_THREADS = kstep.MAX_THREADS
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# ------------------------------------------------------------ resources
+
+
+def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
+                   prof_bytes):
+    """``pass_resources`` of ``csrc/mega_common.cuh`` in Python."""
+    R2 = row_len if cplx else row_len // 2
+    if which == kstep.FWD1:
+        return (tile * (R1 // fft_points(R1)) if kind
+                else tile * seq_ld(R1) * 8)
+    if which == kstep.FWD2:
+        return (tile * (row_len // fft_points(row_len)) if kind
+                else (1 if cplx else 2) * tile * seq_ld(row_len) * 8)
+    if which == kstep.INV:
+        return M // fft_points(M) if kind else nout * seq_ld(M) * 8 + \
+            prof_bytes
+    if which == kstep.INVA:
+        q = M // R1
+        T = q // fft_points(q)
+        return tile * T if kind else (tile * seq_ld(q) * 8 if T > 1 else 0)
+    if which in (kstep.INVB, kstep.INVB_GLOBAL):
+        return (tile * (R1 // fft_points(R1)) if kind
+                else nout * tile * seq_ld(R1) * 8
+                + (prof_bytes if which == kstep.INVB else 0))
+    if which == kstep.ROWFFT:
+        return row_len // 32 if kind else seq_ld(row_len) * 8
+    assert which == kstep.ROWPAIR
+    return 8 * min(32, R2) if kind else 0
+
+
+def step_res(plan, npolf):
+    """``megastep_resources`` for ``plan``."""
+    prof = (plan.nplane * plan.nbin + plan.nbin) * 4
+
+    def res(kind, which, tile):
+        return pass_resources(kind, which, plan.R1, plan.row_len,
+                              plan.freq_res, npolf, tile,
+                              not plan.real_input, prof)
+    return res
+
+
+def fil_res(plan, nout):
+    """``megafil_resources`` for ``plan``."""
+    def res(kind, which, tile):
+        return pass_resources(kind, which, plan.R1, plan.row_len,
+                              plan.freq_res, nout, tile,
+                              not plan.real_input, 0)
+    return res
+
+
+def _map_plan(nsub, freq_res, real, nbin, npol_out, fourth=False):
+    r1 = tmk.MegaPlan.choose_r1(nsub * freq_res, freq_res)
+    if r1 is None:
+        return None
+    return tmk.MegaPlan(nsub=nsub, freq_res=freq_res, R1=r1, nfilt_pos=0,
+                        nfilt_neg=8 * (freq_res // r1), nbin=nbin, npol=2,
+                        npol_out=npol_out, real_input=real,
+                        fourth_moment=fourth)
+
+
+def _fitting(res, passes):
+    for which, tile in passes:
+        assert res(0, which, tile) <= LIMIT, (which, tile)
+        assert 0 < res(1, which, tile) <= MAX_THREADS, (which, tile)
+    kstep.check_resources(res, None, passes, LIMIT)
+
+
+@pytest.mark.parametrize("real", [True, False], ids=["real", "complex"])
+@pytest.mark.parametrize("nsub", [1 << k for k in range(11)])
+def test_no_plan_is_refused(nsub, real):
+    """Every plan ``choose_r1`` accepts at this nsub (freq_res 16-2^17),
+    through both wrappers' pass choosers, for every detection width and
+    nbin 64-8192: each pass it launches fits the card; the multi-pass
+    inverse takes over exactly where the one-CTA inverse does not fit, and
+    the long row pass exactly where the row pair does not."""
+    seen = 0
+    for freq_res in (1 << k for k in range(4, 18)):
+        for nplane, npol_out, fourth in ((1, 1, False), (2, 2, False),
+                                         (4, 4, False), (14, 4, True)):
+            for nbin in (64, 512, 1024, 4096, 8192):
+                plan = _map_plan(nsub, freq_res, real, nbin, npol_out,
+                                 fourth)
+                if plan is None:
+                    continue
+                assert plan.nplane == nplane
+                seen += 1
+                npolf = 2
+                res = step_res(plan, npolf)
+                tc, tk = kstep.forward_tiles(res, plan, LIMIT)
+                assert (tk == 0) == (real and plan.R2 == 8192)
+                ta, tb, gfold = kstep.fold_passes(res, plan, LIMIT)
+                one_cta = kstep.fits(res, kstep.INV, 0, LIMIT)
+                assert (ta == 0) == one_cta
+                if ta:
+                    assert tb <= plan.q and plan.q % tb == 0
+                    assert plan.nsub % max(1, ta // min(8, plan.R1)) == 0
+                inv = ((kstep.INVA, ta), (kstep.INVB_GLOBAL if gfold
+                                          else kstep.INVB, tb)) if ta \
+                    else ((kstep.INV, 0),)
+                _fitting(res, ((kstep.FWD1, tc),)
+                         + kstep.step_passes(tk, inv))
+                if fourth:
+                    continue  # the search front end takes no fourth moments
+                for nout in (1, 2):
+                    fres = fil_res(plan, nout)
+                    ta, tb = kfil.inverse_passes(fres, plan, LIMIT)
+                    assert (ta == 0) == kstep.fits(fres, kstep.INV, 0, LIMIT)
+                    inv = ((kstep.INVA, ta), (kstep.INVB, tb)) if ta \
+                        else ((kstep.INV, 0),)
+                    _fitting(fres, ((kstep.FWD1, tc),)
+                             + kstep.step_passes(tk, inv))
+    assert seen > 0
+
+
+def test_flagship_dm_plans():
+    """The flagship band (1382 MHz, -400 MHz, real 8-bit, ``-F 64:D``) at
+    J1713+0747's DM 15.99 and J0613-0200's 38.78: the plans and passes the
+    port's planning code gives them."""
+    from dspsr_tpu_torch.ops.dedispersion import Dedispersion
+    from dspsr_tpu_torch.ops.filterbank import FilterbankPlan as TFB
+
+    want = {15.99: (32768, 1024, 2048, 32), 38.78: (131072, 1024, 8192, 128)}
+    for dm, (freq_res, R1, R2, q) in want.items():
+        nfp, nfn = (Dedispersion._half_smearing_samples(
+            dm, 1382.0, -400.0, 64, sign, 0.1) for sign in (+1, -1))
+        plan = tmk.MegaPlan.from_filterbank(
+            TFB(real_input=True, nchan_subband=64, freq_res=freq_res,
+                nfilt_pos=nfp, nfilt_neg=nfn), nbin=1024, npol=2)
+        assert (plan.R1, plan.R2, plan.q) == (R1, R2, q)
+        res = step_res(plan, 2)
+        assert not kstep.fits(res, kstep.INV, 0, LIMIT)
+        # pass A: 512 threads, q / 16 a sequence (8 columns and 32 or 8
+        # subbands); pass B: 8 rows, 512 threads, the profile in shared
+        # memory (the search front end: 4 rows)
+        ta = MAX_THREADS // (q // 16)
+        assert kstep.fold_passes(res, plan, LIMIT) == (ta, 8, 0)
+        assert kfil.inverse_passes(fil_res(plan, 1), plan, LIMIT) == (ta, 4)
+        assert (kstep.forward_tiles(res, plan, LIMIT)[1] == 0) == (
+            R2 == 8192)
+
+
+# ------------------------------------------------------ the plain twin
+
+
+def _stored(spec, plan):
+    """The spectrum in the kernels' stored order (centred for complex)."""
+    return spec if plan.real_input else torch.fft.fftshift(spec, dim=-1)
+
+
+@pytest.mark.parametrize("real", [True, False], ids=["real", "complex"])
+@pytest.mark.parametrize("nsub,freq_res", [(2, 64), (4, 64), (4, 256),
+                                           (2, 128)])
+def test_twin_matches_ifft(real, nsub, freq_res):
+    """The two passes, indexed as the kernels index them (the complex
+    shift, t = n2 + q n1), give each stored subband's inverse FFT."""
+    fb = FilterbankPlan(real_input=real, nchan_subband=nsub,
+                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
+    plan = tmk.MegaPlan(**dataclasses.asdict(jmk.MegaPlan.from_filterbank(
+        fb, nbin=8, npol=2)))
+    assert plan.q > 1
+    rng = np.random.default_rng(nsub + freq_res)
+    spec = torch.from_numpy(rng.normal(size=(2, 3, plan.n_fft))
+                            + 1j * rng.normal(size=(2, 3, plan.n_fft)))
+    got = tmk.inverse_subbands_twopass(spec, plan)
+    want = torch.fft.ifft(_stored(spec, plan).reshape(
+        2, 3, nsub, freq_res), dim=-1)
+    assert _rel(got.numpy(), want.numpy()) < TOL_TWIN
+
+
+KINDS = ("real", "complex", "caspsr")
+
+
+def _kind_plan(kind, nsub, nbin=32, **kw):
+    fb = FilterbankPlan(real_input=kind != "complex", nchan_subband=nsub,
+                        freq_res=64, nfilt_pos=5, nfilt_neg=6)
+    if kind == "caspsr":
+        kw["interleave"] = "caspsr"
+    return jmk.MegaPlan.from_filterbank(fb, nbin=nbin, npol=2, **kw)
+
+
+def _kind_setup(kind, nsub, seed=0, **kw):
+    plan = _kind_plan(kind, nsub, **kw)
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=plan.block_ndat(NPART) * plan.npol
+                       * plan.ndim * plan.nchan_in, dtype=np.uint8)
+    resp = np.exp(1j * rng.uniform(-3, 3, (plan.nchan_in * nsub, 64)))
+    phi0 = rng.uniform(0, 1, NPART).astype(np.float32)
+    dphi = np.full(NPART, 0.013, np.float32)
+    return plan, raw, resp, phi0, dphi
+
+
+def _port_cst(plan, resp):
+    tplan = tmk.MegaPlan(**dataclasses.asdict(plan))
+    scale, offset = tmk.unpack_affine(8, plan.twos_complement)
+    return tplan, tmk.MegaConstants.build(tplan, resp, scale, offset).to(
+        "cpu")
+
+
+@pytest.mark.parametrize("output", ["detected", "voltage"])
+@pytest.mark.parametrize("nsub", [2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_twopass_front_matches_plain(kind, nsub, output):
+    """``megafil_plain(twopass=True)`` against the plain inverse (float64),
+    Stokes or every input pol's voltage with its sign."""
+    plan, raw, resp, _, _ = _kind_setup(kind, nsub, npol_out=4)
+    tplan, cst = _port_cst(plan, resp)
+    raw_t = torch.from_numpy(raw)
+    got = tmk.megafil_plain(tplan, cst, raw_t, NPART, torch.float64,
+                            output=output, twopass=True)
+    want = tmk.megafil_plain(tplan, cst, raw_t, NPART, torch.float64,
+                             output=output)
+    assert _rel(torch.view_as_real(got) if got.is_complex() else got,
+                torch.view_as_real(want) if want.is_complex() else want) \
+        < TOL_TWIN
+
+
+@pytest.mark.parametrize("nsub", [2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_twopass_step_matches_reference(kind, nsub):
+    """``megastep_plain(twopass=True)`` against ``mega_reference`` at the
+    reference's tolerance, hits exact (coherence, so every cross term)."""
+    plan, raw, resp, phi0, dphi = _kind_setup(kind, nsub, npol_out=4,
+                                              detection="coherence")
+    tplan, cst = _port_cst(plan, resp)
+    shp = (1, plan.nplane, nsub, plan.nbin)
+    p, h = tmk.megastep_plain(
+        tplan, cst, torch.zeros(shp, dtype=torch.float64),
+        torch.zeros(1, plan.nbin, dtype=torch.float64), torch.from_numpy(raw),
+        torch.from_numpy(phi0), torch.from_numpy(dphi), twopass=True)
+    scale, offset = jmk.unpack_affine(8, plan.twos_complement)
+    c64 = jmk.MegaConstants(plan, resp, dtype=np.float64,
+                            unpack_scale=scale, unpack_offset=offset)
+    pr, hr = jmk.mega_reference(raw, plan, c64, phi0.astype(np.float64),
+                                dphi.astype(np.float64), NPART)
+    assert _rel(p.numpy(), pr) < TOL
+    assert np.array_equal(h.numpy(), hr)
+
+
+# ---------------------------------------------------- external weights
+
+
+@pytest.mark.parametrize("wext", [[1.0, 0.0, 1.0], [0.5, 1.0, 0.25]],
+                         ids=["mask", "fractional"])
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_external_weights_match_reference(kind, wext):
+    """``build_megastep(external_weights=True)`` (plain on the CPU) against
+    ``mega_reference(ext_weights=...)``: the case of
+    ``tests/test_megakernel.py::test_external_weights_reach_fused_fold``
+    (window 1 killed) and fractional weights, at 2e-5, hits exact."""
+    plan, raw, resp, phi0, dphi = _kind_setup(kind, 4, npol_out=1)
+    tplan, cst = _port_cst(plan, resp)
+    w = np.array([wext])
+    step = tmk.build_megastep(tplan, cst, NPART, external_weights=True)
+    p, h = step(torch.zeros(1, 1, 4, plan.nbin),
+                torch.zeros(1, plan.nbin), torch.from_numpy(raw),
+                torch.from_numpy(phi0), torch.from_numpy(dphi),
+                torch.tensor(w, dtype=torch.float32))
+    scale, offset = jmk.unpack_affine(8)
+    c64 = jmk.MegaConstants(plan, resp, dtype=np.float64,
+                            unpack_scale=scale, unpack_offset=offset)
+    pr, hr = jmk.mega_reference(raw, plan, c64, phi0.astype(np.float64),
+                                dphi.astype(np.float64), NPART,
+                                ext_weights=w)
+    pa, ha = jmk.mega_reference(raw, plan, c64, phi0.astype(np.float64),
+                                dphi.astype(np.float64), NPART)
+    assert hr.sum() < ha.sum()
+    assert _rel(p.numpy(), pr) < TOL
+    assert np.abs(h.numpy() - hr).max() == 0
+
+
+def test_external_weights_multiply_ja98():
+    """On a JA98 plan (with an excised stretch) the external weights
+    multiply the excision weights, as ``mega_reference`` does."""
+    from test_torch_twobit import NPART as NP, jax_cst, port_cst, setup
+
+    plan, jraw, traw, resp, phi0, dphi, win = setup(
+        nbit=2, real=False, npw=16, seed=4, rfi=((40, 80),))
+    w = np.linspace(0.25, 1.0, NP)[None, :].repeat(plan.nchan_in, 0)
+    shp = (plan.nchan_in, plan.nplane, plan.nsub, plan.nbin)
+    p, h = tmk.megastep_plain(
+        tmk.MegaPlan(**dataclasses.asdict(plan)), port_cst(plan, resp, win),
+        torch.zeros(shp, dtype=torch.float64),
+        torch.zeros(plan.nchan_in, plan.nbin, dtype=torch.float64),
+        torch.from_numpy(traw), torch.from_numpy(phi0),
+        torch.from_numpy(dphi), weights=torch.from_numpy(w))
+    pr, hr = jmk.mega_reference(jraw, plan, jax_cst(plan, resp, win),
+                                phi0.astype(np.float64),
+                                dphi.astype(np.float64), NP, ext_weights=w)
+    pa, ha = jmk.mega_reference(jraw, plan, jax_cst(plan, resp, win),
+                                phi0.astype(np.float64),
+                                dphi.astype(np.float64), NP)
+    assert not np.allclose(hr, ha)
+    assert _rel(p.numpy(), pr) < TOL
+    assert np.abs(h.numpy() - hr).max() < 1e-9
+
+
+def test_external_weights_signature():
+    """The JAX package's signature, ``step(profiles, hits, raw, phi0,
+    dphi, weights, bounds=None)``: a missing weights operand raises."""
+    plan, raw, resp, phi0, dphi = _kind_setup("real", 4, npol_out=1)
+    tplan, cst = _port_cst(plan, resp)
+    step = tmk.build_megastep(tplan, cst, NPART, external_weights=True)
+    args = (torch.zeros(1, 1, 4, plan.nbin), torch.zeros(1, plan.nbin),
+            torch.from_numpy(raw), torch.from_numpy(phi0),
+            torch.from_numpy(dphi))
+    with pytest.raises(TypeError, match="weights"):
+        step(*args)
+    with pytest.raises(ValueError, match="not both"):
+        tmk.build_megastep(tplan, cst, NPART, external_weights=True,
+                           response_as_args=True)
+    ones = torch.ones(1, NPART)
+    p1, h1 = step(*args, ones, (7, 70))
+    p0, h0 = tmk.build_megastep(tplan, cst, NPART)(*args, (7, 70))
+    assert torch.equal(p1, p0) and torch.equal(h1, h0)
+
+
+# ------------------------------------------------ mirrors of the passes
+
+
+def tables_m(R1, q):
+    """The multi-pass table buffer (geometry (R1, q, M)), float64."""
+    M = R1 * q
+    buf = twiddle_tables(R1, q, M, dtype=np.complex128)
+    log2m = M.bit_length() - 1
+    lo_bits = (log2m + 1) // 2
+    o = np.cumsum([0, R1, q, M, 1 << lo_bits, 1 << (log2m - lo_bits)])
+    r1, row, _, lo, hi = (buf[o[i]:o[i + 1]] for i in range(5))
+    return dict(r1=r1, row=row, lo=lo, hi=hi, lo_bits=lo_bits)
+
+
+def inva_mirror(y, R1, R2, q, tb, ta):
+    """``mega_inva`` over every tile of ``ta`` sequences (S columns k1, G
+    subbands): y [seq, w, N] stored spectra -> z [seq, w, N], Z[s*M + n2*R1
+    + k1]; also how often each element was written."""
+    M, nsub = R1 * q, R2 // q
+    P = fft_points(q)
+    T = q // P
+    S = min(ta, min(8, R1))
+    G = ta // S
+    lead = y.shape[:2]
+    yy = y.reshape(*lead, nsub, q, R1)
+    z = np.full(y.shape, np.nan, complex)
+    zz = z.reshape(*lead, nsub, q, R1)
+    writes = np.zeros((nsub, q, R1), int)
+    ntile = R1 // S
+    for tile in range(ntile * (nsub // G)):
+        cols = (tile % ntile) * S + np.arange(S)
+        subs = (tile // ntile) * G + np.arange(G)
+        # v[i, j, seq, w, g, col] = element k2l = j + T*i of (subs[g], col)
+        v = np.stack([yy[:, :, subs][:, :, :, np.arange(T) + T * i][
+            ..., cols].transpose(3, 0, 1, 2, 4) for i in range(P)])
+        if P > 1:
+            v = fft_regs(v, q, +1, tb["row"])
+        for i in range(P):
+            n2 = np.arange(T) + T * i
+            e = (cols[None, :] * n2[:, None]) & (M - 1)  # [T, S]
+            t = (tb["hi"][e >> tb["lo_bits"]]
+                 * tb["lo"][e & ((1 << tb["lo_bits"]) - 1)])
+            for g, s in enumerate(subs):
+                vals = v[i][:, :, :, g] * np.conj(t)[:, None, None, :]
+                zz[:, :, s, n2[:, None], cols[None, :]] = np.moveaxis(
+                    vals, 0, 2)
+                np.add.at(writes, (s, n2[:, None], cols[None, :]), 1)
+    return z, writes
+
+
+def invb_rows(z, R1, R2, tb, a, S):
+    """``inverse_rows``: rows a .. a + S - 1 of z [seq, w, N] inverse-FFT'd
+    (unscaled), [S, R1, seq, w]."""
+    P = fft_points(R1)
+    T = R1 // P
+    zz = z.reshape(*z.shape[:2], R2, R1)
+    rows = a + np.arange(S)
+    v = np.stack([zz[:, :, rows][..., np.arange(T) + T * ii]
+                  for ii in range(P)])
+    v = fft_regs(np.moveaxis(v, 4, 1), R1, +1, tb["r1"])
+    sm = np.empty((S, R1) + z.shape[:2], complex)
+    for ii in range(P):
+        sm[:, np.arange(T) + T * ii] = np.moveaxis(v[ii], 3, 0)
+    return sm
+
+
+def invb_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, flip):
+    """``megafil_invb`` over every tile of ``S`` rows: out [seq, w, nsub,
+    nkeep] (1/M, the (-1)^t sign when ``flip``) and how often each output
+    sample was written."""
+    M, nsub = R1 * q, R2 // q
+    out = np.full((*z.shape[:2], nsub, nkeep), np.nan, complex)
+    writes = np.zeros((nsub, nkeep), int)
+    lg = S.bit_length() - 1
+    for a in range(0, R2, S):
+        sm = invb_rows(z, R1, R2, tb, a, S)
+        idx = np.arange(S * R1)
+        n1, r = idx >> lg, idx & (S - 1)
+        row = a + r
+        s, t = row // q, row % q + q * n1
+        o = t - nfilt_pos
+        keep = (o >= 0) & (o < nkeep)
+        g = np.where(flip & t & 1, -1.0, 1.0) / M
+        np.add.at(writes, (s[keep], o[keep]), 1)
+        out[:, :, s[keep], o[keep]] = np.moveaxis(
+            sm[r[keep], n1[keep]] * g[keep][:, None, None], 0, -1)
+    return out, writes
+
+
+MIRROR_CASES = [
+    dict(R1=R1, R2=R2, q=q, ta=ta, tb=tb)
+    for R1, R2, q in ((8, 16, 2), (16, 32, 4), (16, 64, 16), (32, 64, 32),
+                      (8, 64, 1))
+    for ta, tb in ((1, 1), (min(8, R1) * (R2 // q), 4), (2, 2))
+    if ta <= min(8, R1) * (R2 // q)
+]
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_multipass_mirror_matches_subband_ifft(case):
+    """Every kept sample of every subband is written once and equals
+    numpy's length-M ifft of the subband, signed."""
+    R1, R2, q = case["R1"], case["R2"], case["q"]
+    N, M = R1 * R2, R1 * q
+    rng = np.random.default_rng(R1 + 7 * R2 + q)
+    y = rng.normal(size=(2, 2, N)) + 1j * rng.normal(size=(2, 2, N))
+    tb = tables_m(R1, q)
+    z, zw = inva_mirror(y, R1, R2, q, tb, case["ta"])
+    assert (zw == 1).all()
+    nfilt_pos, nkeep = 1, M - 3
+    for flip in (0, 1):
+        got, writes = invb_mirror(z, R1, R2, q, tb, case["tb"], nfilt_pos,
+                                  nkeep, flip)
+        assert (writes == 1).all()
+        t = np.arange(nfilt_pos, nfilt_pos + nkeep)
+        sign = np.where(flip & t & 1, -1.0, 1.0)
+        want = np.fft.ifft(y.reshape(2, 2, R2 // q, M), axis=-1)[
+            ..., nfilt_pos:nfilt_pos + nkeep] * sign
+        assert _rel(got, want) < TOL_MIRROR
+
+
+def fold_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, phi0, dphi, nbin,
+                lo, hi):
+    """``mega_invbfold``'s tile walk on one pol (Intensity |x|^2): profiles
+    [nsub, nbin] and hits [nbin] (from the tiles of subband 0)."""
+    nsub = R2 // q
+    M = R1 * q
+    prof = np.zeros((nsub, nbin))
+    hits = np.zeros(nbin)
+    lg = S.bit_length() - 1
+    for a in range(0, R2, S):
+        s, n2a = a // q, a % q
+        sm = invb_rows(z, R1, R2, tb, a, S)[..., 0, :] / M  # [S, R1, w]
+        idx = np.arange(S * R1)
+        n1, r = idx >> lg, idx & (S - 1)
+        i = n2a + r + q * n1 - nfilt_pos
+        for w in range(z.shape[1]):
+            g = w * nkeep + i
+            keep = (i >= 0) & (i < nkeep) & (g >= lo) & (g < hi)
+            ii = i[keep]
+            phi = np.float32(phi0[w]) + np.float32(dphi[w]) * ii.astype(
+                np.float32)
+            frac = (phi - np.floor(phi)).astype(np.float32)
+            b = np.minimum((frac * np.float32(nbin)).astype(np.int64),
+                           nbin - 1)
+            np.add.at(prof[s], b, np.abs(sm[r[keep], n1[keep], w]) ** 2)
+            if s == 0:
+                np.add.at(hits, b, 1)
+    return prof, hits
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_fold_tile_walk_matches_plain_fold(S):
+    """Each kept sample of each subband lands in its bin once, inside the
+    bounds, and subband 0's tiles count every kept sample once."""
+    R1, R2, q, nbin = 16, 64, 16, 8
+    N, M = R1 * R2, R1 * q
+    rng = np.random.default_rng(S)
+    y = rng.normal(size=(1, 2, N)) + 1j * rng.normal(size=(1, 2, N))
+    tb = tables_m(R1, q)
+    z, _ = inva_mirror(y, R1, R2, q, tb, 8)
+    nfilt_pos, nkeep = 3, M - 11
+    phi0, dphi = np.float32([0.1, 0.7]), np.float32([0.013, 0.011])
+    lo, hi = 40, 2 * nkeep - 30
+    prof, hits = fold_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, phi0,
+                             dphi, nbin, lo, hi)
+    v = np.fft.ifft(y[0].reshape(2, R2 // q, M), axis=-1)[
+        ..., nfilt_pos:nfilt_pos + nkeep]
+    b = tmk.fold_bins(tmk.MegaPlan(nsub=R2 // q, freq_res=M, R1=R1,
+                                   nfilt_pos=nfilt_pos,
+                                   nfilt_neg=M - nkeep - nfilt_pos,
+                                   nbin=nbin, npol=1),
+                      torch.from_numpy(phi0), torch.from_numpy(dphi)).numpy()
+    gidx = np.arange(2 * nkeep).reshape(2, nkeep)
+    keep = (gidx >= lo) & (gidx < hi)
+    want = np.zeros((R2 // q, nbin))
+    for s in range(R2 // q):
+        np.add.at(want[s], b[keep], (np.abs(v[:, s]) ** 2)[keep])
+    assert _rel(prof, want) < TOL_MIRROR
+    assert np.array_equal(hits, np.bincount(b[keep], minlength=nbin))
+
+
+def rowfft_mirror(cbuf, L, tw):
+    """``mega_rowfft<32>``: each row of cbuf [nchan, npart, R1, L] FFT'd in
+    place with 32 points a thread."""
+    P = 32
+    T = L // P
+    v = np.stack([cbuf[..., np.arange(T) + T * i] for i in range(P)])
+    v = fft_regs(np.moveaxis(v, -1, 1), L, -1, tw)
+    out = np.empty_like(cbuf)
+    for i in range(P):
+        out[..., np.arange(T) + T * i] = np.moveaxis(v[i], 0, -1)
+    return out
+
+
+def rowpair_mirror(g, C, e, chirp, store=None):
+    """``mega_rowpair`` over every tile of 8 k1 and min(32, R2) k2: ybuf
+    [nchan*nstore, npart, N] and how often each bin was written."""
+    R1, R2, L = g.R1, g.R2, g.row_len
+    npolf = len(g.pols)
+    store = (3 if npolf == 2 else 1) if store is None else store
+    nstore = (store & 1) + (store >> 1)
+    ybuf = np.full((g.nchan * nstore, g.npart, g.n), np.nan, complex)
+    writes = np.zeros(g.n, int)
+    kc = min(32, R2)
+    unscale = np.ldexp(1.0, -e)
+    for blk in range((R1 // 8) * (R2 // kc)):
+        tid = np.arange(8 * kc)
+        k1 = (blk % (R1 // 8)) * 8 + (tid & 7)
+        k2 = (blk // (R1 // 8)) * kc + tid // 8
+        pk1 = np.where((k1 == 0) | (2 * k1 == R1), k1, R1 - k1)
+        pcol = np.where(k1 == 0, (L - k2) & (L - 1), L - 1 - k2)
+        z, p = C[:, :, k1, k2], C[:, :, pk1, pcol]  # [nchan, npart, tid]
+        k = k2 * R1 + k1
+        np.add.at(writes, k, 1)
+        xs = [0.5 * (z + np.conj(p))]
+        if npolf == 2:
+            xs.append(-0.5j * (z - np.conj(p)) * unscale[:, :, None])
+        for c in range(g.nchan):
+            slot = c * nstore
+            for q, x in enumerate(xs):
+                if store >> q & 1:
+                    ybuf[slot][:, k] = x[c] * chirp[c, k][None, :]
+                    slot += 1
+    return ybuf, writes
+
+
+@pytest.mark.parametrize("R1,R2,pols", [(16, 16, (0, 1)), (8, 64, (0, 1)),
+                                        (32, 32, (1,)), (16, 128, (0, 1))])
+def test_long_row_pass_mirror(R1, R2, pols):
+    """The long row pass (one row an FFT with 32 points a thread, then the
+    pair pass through device memory) stores what ``mega_fwd2`` stores, and
+    each bin once: the rfft of each pol."""
+    g = Geom(R1=R1, R2=R2, M=R1 * R2 // 4, nchan=2, npol=2, pols=pols,
+             npart=2, step=R1 * R2)
+    g.scale, g.offset = tmk.unpack_affine(8)
+    rng = np.random.default_rng(R1 * R2)
+    raw = _raw(g, rng)
+    chirp = np.exp(1j * rng.uniform(-3, 3, (g.nchan, g.n)))
+    tb = tables64(g)
+    psum = polpow(g, raw) if len(pols) == 2 else None
+    cbuf, e = fwd1(g, raw, tb, psum, min(8, g.row_len))
+    got, writes = rowpair_mirror(g, rowfft_mirror(cbuf, g.row_len,
+                                                  tb["row"]), e, chirp)
+    assert (writes == 1).all()
+    want, _ = fwd2(g, cbuf, e, tb, chirp, min(4, R1 // 2))
+    assert _rel(got, want) < TOL_MIRROR
+    # and the rfft of each pol's window, chirped
+    from test_torch_fourstep import values
+    for q, pol in enumerate(pols):
+        x = values(g, raw, pol)
+        for w in range(g.npart):
+            spec = np.fft.rfft(x[:, w * g.step:w * g.step + 2 * g.n])[
+                :, :g.n] * chirp
+            assert _rel(got.reshape(g.nchan, len(pols), g.npart, g.n)[
+                :, q, w], spec) < 1e-10
+
+
+# ------------------------------------------------- pipelines against JAX
+
+
+WIDE = dict(BASE, frequency_resolution=16384, nbin=64)
+
+
+def _reference_step(jp):
+    """The JAX pipeline's fused step through its float64 ``mega_reference``
+    (per-operation f32 phase rounding, as the kernels and the port's plain
+    step do): the Pallas kernel in interpret mode rounds ``phi0 + dphi *
+    i`` once on the CPU, and at nkeep 15872 samples of this pulsar land on
+    bin edges, so it moves some of them against its own reference
+    (``test_pallas_step_rounds_phase_once``)."""
+    import jax.numpy as jnp
+
+    p = jp.mega_plan
+    scale, offset = jmk.unpack_affine(8)
+    c64 = jmk.MegaConstants(p, jp.kernel.phasors, dtype=np.float64,
+                            unpack_scale=scale, unpack_offset=offset)
+
+    def step(profiles, hits, raw, phi0, dphi, bounds=None):
+        assert bounds is None
+        pr, hr = jmk.mega_reference(
+            np.asarray(raw), p, c64, np.asarray(phi0, np.float64),
+            np.asarray(dphi, np.float64), phi0.shape[0])
+        return (profiles + jnp.asarray(pr, jnp.float32),
+                hits + jnp.asarray(hr, jnp.float32))
+    return step
+
+
+def _spy(jp):
+    """Record the ``(raw, phi0, dphi)`` of each call of the JAX pipeline's
+    fused step (unchanged) in the returned list."""
+    calls, step = [], jp._megastep
+
+    def spy(profiles, hits, raw, phi0, dphi, *rest):
+        calls.append((np.array(raw), np.array(phi0), np.array(dphi)))
+        return step(profiles, hits, raw, phi0, dphi, *rest)
+    jp._megastep = spy
+    return calls
+
+
+def _rounding_moves(calls, nkeep, nbin):
+    """Over the windows of the recorded steps: the hits the fold gains
+    with ``phi0 + dphi * i`` rounded per operation (``compute_bins``, the
+    kernels' rule) against rounded once (a fused multiply-add: the
+    float64 product of two float32 values is exact), ``[nbin]``, and the
+    bins a moved sample leaves or enters."""
+    from dspsr_tpu_torch.ops.fold import compute_bins
+
+    gain, touched = np.zeros(nbin), set()
+    i = np.arange(nkeep)
+    for _, phi0, dphi in calls:
+        for w in range(phi0.shape[0]):
+            two = compute_bins(torch.from_numpy(phi0[w:w + 1]),
+                               torch.from_numpy(dphi[w:w + 1]), nkeep,
+                               nbin).numpy()
+            ph = (np.float64(phi0[w]) + np.float64(dphi[w]) * i).astype(
+                np.float32)
+            one = np.clip(np.floor((ph - np.floor(ph)) * np.float32(nbin)),
+                          0, nbin - 1).astype(np.int64)
+            gain += (np.bincount(two, minlength=nbin)
+                     - np.bincount(one, minlength=nbin))
+            touched |= set(one[one != two]) | set(two[one != two])
+    return gain, sorted(touched)
+
+
+def test_pallas_step_rounds_phase_once(tmp_path):
+    """Why the fold parity test below holds the port against the JAX
+    pipeline's ``mega_reference``: at nsub 4, freq_res 16384 (nkeep
+    15872) the JAX Pallas step in interpret mode disagrees with its own
+    float64 reference on the first block, by exactly the samples whose bin
+    one rounding of ``phi0 + dphi * i`` moves, while the port's plain step
+    matches the reference (2e-5, hits exact)."""
+    path = _write_raw(tmp_path, 600000)
+    jp = jl.FoldPipeline(raw_source("jax", path), jl.FoldConfig(**WIDE))
+    tp = tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**WIDE),
+                         device="cpu")
+    calls = _spy(jp)
+    a = jp.run(max_blocks=1)
+    assert len(calls) == 1
+    raw, phi0, dphi = calls[0]
+    p = tp.mega_plan
+    scale, offset = jmk.unpack_affine(8)
+    c64 = jmk.MegaConstants(jp.mega_plan, jp.kernel.phasors,
+                            dtype=np.float64, unpack_scale=scale,
+                            unpack_offset=offset)
+    pr, hr = jmk.mega_reference(raw, jp.mega_plan, c64,
+                                phi0.astype(np.float64),
+                                dphi.astype(np.float64), phi0.shape[0])
+    gain, touched = _rounding_moves(calls, p.nkeep, p.nbin)
+    # the Pallas step's hits (the pipeline's, one per output channel)
+    assert np.abs(gain).sum() > 0
+    for c in range(a.hits.shape[1]):
+        assert np.array_equal(hr.reshape(-1) - a.hits[0, c], gain)
+    prof = torch.zeros(1, p.nplane, p.nsub, p.nbin)
+    hits = torch.zeros(1, p.nbin)
+    pk, hk = tmk.megastep_plain(p, tp.constants, prof, hits,
+                                torch.from_numpy(raw),
+                                torch.from_numpy(phi0),
+                                torch.from_numpy(dphi))
+    assert _rel(pk.numpy(), pr.reshape(pk.shape)) < TOL
+    assert np.array_equal(hk.numpy().reshape(-1), hr.reshape(-1))
+
+
+def test_fold_pipeline_at_refused_geometry(tmp_path):
+    """``FoldPipeline`` at nsub 4, freq_res 16384 (the geometry the card
+    refused before: its one-CTA inverse needs 1024 threads), 2 blocks,
+    against the JAX package's pipeline with its step through
+    ``mega_reference``: profiles 2e-4, hits exact; and against the JAX
+    pipeline as it is: hits differ by exactly the samples one rounding of
+    the phase moves (``test_pallas_step_rounds_phase_once``), profiles
+    2e-4 on every bin no such sample touches."""
+    path = _write_raw(tmp_path, 600000)
+    jp = jl.FoldPipeline(raw_source("jax", path), jl.FoldConfig(**WIDE))
+    tp = tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**WIDE),
+                         device="cpu")
+    assert jp.mega_mode == tp.mega_mode == "full"
+    assert dataclasses.asdict(jp.mega_plan) == dataclasses.asdict(
+        tp.mega_plan)
+    p = tp.mega_plan
+    assert (p.nsub, p.freq_res, p.R1, p.R2, p.q) == (4, 16384, 256, 256, 64)
+    b = tp.run(max_blocks=2)
+    ju = jl.FoldPipeline(raw_source("jax", path), jl.FoldConfig(**WIDE))
+    calls = _spy(ju)
+    u = ju.run(max_blocks=2)
+    jp._megastep = _reference_step(jp)
+    a = jp.run(max_blocks=2)
+    assert np.abs(b.profiles - a.profiles).max() / \
+        np.abs(a.profiles).max() < 2e-4
+    assert np.array_equal(a.hits, b.hits)
+    assert b.hits.sum() == 2 * tp.out_per_block * 4
+    # the JAX pipeline unchanged
+    assert len(calls) == 2
+    gain, touched = _rounding_moves(calls, p.nkeep, p.nbin)
+    assert np.array_equal(b.hits - u.hits,
+                          np.broadcast_to(gain, b.hits.shape))
+    keep = np.ones(p.nbin, bool)
+    keep[touched] = False
+    assert 0 < len(touched) <= 8
+    assert np.abs(b.profiles - u.profiles)[..., keep].max() / \
+        np.abs(u.profiles).max() < 2e-4
+
+
+@pytest.mark.parametrize("kw", [dict(sk_enable=True, sk_m=64),
+                                dict(rfi_filter=True),
+                                dict(cyclic_nchan=4)],
+                         ids=["sk", "rfi", "cyclic"])
+def test_hybrid_pipeline_at_refused_geometry(tmp_path, kw):
+    """The hybrid fold engine (in-stream SK, the RFI filter, cyclic
+    folding) at nsub 4, freq_res 16384, whose front end takes the same
+    multi-pass inverse on the card, against the JAX package's hybrid
+    engine: 2e-4, hits exact."""
+    from test_torch_hybrid import _assert_results
+
+    path = _write_raw(tmp_path, 600000)
+    cfg = dict(WIDE, **kw)
+    jp = jl.FoldPipeline(raw_source("jax", path), jl.FoldConfig(**cfg))
+    tp = tl.FoldPipeline(raw_source("port", path), tl.FoldConfig(**cfg),
+                         device="cpu")
+    assert jp.mega_mode == tp.mega_mode == "hybrid"
+    assert tp.mega_plan.freq_res == 16384 and tp.mega_plan.nsub == 4
+    _assert_results(jp.run(max_blocks=2), tp.run(max_blocks=2))
+
+
+def test_search_pipeline_at_refused_geometry(tmp_path):
+    """``FilPipeline`` at nsub 4, freq_res 16384 against the JAX package's
+    (its Pallas kernel in interpret mode): header equal, bytes within 1 LSB
+    and at least 99% exact."""
+    path = _write_raw(tmp_path, 600000)
+    cfg = dict(nchan=4, block_parts=2, min_block_samples=0,
+               dispersion_measure=5.0, frequency_resolution=16384)
+    jp = jfil.FilPipeline(raw_source("jax", path), jfil.FilConfig(**cfg))
+    tp = tfil.FilPipeline(raw_source("port", path), tfil.FilConfig(**cfg),
+                          device="cpu")
+    assert dataclasses.asdict(jp.megafil_plan) == dataclasses.asdict(
+        tp.megafil_plan)
+    assert tp.megafil_plan.freq_res == 16384
+    out = _run_both(tmp_path, jp, tp, max_blocks=2)
+    assert out["jax"][0] == out["port"][0]
+    assert len(out["port"][1]) > 0
+    _assert_data_close(np.frombuffer(out["jax"][1], np.uint8).astype(
+        np.int64), np.frombuffer(out["port"][1], np.uint8).astype(np.int64),
+        8)
