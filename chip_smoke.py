@@ -53,6 +53,13 @@ output at DM 2.64, bytes against the CPU.  Every fused phase runs with
 ``torch.fft`` and ``torch.matmul`` disabled, which also catches a fused
 configuration that takes the general chain by mistake.
 
+Then the port's command-line tools as a user runs them (``cli_phase``): a
+DADA file of 3 flagship blocks through ``dspsr`` (``apps/dspsr_app.py``:
+the flagship fold on ``megastep``, ``--skz`` on ``megafil``, and
+``--fft-bench``, each against ``FoldPipeline`` on the same file and config
+with its launches), ``dspsr -G`` (the phase-locked filterbank) and the
+``digistat`` and ``passband`` tools on the card against the CPU.
+
 Imports nothing of JAX or of the JAX package (an import hook refuses both).
 Exits non-zero on any failure, or when no CUDA device is present.  The last
 line of standard output is ``{"ok": true, "device": {...}}``.
@@ -392,6 +399,42 @@ def block_bytes(pipe) -> int:
             * obs.nbit // 8)
 
 
+def step_against_plain(pipe, raw: torch.Tensor, tag: str,
+                       label: str) -> tuple:
+    """``pipe``'s fused step (``megastep``; ``mega_mode`` full) on the
+    first block's bytes
+    ``raw`` against ``megastep_plain`` on the same inputs (both f32):
+    profiles within TOL_FLAGSHIP of their largest value, hits exact, every
+    kept sample counted; prints ``label`` with the errors.  Returns the
+    step's arguments ``(profiles, hits, raw, phi0, dphi)`` and the largest
+    absolute error."""
+    from dspsr_tpu_torch.ops.fold import compute_anchors
+    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+
+    plan = pipe.mega_plan
+    phi0, dphi = compute_anchors(pipe.predictor, pipe.output_start_time(0),
+                                 1.0 / pipe.obs_out.rate,
+                                 pipe.out_per_block, plan.nkeep)
+    phi0 = torch.from_numpy(phi0).cuda()
+    dphi = torch.from_numpy(dphi).cuda()
+    prof0 = torch.zeros(1, plan.nplane, plan.nsub, plan.nbin, device="cuda")
+    hits0 = torch.zeros(1, plan.nbin, device="cuda")
+    args = (prof0, hits0, raw, phi0, dphi)
+    pk, hk = pipe._megastep(*args)
+    pp, hp = megastep_plain(plan, pipe.constants, *args)
+    torch.cuda.synchronize()
+    err = rel_err(pk, pp)
+    abs_err = float((pk - pp).abs().max())
+    hdiff = float((hk - hp).abs().max())
+    print(f"{label}: rel err {err:.3e} (abs {abs_err:.3e}), hits "
+          f"diff {hdiff}, hits sum {float(hk.sum())}", flush=True)
+    check(bool(torch.isfinite(pk).all()), f"finite {tag} profiles")
+    check(err < TOL_FLAGSHIP, f"{tag} rel err {err} >= {TOL_FLAGSHIP}")
+    check(hdiff == 0, f"{tag} hits differ")
+    check(float(hk.sum()) == plan.nkeep * pipe.npart, f"{tag} hit total")
+    return args, abs_err
+
+
 def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
                    name: str = "flagship") -> dict:
     """One flagship block of ``kind`` at ``dm``: kernel against plain (both
@@ -399,7 +442,6 @@ def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
     the multi-pass inverse and the long row pass, each pass's bound."""
     from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
     from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
-    from dspsr_tpu_torch.ops.fold import compute_anchors
     from dspsr_tpu_torch.ops.megakernel import fold_pols, megastep_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -412,37 +454,16 @@ def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
           and plan.interleave == ("caspsr" if kind == "caspsr" else "tfp"),
           f"flagship {kind} plan {plan}")
     raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
-    phi0, dphi = compute_anchors(pipe.predictor, pipe.output_start_time(0),
-                                 1.0 / pipe.obs_out.rate,
-                                 pipe.out_per_block, plan.nkeep)
-    phi0 = torch.from_numpy(phi0).cuda()
-    dphi = torch.from_numpy(dphi).cuda()
-    prof0 = torch.zeros(1, plan.nplane, plan.nsub, plan.nbin, device="cuda")
-    hits0 = torch.zeros(1, plan.nbin, device="cuda")
-    pk, hk = pipe._megastep(prof0, hits0, raw, phi0, dphi)
-    pp, hp = megastep_plain(plan, pipe.constants, prof0, hits0, raw, phi0,
-                            dphi)
-    torch.cuda.synchronize()
-    err = rel_err(pk, pp)
-    abs_err = float((pk - pp).abs().max())
-    hdiff = float((hk - hp).abs().max())
-    print(f"{name} {kind} block (DM {dm}: nsub {plan.nsub} freq_res "
-          f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} q {plan.q}, npart "
-          f"{pipe.npart}, raw "
-          f"{raw.numel()} B): rel err {err:.3e} (abs {abs_err:.3e}), hits "
-          f"diff {hdiff}, hits sum {float(hk.sum())}", flush=True)
-    check(bool(torch.isfinite(pk).all()), f"finite {name} {kind} profiles")
-    check(err < TOL_FLAGSHIP, f"{name} {kind} rel err {err} >= "
-          f"{TOL_FLAGSHIP}")
-    check(hdiff == 0, f"{name} {kind} hits differ")
-    check(float(hk.sum()) == plan.nkeep * pipe.npart,
-          f"{name} {kind} hit total")
+    args, abs_err = step_against_plain(
+        pipe, raw, f"{name} {kind}",
+        f"{name} {kind} block (DM {dm}: nsub {plan.nsub} freq_res "
+        f"{plan.freq_res} R1 {plan.R1} R2 {plan.R2} q {plan.q}, npart "
+        f"{pipe.npart}, raw {raw.numel()} B)")
+    prof0, hits0, _, phi0, _ = args
 
-    kernel_ms = cuda_ms(
-        lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), 10)
+    kernel_ms = cuda_ms(lambda: pipe._megastep(*args), 10)
     plain_ms = cuda_ms(
-        lambda: megastep_plain(plan, pipe.constants, prof0, hits0, raw,
-                               phi0, dphi), 3)
+        lambda: megastep_plain(plan, pipe.constants, *args), 3)
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
     nf = len(fold_pols(plan))
     nbytes = (raw.numel() + 8 * pipe.constants.gr.numel()
@@ -452,9 +473,8 @@ def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
           f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}); block = {sky_ms:.2f} ms of sky [{card}]",
           flush=True)
-    times = kernel_breakdown(
-        lambda: pipe._megastep(prof0, hits0, raw, phi0, dphi), card,
-        label=f" ({name} {kind} fold)")
+    times = kernel_breakdown(lambda: pipe._megastep(*args), card,
+                             label=f" ({name} {kind} fold)")
     pass_bounds(card, name, plan, pipe.npart, nf,
                 8 * (prof0.numel() + hits0.numel()), times)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
@@ -2540,6 +2560,314 @@ def general_search(card: str) -> None:
             card, label=f" ({name})", others=True)
 
 
+# ---- the dspsr CLI and the diagnostics tools, driven as a user runs them ----
+
+#: ``dspsr`` on the flagship input as a user asks for it
+#: (``mega_real_8bit``): ``-U 134.217728`` MB is ``min_block_samples``
+#: 2^25, so the argv gives ``flagship_cfg()`` exactly
+CLI_FOLD = ["-F", "64:D", "-D", "2.64", "-c", "0.00575745", "-b", "1024",
+            "--block-parts", "8"]
+CLI_MB = "134.217728"
+
+
+def write_dada(path: str, obs, nsamp: int, device) -> None:
+    """A DADA file of ``nsamp`` samples of ``obs`` from
+    ``device_noise_bytes`` (made on ``device`` in 64 MB pieces)."""
+    from dspsr_tpu_torch.io.dada import (format_ascii_header,
+                                         header_from_observation)
+    from dspsr_tpu_torch.io.sources import device_noise_bytes
+
+    nbytes = int(nsamp * obs.nbytes_per_sample)
+    with open(path, "wb") as f:
+        f.write(format_ascii_header(header_from_observation(obs)))
+        for s in range(0, nbytes, 1 << 26):
+            f.write(device_noise_bytes(s, min(1 << 26, nbytes - s),
+                                       device).cpu().numpy().tobytes())
+
+
+def run_cli(main, argv, guard: bool):
+    """``main(argv)`` (a CLI's entry point) with its standard output and
+    error captured, inside ``NoLibraryFFT`` when ``guard``: (stdout,
+    stderr, wall seconds).  Fails unless it returns 0."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.ExitStack() as stack:
+        if guard:
+            stack.enter_context(NoLibraryFFT())
+        stack.enter_context(contextlib.redirect_stdout(out))
+        stack.enter_context(contextlib.redirect_stderr(err))
+        t0 = time.perf_counter()
+        rc = main(argv)
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"{argv[:1]} {argv[1:4]}...: exit {rc}: "
+          f"{err.getvalue()[-400:]}")
+    return out.getvalue(), err.getvalue(), wall
+
+
+NUMBER = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+
+
+def same_printed(a: str, b: str, rel: float) -> None:
+    """Two tools' outputs alike but for their numbers: integers equal,
+    floats within ``rel`` relative or one unit of their printed last
+    digit."""
+    check(NUMBER.sub("#", a) == NUMBER.sub("#", b), "printed text differs")
+    for x, y in zip(NUMBER.findall(a), NUMBER.findall(b)):
+        if "." not in x and "e" not in x.lower():
+            check(x == y, f"printed count {x} != {y}")
+            continue
+        step = 10.0 ** -len(x.split(".")[1].split("e")[0])
+        check(abs(float(x) - float(y)) <= rel * max(abs(float(x)),
+                                                    abs(float(y)))
+              + 1.0001 * step, f"printed {x} != {y}")
+
+
+def same_archive(name: str, got: dict, want, tol: float) -> float:
+    """A CLI's npz (``load_archive``) against the API's ``FoldResult``:
+    profiles within ``tol`` of the largest magnitude, hits exact; returns
+    the relative difference."""
+    check(got["profiles"].shape == want.profiles.shape,
+          f"{name}: shape {got['profiles'].shape} != "
+          f"{want.profiles.shape}")
+    err = float(np.abs(got["profiles"] - want.profiles).max()
+                / np.abs(want.profiles).max())
+    check(bool(np.isfinite(got["profiles"]).all()), f"{name}: non-finite")
+    check(err < tol, f"{name}: CLI against API {err} >= {tol}")
+    check(bool(np.array_equal(got["hits"], want.hits)),
+          f"{name}: hits differ from the API run's")
+    return err
+
+
+def host_stages(path: str, pipe, card: str) -> None:
+    """What the host does for one block of ``pipe`` from the file at
+    ``path``, each stage timed alone (the second of two runs): the read,
+    the digitizer byte counts and the copy to the device."""
+    from dspsr_tpu_torch.io.sources import open_source
+
+    src = open_source(path)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        raw = src.read_samples(0, pipe.block_in_samples)
+        t1 = time.perf_counter()
+        np.bincount(raw, minlength=256)
+        t2 = time.perf_counter()
+        pipe.to_device(raw)
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    print(f"cli host stages of one block ({raw.nbytes / 1e6:.1f} MB): read "
+          f"{(t1 - t0) * 1e3:.1f} ms, digitizer byte counts (np.bincount) "
+          f"{(t2 - t1) * 1e3:.1f} ms, pinned copy to the device "
+          f"{(t3 - t2) * 1e3:.1f} ms [{card}]", flush=True)
+
+
+def cli_phase(card: str) -> dict:
+    """The port's ``dspsr`` CLI (``apps/dspsr_app.py``) and diagnostics
+    tools on a DADA file of the flagship input, as a user runs them: the
+    flagship fold (``megastep`` once a block, ``mega_mode`` full), ``--skz``
+    (``megafil``) and ``--fft-bench``, each against ``FoldPipeline`` on
+    the same file and ``FoldConfig``, and the fused step at the length
+    ``--fft-bench`` chose against its plain version; ``-G`` (the
+    phase-locked filterbank), ``digistat`` and ``passband`` on the card
+    against the CPU; ``-t 2`` where two cards are visible.  Returns the
+    kernels' launches of the CLI runs."""
+    from dspsr_tpu_torch import launch_counts, reset_launch_counts
+    from dspsr_tpu_torch.apps import diagnostics, dspsr_app
+    from dspsr_tpu_torch.io.archive import load_archive
+    from dspsr_tpu_torch.io.sources import DummySource, open_source
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+    from dspsr_tpu_torch.unpack.unpackers import digitizer_histogram
+    from dspsr_tpu_torch.utils.optimalfft import FFTBench
+
+    device, other, nblocks = "cuda", "cpu", 3
+    base = CLI_FOLD + ["-U", CLI_MB]
+
+    def cli_pipe(argv: list, src=None) -> FoldPipeline:
+        """``FoldPipeline`` on the card with the CLI's config for ``argv``,
+        reading ``src`` (the file ``argv[0]`` by default)."""
+        return FoldPipeline(src or open_source(argv[0]), dspsr_app.fold_config(
+            dspsr_app.build_parser().parse_args(argv)), device=device)
+
+    probe = cli_pipe(["x", *base], DummySource(flagship_obs()))
+    nsamp = (nblocks - 1) * probe.stride_in_samples + probe.block_in_samples
+    launches = dict(megastep=0, megafil=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.dada")
+        t0 = time.perf_counter()
+        write_dada(path, flagship_obs(), nsamp, device)
+        print(f"cli: {path}: {nsamp} samples ({nblocks} blocks, "
+              f"{os.path.getsize(path) / 1e6:.1f} MB) written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def fold(name: str, extra: list) -> FoldPipeline:
+            """``dspsr path base+extra`` against ``FoldPipeline.run`` on
+            the same config: the same archive, and one launch a block of
+            the engine's kernel (none on the general chain)."""
+            argv = [path, *base, *extra]
+            t0 = time.perf_counter()
+            pipe = cli_pipe(argv)
+            reset_launch_counts()
+            res = pipe.run()
+            api_wall = time.perf_counter() - t0
+            api = launch_counts()
+            out = os.path.join(tmp, f"{name}.npz")
+            reset_launch_counts()
+            _, err, wall = run_cli(
+                dspsr_app.main, [*argv, "-O", out, "--device", device],
+                pipe.mega_mode is not None)
+            got = launch_counts()
+            for k in launches:
+                launches[k] += got[k]
+            nb = (nsamp - pipe.block_in_samples) // pipe.stride_in_samples + 1
+            check(nb >= 1, f"{name}: a block of {pipe.block_in_samples} "
+                  f"samples does not fit the file's {nsamp}")
+            kernel = {"full": "megastep", "hybrid": "megafil"}.get(
+                pipe.mega_mode)
+            want = {k: nb if k == kernel else 0 for k in launches}
+            check({k: got[k] for k in launches} == want,
+                  f"{name}: CLI launches {got}, want {want}")
+            check(got == api, f"{name}: CLI launches {got} != API {api}")
+            check(f"engine {pipe.mega_mode or 'general'} on" in err,
+                  f"{name}: engine line missing: {err[-300:]}")
+            rel = same_archive(name, load_archive(out), res, TOL_FLAGSHIP)
+            msps = nb * pipe.stride_in_samples / wall / 1e6
+            api_msps = nb * pipe.stride_in_samples / api_wall / 1e6
+            print(f"cli {name} (dspsr {' '.join(base + extra)}): engine "
+                  f"{pipe.mega_mode}, freq_res {pipe.fb_plan.freq_res}, "
+                  f"{nb} blocks, launches { {k: got[k] for k in launches} }"
+                  f"; CLI wall {wall:.3f} s, host-fed {msps:.1f} Msamp/s "
+                  f"({msps / 800:.4f} x real time); the API run (construct "
+                  f"+ run) {api_wall:.3f} s, {api_msps:.1f} Msamp/s; "
+                  f"archive against the API {rel:.3e}, hits exact "
+                  f"[{card}]", flush=True)
+            return pipe
+
+        pipe = fold("fold", [])
+        check(pipe.mega_mode == "full", f"cli fold: {pipe.mega_mode}")
+        host_stages(path, pipe, card)
+        _, err, wall = run_cli(dspsr_app.main, [
+            path, *base, "-r", "-O", os.path.join(tmp, "r.npz"),
+            "--device", device], True)
+        report = err[err.index("run report:"):].strip().splitlines()
+        print(f"cli fold -r ({wall:.3f} s): "
+              + "; ".join(" ".join(l.split()) for l in report[1:]
+                          if not l.startswith("dspsr:")),
+              flush=True)
+        skz = fold("skz", ["--skz", "--skzm", "1024"])
+        check(skz.mega_mode == "hybrid", f"cli skz: {skz.mega_mode}")
+
+        # --fft-bench: the bench fills the cost table (it calls torch.fft),
+        # so it runs before the guarded CLI run, which then reads it
+        t0 = time.perf_counter()
+        probe = cli_pipe([path, *base, "--fft-bench"])
+        bench = FFTBench(device)
+        print(f"cli fft-bench: cost table ({bench._cache_path.name}, "
+              f"{time.perf_counter() - t0:.2f} s with the bench): "
+              + ", ".join(f"{n}: {t * 1e9:.2f} ns"
+                          for n, t in sorted(bench._table.items()))
+              + f"; chosen freq_res {probe.fb_plan.freq_res} (default "
+              f"{pipe.fb_plan.freq_res}), engine {probe.mega_mode} "
+              f"[{card}]", flush=True)
+        fb = fold("fft_bench", ["--fft-bench"])
+        check(fb.mega_mode in ("full", None),
+              f"cli fft_bench: engine {fb.mega_mode}")
+        # the fused step at the chosen length (the CLI run above launched it
+        # there) against its plain version on the file's first block, and
+        # its time beside the flagship's default 4096 and 8192
+        src = open_source(path)
+        chosen = fb.fb_plan.freq_res if fb.mega_mode else None
+        for n in sorted({4096, 8192} | ({chosen} if chosen else set())):
+            p = fb if n == chosen else cli_pipe([path, *base, "-x", str(n)])
+            check(p.mega_mode == "full" and p.fb_plan.freq_res == n,
+                  f"cli -x {n}: engine {p.mega_mode}, {p.fb_plan.freq_res}")
+            raw = p.to_device(src.read_samples(0, p.block_in_samples))
+            args, _ = step_against_plain(
+                p, raw, f"cli fft_bench {n}",
+                f"cli --fft-bench: megastep at freq_res {n}"
+                f"{' (chosen)' if n == chosen else ''} on the file's first "
+                f"block ({raw.numel()} B) against plain")
+            ms = cuda_ms(lambda: p._megastep(*args), 10)
+            plain = cuda_ms(
+                lambda: megastep_plain(p.mega_plan, p.constants, *args), 3)
+            print(f"cli --fft-bench: megastep at freq_res {n}: {ms:.3f} ms "
+                  f"a block of {p.stride_in_samples} samples, "
+                  f"{ms * 1e6 / p.stride_in_samples:.4f} ns a sample (plain "
+                  f"{plain:.3f} ms) [{card}]", flush=True)
+
+        # -G: the phase-locked filterbank on the card against the CPU
+        outs = {}
+        for dev in (device, other):
+            out = os.path.join(tmp, f"plfb_{dev}.npz")
+            _, _, wall = run_cli(dspsr_app.main, [
+                path, "-c", "0.00575745", "-G", "64", "--plfb-chan", "1024",
+                "-T", "0.02", "-O", out, "-q", "--device", dev], False)
+            with np.load(out) as z:
+                outs[dev] = (z["spectra"], z["hits"], wall)
+        (sa, ha, wa), (sb, hb, wb) = outs[device], outs[other]
+        err = float(np.abs(sa - sb).max() / np.abs(sb).max())
+        print(f"cli plfb (-G 64 --plfb-chan 1024 -T 0.02): spectra "
+              f"{sa.shape}, {int(ha.sum())} windows; {device} {wa:.3f} s, "
+              f"{other} {wb:.3f} s; {device} against {other} {err:.3e}, "
+              f"hits exact [{card}]", flush=True)
+        check(bool(np.isfinite(sa).all()) and err < 2e-4,
+              f"cli plfb: {err}")
+        check(bool(np.array_equal(ha, hb)) and ha.sum() > 0,
+              "cli plfb: hits differ")
+
+        # digistat and passband on the card against the CPU: printed
+        # numbers, and the unrounded statistics, counts and bandpass
+        src = open_source(path)
+        for tool, argv in (("digistat", [path, "-n", str(1 << 20)]),
+                           ("passband", [path, "-F", "256", "-n",
+                                         str(1 << 20)])):
+            a, _, wa = run_cli(getattr(diagnostics, tool),
+                               [*argv, "--device", device], False)
+            b, _, wb = run_cli(getattr(diagnostics, tool),
+                               [*argv, "--device", other], False)
+            same_printed(a, b, 1e-5)
+            print(f"cli {tool}: {device} {wa * 1e3:.1f} ms, {other} "
+                  f"{wb * 1e3:.1f} ms, {len(a.splitlines())} lines alike "
+                  f"[{card}]", flush=True)
+        got = {}
+        for dev in (device, other):
+            raw, x, _ = diagnostics._unpack(src, 0, 1 << 20, dev)
+            got[dev] = (diagnostics.sample_stats(x),
+                        digitizer_histogram(raw, 8).cpu().numpy(),
+                        diagnostics.bandpass(x, 256, True))
+        (sa, ha, ba), (sb, hb, bb) = got[device], got[other]
+        serr = max(float(np.abs(sa[k] - sb[k]).max()
+                         / max(np.abs(sb[k]).max(), 1e-30)) for k in sa)
+        berr = float(np.abs(ba - bb).max() / np.abs(bb).max())
+        print(f"cli digistat/passband unrounded: statistics {serr:.3e}, "
+              f"bandpass {berr:.3e}, histogram exact ({int(ha.sum())} "
+              f"codes)", flush=True)
+        check(serr < 1e-5 and berr < 1e-5, f"cli stats {serr}, {berr}")
+        check(bool(np.array_equal(ha, hb)), "cli histogram differs")
+        print("cli searchplot: not driven on the card (its PNGs need "
+              "matplotlib, which the card's machine lacks); the CPU tests "
+              "hold it against the JAX app", flush=True)
+
+        if torch.cuda.device_count() >= 2:
+            out = os.path.join(tmp, "t2.npz")
+            reset_launch_counts()
+            _, _, wall = run_cli(dspsr_app.main, [
+                path, *base, "-t", "2", "-O", out, "-q"], True)
+            got = launch_counts()
+            launches["megastep"] += got["megastep"]
+            ref = cli_pipe([path, *base]).run()
+            rel = same_archive("t2", load_archive(out), ref, TOL_FLAGSHIP)
+            print(f"cli -t 2: {torch.cuda.device_count()} cards, "
+                  f"{got['megastep']} megastep launches, {wall:.3f} s, "
+                  f"against one card {rel:.3e} [{card}]", flush=True)
+        else:
+            print(f"cli -t 2: not run ({torch.cuda.device_count()} CUDA "
+                  f"card(s) visible; it needs 2)", flush=True)
+    return launches
+
+
 # ---- multi-GPU: the sharded pipelines on a mesh that repeats the card ----
 
 #: the device every shard of the mesh runs on: shards on one card run one
@@ -3183,6 +3511,11 @@ def main() -> None:
         general_path(card, name)
         general_rates(card, name)
     general_search(card)
+    # the dspsr CLI (fold, --skz, --fft-bench, -G) and the diagnostics
+    # tools on a flagship DADA file
+    cli = cli_phase(card)
+    launches += cli["megastep"]
+    hybrid_launches += cli["megafil"]
     # multi-GPU: the sharded pipelines on a mesh that repeats the card
     sharded = sharded_all(card)
     launches += sharded["megastep"]

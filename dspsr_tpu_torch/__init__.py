@@ -13,7 +13,11 @@ on the fused front end plus a plain PyTorch tail (``mega_mode ==
 "hybrid"``: in-stream SK, the RFI filter, passband, pdmp, dump, several
 pulsars, cyclic folding, the ``nsub == 1`` convolution and polarization
 calibration) and the search path on the fused search front end (digifil:
-``models.load_to_fil``, ``apps.digifil_app``).  See ROADMAP.md for what
+``models.load_to_fil``, ``apps.digifil_app``).  The command-line tools
+run as modules: ``apps.dspsr_app`` (dspsr, with ``-G``, the phase-locked
+filterbank of ``ops.phase_locked``, and ``--fft-bench``, the measured FFT
+lengths of ``utils.optimalfft``), ``apps.diagnostics``,
+``apps.searchplot_app`` and ``utils.fftbench``.  See ROADMAP.md for what
 follows.
 """
 

@@ -284,14 +284,6 @@ def _min_pow2_over(n: int) -> int:
     return m
 
 
-def _unsupported(cfg: FoldConfig) -> Optional[str]:
-    """Why ``cfg`` needs an engine the port lacks (None if it does not)."""
-    if cfg.use_fft_bench:
-        return ("measured FFT lengths (use_fft_bench); see ROADMAP.md "
-                "Queue 1 item 11")
-    return None
-
-
 class FoldPipeline:
     """Constructed, prepared fold pipeline over one Source, running on
     ``device`` (``"cuda"`` by default; a CPU run must be asked for by name
@@ -305,9 +297,6 @@ class FoldPipeline:
         self.source = source
         self.config = config
         self.obs_in = source.obs
-        why = _unsupported(config)
-        if why:
-            raise NotImplementedError(why)
         self._construct()
 
     # ---- construction (LoadToFold::construct/prepare equivalents) ----
@@ -328,6 +317,14 @@ class FoldPipeline:
         except Exception:
             return None
         return None
+
+    def _best_nfft(self, nfilt_tot: int) -> int:
+        """``--fft-bench``: the FFT length of least measured cost a useful
+        sample, timed on this pipeline's device (``utils.optimalfft``)."""
+        from ..utils.optimalfft import FFTBench, OptimalFFT
+
+        return OptimalFFT(FFTBench(self.device)).get_best_ndat(
+            nfilt_tot, max_nfft=self.config.max_nfft)
 
     def _make_predictor(self, spec):
         """Predictor from a multi-pulsar spec: a period in seconds, a polyco
@@ -446,6 +443,8 @@ class FoldPipeline:
                 freq_res = 1
             elif cfg.times_minimum_nfft:
                 freq_res = cfg.times_minimum_nfft * _min_pow2_over(nfilt_tot)
+            elif cfg.use_fft_bench:
+                freq_res = self._best_nfft(nfilt_tot)
             else:
                 freq_res = choose_nfft(nfilt_tot, max_nfft=cfg.max_nfft)
             self.fb_plan = FilterbankPlan(
@@ -461,6 +460,8 @@ class FoldPipeline:
                 n_fft = cfg.frequency_resolution
             elif cfg.times_minimum_nfft and nfilt_tot > 0:
                 n_fft = cfg.times_minimum_nfft * _min_pow2_over(nfilt_tot)
+            elif cfg.use_fft_bench and nfilt_tot > 0:
+                n_fft = self._best_nfft(nfilt_tot)
             else:
                 n_fft = choose_nfft(nfilt_tot, max_nfft=cfg.max_nfft)
             self.fb_plan = None
@@ -1289,7 +1290,8 @@ class FoldPipeline:
             with rep.stage("read"):
                 raw = src.read_samples(start, self.block_in_samples)
             if self.config.digitizer_stats and self.obs_in.nbit <= 8:
-                self._byte_counts += np.bincount(raw, minlength=256)
+                with rep.stage("byte_counts"):
+                    self._byte_counts += np.bincount(raw, minlength=256)
             with rep.stage("anchors"):
                 pairs = [compute_anchors(p, t_out0, tsamp_out, nuse_pad, seg)
                          for p in self.predictors]
@@ -1354,6 +1356,7 @@ class FoldPipeline:
             nblocks += 1
 
         self._flush_division()
+        rep.report()  # -r: the stages' host seconds
         return self._finish()
 
     def _take_extras(self, extras: dict) -> None:

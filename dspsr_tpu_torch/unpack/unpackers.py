@@ -80,6 +80,24 @@ def bytes_to_codes(raw: torch.Tensor, nbit: int) -> torch.Tensor:
             ).reshape(-1)
 
 
+def digitizer_histogram(raw: torch.Tensor, nbit: int, hist_size: int = 0,
+                        ndig: int = 1) -> torch.Tensor:
+    """Counts of each sample code of packed ``raw`` bytes (reference
+    ``HistUnpacker``; the JAX package's ``digitizer_histogram``): int64
+    ``[hist_size or 1 << nbit]`` on ``raw``'s device; codes past the
+    histogram are not counted.  With ``ndig`` > 1 interleaved digitizers
+    (chan, pol, dim order), ``[ndig, hist_size or 1 << nbit]``, a row
+    each; a trailing partial sample is not counted."""
+    n = hist_size or (1 << nbit)
+    m = max(n, 1 << nbit)
+    codes = bytes_to_codes(raw, nbit).long()
+    codes = codes[: codes.numel() // ndig * ndig].reshape(-1, ndig)
+    codes = codes + torch.arange(ndig, device=codes.device) * m
+    hist = torch.bincount(codes.reshape(-1), minlength=ndig * m
+                          ).reshape(ndig, m)[:, :n]
+    return hist[0] if ndig == 1 else hist
+
+
 def tfp_to_fpt(samples: torch.Tensor, nchan: int, npol: int,
                ndim: int) -> torch.Tensor:
     """Flat TFP samples (time, channel, pol, dim) -> FPT ``[nchan, npol,

@@ -8,7 +8,9 @@ kurtosis, its search pipeline (to a SIGPROC file) and the general chain of
 both (fold with ``use_megakernel=False``, polyphase search) and the sharded
 pipelines (``parallel/*`` on a mesh of the CPU four times: fused time
 shards, hybrid channel shards with pooled SK, time-sharded search) run on
-the CPU from inputs built with the port's own classes;
+the CPU from inputs built with the port's own classes, and so do the
+command-line tools run as ``__main__`` (``dspsr_app`` to PSRFITS and with
+``-G``, ``diagnostics digistat`` and ``passband``);
 neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules`` afterwards.  Runs in
 a subprocess, since this test process has both loaded already."""
 
@@ -152,3 +154,69 @@ def test_refusal_is_real():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "the port imported dspsr_tpu" in out.stderr
+
+
+CLI_SCRIPT = r"""
+import runpy, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+rng = np.random.default_rng(0)
+hdr = ["--header", "FREQ=1400", "BW=-2", "NCHAN=1", "NPOL=2", "NDIM=1",
+       "NBIT=8", "TSAMP=1.0", "UTC_START=2010-04-13-02:05:45"]
+
+
+def run(module, argv):
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        assert e.code in (0, None), (module, e.code)
+
+
+with tempfile.TemporaryDirectory() as d:
+    raw = d + "/in.raw"
+    with open(raw, "wb") as f:
+        f.write(rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes())
+    run("dspsr_tpu_torch.apps.dspsr_app",
+        [raw, *hdr, "-c", "0.005", "-F", "4", "-D", "3", "-b", "32", "-q",
+         "-O", d + "/out.ar", "-a", "psrfits", "--device", "cpu"])
+    run("dspsr_tpu_torch.apps.dspsr_app",
+        [raw, *hdr, "-c", "0.005", "-G", "8", "--plfb-chan", "16", "-q",
+         "-O", d + "/plfb.npz", "--device", "cpu"])
+    from dspsr_tpu_torch.io.dada import format_ascii_header
+    dada = d + "/in.dada"
+    with open(dada, "wb") as f:
+        f.write(format_ascii_header({
+            "HDR_VERSION": "1.0", "HDR_SIZE": "4096", "BW": "4.0",
+            "FREQ": "1400.0", "NCHAN": "1", "NPOL": "2", "NDIM": "1",
+            "NBIT": "8", "TSAMP": "0.125", "OBS_OFFSET": "0",
+            "UTC_START": "2010-04-13-02:05:45"}))
+        f.write(rng.integers(0, 256, 1 << 14, dtype=np.uint8).tobytes())
+    run("dspsr_tpu_torch.apps.diagnostics",
+        ["digistat", dada, "-n", "4096", "--device", "cpu"])
+    run("dspsr_tpu_torch.apps.diagnostics",
+        ["passband", dada, "-F", "16", "--device", "cpu"])
+    with np.load(d + "/plfb.npz") as z:
+        assert z["hits"].sum() > 0
+    import os
+    assert os.path.getsize(d + "/out.ar") > 2880
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("loaded", loaded)
+"""
+
+
+def test_clis_run_without_jax():
+    """``python -m dspsr_tpu_torch.apps.dspsr_app`` (fold to PSRFITS, and
+    ``-G``) and two diagnostics tools, each run as ``__main__`` with
+    ``--device cpu`` under the hook that refuses ``jax`` and
+    ``dspsr_tpu``."""
+    head = SCRIPT.split("import importlib, pkgutil")[0]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", head + CLI_SCRIPT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "chan 0 pol 1: mean" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "loaded []"
+

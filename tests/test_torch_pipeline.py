@@ -160,14 +160,15 @@ def test_save_archive(tmp_path, ext):
 # sub-byte slice; use_megakernel=False and nsub == 1 with no FFT stage (DM
 # 0, no calibration) on the general chain since the general-chain slice
 # (more in tests/test_torch_general.py).  Those cases hold the port against
-# the JAX pipeline.  Calibration inside a filterbank and use_fft_bench still
-# raise; the RFI filter with no FFT stage raises in both packages, and so
-# does cyclic folding of a real stream with no FFT stage (the JAX package
-# on its first block).
+# the JAX pipeline; use_fft_bench has run since the CLI slice
+# (tests/test_torch_extras.py::test_fold_pipeline_fft_bench_matches_jax).
+# Calibration inside a filterbank still raises; the RFI filter with no FFT
+# stage raises in both packages, and so does cyclic folding of a real
+# stream with no FFT stage (the JAX package on its first block).
 @pytest.mark.parametrize("kw", [
     dict(cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
     dict(calibration_path="cal.txt"),
-    dict(use_megakernel=False), dict(use_fft_bench=True),
+    dict(use_megakernel=False),
     dict(fft_window="hanning"), dict(nchan=1, dispersion_measure=0.0),
     dict(sk_enable=True, cyclic_nchan=4, nchan=1, dispersion_measure=0.0),
     dict(rfi_filter=True, nchan=1, dispersion_measure=0.0),
