@@ -17,8 +17,12 @@ calibration) and the search path on the fused search front end (digifil:
 run as modules: ``apps.dspsr_app`` (dspsr, with ``-G``, the phase-locked
 filterbank of ``ops.phase_locked``, and ``--fft-bench``, the measured FFT
 lengths of ``utils.optimalfft``), ``apps.diagnostics``,
-``apps.searchplot_app`` and ``utils.fftbench``.  See ROADMAP.md for what
-follows.
+``apps.searchplot_app``, ``utils.fftbench`` and ``apps.decimator_app``
+(the-decimator, a live ring to SIGPROC).  Every pipeline reads files or
+live shared-memory rings (``io.hostio``: a POSIX ring and the psrdada-style
+SysV hdu), and ``io.cfitsio`` reads its archives back through the system
+cfitsio.  The port does everything the JAX package does; see ROADMAP.md
+for what follows.
 """
 
 from .device import launch_counts, reset_launch_counts, resolve_device

@@ -1288,7 +1288,13 @@ class FoldPipeline:
                     if divider is not None else [(0, nuse, 0)])
             t_out0 = self.output_start_time(start)
             with rep.stage("read"):
-                raw = src.read_samples(start, self.block_in_samples)
+                try:
+                    raw = src.read_samples(start, self.block_in_samples)
+                except EOFError:
+                    # a live ring ended the stream: report the blocks it
+                    # delivered (the caller finishes with _finish())
+                    rep.report()
+                    raise
             if self.config.digitizer_stats and self.obs_in.nbit <= 8:
                 with rep.stage("byte_counts"):
                     self._byte_counts += np.bincount(raw, minlength=256)

@@ -10,8 +10,11 @@ pipelines (``parallel/*`` on a mesh of the CPU four times: fused time
 shards, hybrid channel shards with pooled SK, time-sharded search) run on
 the CPU from inputs built with the port's own classes, and so do the
 command-line tools run as ``__main__`` (``dspsr_app`` to PSRFITS and with
-``-G``, ``diagnostics digistat`` and ``passband``);
-neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules`` afterwards.  Runs in
+``-G``, ``diagnostics digistat`` and ``passband``), and the live rings
+(``io/hostio.py`` with its library built from ``csrc/hostio.cpp``,
+``io/cfitsio.py``, a fold read from a POSIX ring, the decimator as
+``__main__``); neither ``jax`` nor ``dspsr_tpu`` is in ``sys.modules``
+afterwards.  Runs in
 a subprocess, since this test process has both loaded already."""
 
 import os
@@ -50,7 +53,9 @@ mods = [m.name for m in pkgutil.walk_packages(dspsr_tpu_torch.__path__,
 assert {"dspsr_tpu_torch.ops.fft", "dspsr_tpu_torch.ops.polyphase",
         "dspsr_tpu_torch.parallel.sharded", "dspsr_tpu_torch.parallel.pipeline",
         "dspsr_tpu_torch.parallel.search",
-        "dspsr_tpu_torch.parallel.multiproc"} <= set(mods)
+        "dspsr_tpu_torch.parallel.multiproc", "dspsr_tpu_torch.io.hostio",
+        "dspsr_tpu_torch.io.cfitsio",
+        "dspsr_tpu_torch.apps.decimator_app"} <= set(mods)
 for name in mods:
     importlib.import_module(name)
 from dspsr_tpu_torch.io.sources import RawFileSource
@@ -220,3 +225,92 @@ def test_clis_run_without_jax():
     assert "chan 0 pol 1: mean" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "loaded []"
 
+
+
+LIVE_SCRIPT = r"""
+import os, runpy, sys, tempfile, threading, time
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from dspsr_tpu_torch.apps import decimator_app
+from dspsr_tpu_torch.io import cfitsio
+from dspsr_tpu_torch.io.hostio import RingReader, RingWriter, load_hostio
+from dspsr_tpu_torch.io.sigproc import read_sigproc_header
+from dspsr_tpu_torch.models.load_to_fold import (
+    MJD, FoldConfig, FoldPipeline, Observation, Signal)
+load_hostio()
+cfitsio.available()
+obs = Observation(nchan=1, npol=2, ndim=1, nbit=8, centre_frequency=1400.0,
+                  bandwidth=-2.0, rate=2e6,
+                  start_time=MJD.from_utc("2010-04-13-02:05:45"),
+                  state=Signal.NYQUIST, source="FAKE", telescope="PKS",
+                  instrument="RAW")
+rng = np.random.default_rng(0)
+bufs = rng.integers(0, 256, (16, 8192), dtype=np.uint8)
+
+
+def feed(name):
+    w = RingWriter(name, obs, 8192, nbufs=4)
+
+    def run():
+        t_end = time.time() + 60
+        try:
+            for b in bufs:
+                while not w.push(b) and time.time() < t_end:
+                    time.sleep(0.0005)
+        finally:
+            w.set_eod()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return w, t
+
+
+def done(w, t):
+    t.join(timeout=60)
+    assert not t.is_alive()
+    w.close(unlink=True)
+
+
+name = f"/dspsr_torch_nojax_{os.getpid()}"
+w, t = feed(name)
+pipe = FoldPipeline(RingReader(name), FoldConfig(
+    folding_period=0.005, dispersion_measure=5.0, nchan=4, nbin=32,
+    block_parts=2, min_block_samples=0), device="cpu")
+assert pipe.mega_mode == "full"
+try:
+    res = pipe.run()
+except EOFError:
+    res = pipe._finish()
+done(w, t)
+assert res.hits.sum() > 0
+with tempfile.TemporaryDirectory() as d:
+    w, t = feed(name)
+    sys.argv = ["decimator_app", name, "-F", "4", "-o", d + "/live.fil",
+                "-q", "--device", "cpu"]
+    try:
+        runpy.run_module("dspsr_tpu_torch.apps.decimator_app",
+                         run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        assert e.code in (0, None), e.code
+    done(w, t)
+    items, hdr = read_sigproc_header(d + "/live.fil")
+    assert items["nchans"] == 4 and os.path.getsize(d + "/live.fil") > hdr
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("loaded", loaded)
+"""
+
+
+def test_live_ring_without_jax():
+    """``io/hostio.py`` (its library built from the port's
+    ``csrc/hostio.cpp``), ``io/cfitsio.py`` and ``apps/decimator_app.py``
+    under the hook that refuses ``jax`` and ``dspsr_tpu``: a fold on the CPU
+    read live from a POSIX ring, and the decimator run as ``__main__`` on
+    another."""
+    head = SCRIPT.split("import importlib, pkgutil")[0]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", head + LIVE_SCRIPT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "loaded []"
