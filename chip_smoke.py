@@ -487,6 +487,9 @@ def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
                              label=f" ({name} {kind} fold)")
     pass_bounds(card, name, plan, pipe.npart, nf,
                 8 * (prof0.numel() + hits0.numel()), times)
+    if kind == "complex":
+        print_forward(card, f"{name} {kind}", times, forward_passes(
+            plan, pipe.npart, nf, nf, raw.numel()))
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 
@@ -1652,6 +1655,66 @@ def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
               flush=True)
 
 
+def forward_passes(plan, npart: int, nfwd: int, nstore: int,
+                   raw_bytes: int) -> dict:
+    """The bytes each pass of the forward half must move over one block
+    (each input read once, each output written once): the pre-pass
+    (``mega_ftp``/``mega_ftpw`` on multi-channel TFP, ``mega_ja98`` for
+    JA98 codes: the raw codes in; the channel-transposed copy, the JA98
+    counts and block weights out), ``mega_fwd1`` (the copy, or the raw
+    codes, and the JA98 counts in; ``cbuf`` out) and the row pass (``cbuf``
+    and the chirp in, the ``nstore`` kept spectra out); ``"fused"`` is
+    ``mega_fwd1`` with its pre-pass as one function: raw codes (and counts)
+    in, ``cbuf`` out.  ``nfwd`` pols are transformed."""
+    from dspsr_tpu_torch.kernels.megastep import CLUSTER_R2, ftp_nbytes
+
+    nci, N = plan.nchan_in, plan.n_fft
+    nseq = 1 if plan.real_input else nfwd
+    cbuf = 8 * nci * nseq * npart * plan.R1 * plan.row_len
+    spectra = 8 * nci * nstore * npart * N
+    copy = ftp_nbytes(plan, npart)
+    counts = 0
+    out = {}
+    if plan.npw:
+        nw = plan.block_ndat(npart) // plan.npw
+        counts = 2 * nci * plan.npol * plan.ndim * nw
+        out["mega_ja98"] = raw_bytes + counts + 4 * nci * nw + copy
+    elif copy:
+        widen = plan.npol * plan.ndim * plan.nbit < 8
+        out["mega_ftpw" if widen else "mega_ftp"] = raw_bytes + copy
+    out["mega_fwd1"] = (copy or raw_bytes) + counts + cbuf
+    row = ("mega_fwd2" if plan.real_input else
+           "mega_fwd2cc" if plan.R2 >= CLUSTER_R2 else "mega_fwd2c")
+    out[row] = cbuf + spectra + 8 * nci * N
+    out["fused"] = raw_bytes + counts + cbuf
+    return out
+
+
+def print_forward(card: str, tag: str, times: dict, passes: dict) -> dict:
+    """Print each forward pass of ``passes`` (``forward_passes``) against
+    its own bytes at 3.35 TB/s, and ``mega_fwd1`` with its pre-pass
+    against the fused function's; fails when the step did not run one of
+    them.  Returns each pass's milliseconds (``"fused"``: the sum)."""
+    parts, ms = [], {}
+    for name, nb in passes.items():
+        if name == "fused":
+            continue
+        ms[name] = pass_ms(times, name, tag)
+        parts.append(f"{name} {ms[name]:.3f} ms for {nb / 1e6:.0f} MB "
+                     f"({nb / (ms[name] * 1e-3) / 1e12:.2f} TB/s; "
+                     f"{nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
+    pre = [n for n in ("mega_ftp", "mega_ftpw", "mega_ja98") if n in ms]
+    ms["fused"] = sum(ms[n] for n in pre) + ms["mega_fwd1"]
+    if pre:
+        nb = passes["fused"]
+        parts.append(f"mega_fwd1 with its pre-pass {ms['fused']:.3f} ms for "
+                     f"{nb / 1e6:.0f} MB of codes in and cbuf out "
+                     f"({nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
+    print(f"{tag} forward passes per block: {'; '.join(parts)} [{card}]",
+          flush=True)
+    return ms
+
+
 def conv32_block(card: str, jones_path: str | None = None) -> dict:
     """One hybrid_conv32 block (with ``jones_path``: calibrated, Stokes):
     the front end's kernel against its plain version (both f32) on device
@@ -1708,7 +1771,10 @@ def conv32_block(card: str, jones_path: str | None = None) -> dict:
               + (4 * cst.jones.numel() if jones_path else 0))
     bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
     mb = multipass_bounds(plan, npart, 2, 4 * got.numel(), bool(jones_path))
-    fwd = sum(v for k, v in times.items() if k.startswith("mega_fwd"))
+    fwd = print_forward(card, tag, times, forward_passes(
+        plan, npart, 2, 2, raw.numel()))
+    fwd = fwd["fused"] + sum(v for k, v in times.items()
+                             if k.startswith("mega_fwd2"))
     ms_a = pass_ms(times, "mega_inva", tag)
     ms_b = pass_ms(times, "megafil_invb", tag)
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
@@ -1969,14 +2035,29 @@ def unpack_case(kind, kw, window, npart, rng):
     return plan, cst, raw
 
 
-def small_checks_unpack() -> None:
+#: the channel-transposing pre-pass (multi-channel TFP input): every code
+#: kind at 2, 3 and 32 complex channels, with an apodization window, and
+#: at 2 real channels
+FTP_KINDS = [dict(), dict(twos_complement=True), dict(nbit=1), dict(nbit=2),
+             dict(nbit=4), dict(nbit=2, twos_complement=True),
+             dict(nbit=4, twos_complement=True),
+             dict(nbit=2, ndat_per_weight=16), dict(nbit=32)]
+FTP_CASES = ([("complex", dict(nchan_in=n, **kw), None)
+              for n in (2, 3, 32) for kw in FTP_KINDS]
+             + [("complex", dict(nchan_in=n, nbit=4), "hanning")
+                for n in (2, 3, 32)]
+             + [("real", dict(nchan_in=2, **kw), None) for kw in FTP_KINDS]
+             + [("real", dict(nchan_in=2), "tukey")])
+
+
+def small_checks_unpack(cases=None) -> None:
     """Both kernels (f32) against their plain versions (f64) at the test
     geometry on every unpack variant (JA98 real and complex, fixed-level
-    1/2/4-bit plain and two's complement, float32, apodization windows):
-    the fold step within TOL_SMALL with hits exact, the front end's
-    detected and voltage outputs within TOL_SMALL with its weights exactly
-    equal, and the JA98 pre-pass's nlow and window weights exactly
-    equal."""
+    1/2/4-bit plain and two's complement, float32, apodization windows;
+    ``cases``, default UNPACK_CASES): the fold step within TOL_SMALL with
+    hits exact, the front end's detected and voltage outputs within
+    TOL_SMALL with its weights exactly equal, and the JA98 pre-pass's nlow
+    and window weights exactly equal."""
     from dspsr_tpu_torch.kernels.megastep import ja98_cuda
     from dspsr_tpu_torch.ops.megakernel import (
         build_megafil, build_megastep, bytes_to_codes, megafil_plain,
@@ -1986,7 +2067,7 @@ def small_checks_unpack() -> None:
     rng = np.random.default_rng(12)
     phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32)).cuda()
     dphi = torch.full((npart,), 0.013, dtype=torch.float32, device="cuda")
-    for kind, kw, window in UNPACK_CASES:
+    for kind, kw, window in UNPACK_CASES if cases is None else cases:
         plan, cst, raw = unpack_case(kind, kw, window, npart, rng)
         nci, nsub = plan.nchan_in, plan.nsub
         what = f"small unpack {kind} {kw} window={window}"
@@ -2028,6 +2109,73 @@ def small_checks_unpack() -> None:
         check(max(errs) < TOL_SMALL, f"{what}: {errs} >= {TOL_SMALL}")
         check(hdiff == 0 and wdiff == 0, f"{what}: hits or weights differ")
         check(float(hk.sum()) > 0, f"{what}: hits folded")
+
+
+def cluster_plan(R2: int, **kw):
+    """A complex plan of R1 = 8 and rows of R2 points (N = 8 R2, freq_res
+    512, nsub N / 512, no overlap): the row pass's tile below CLUSTER_R2,
+    its clusters from there."""
+    from dspsr_tpu_torch.ops.megakernel import MegaPlan
+
+    return MegaPlan(nsub=8 * R2 // 512, freq_res=512, R1=8, nfilt_pos=0,
+                    nfilt_neg=0, nbin=32, npol=2, real_input=False, **kw)
+
+
+def small_checks_cluster() -> None:
+    """The complex row pass at R1 = 8 and R2 = 2048 (the row tile), 4096
+    and 8192 (clusters of 4 one-row CTAs) against plain (f64) within
+    TOL_SMALL: the search front end with the passband tap, a masked chirp
+    handed in and each store mask (PP keeps pol a, QQ pol b, PPQQ both),
+    and the fold step."""
+    from dspsr_tpu_torch.kernels.megastep import CLUSTER_R2
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, build_megafil, build_megastep, megafil_plain,
+        megastep_plain)
+
+    npart = 2
+    rng = np.random.default_rng(14)
+    phi0 = torch.from_numpy(rng.uniform(0, 1, npart).astype(np.float32)).cuda()
+    dphi = torch.full((npart,), 0.013, dtype=torch.float32, device="cuda")
+    for R2 in (2048, 4096, 8192):
+        for store, kw in ((1, dict(detection="pp")),
+                          (2, dict(detection="qq")), (3, dict(npol_out=2))):
+            plan = cluster_plan(R2, **kw)
+            check(plan.R1 == 8 and plan.R2 == R2, f"cluster plan {R2}")
+            raw = small_raw(plan, npart, rng)
+            resp = np.exp(1j * rng.uniform(-3, 3, (plan.nsub,
+                                                   plan.freq_res)))
+            cst = MegaConstants.build(plan, resp, 1.0, -127.5).to("cuda")
+            gr, gi = masked_chirp(cst, rng)
+            data, pb = build_megafil(plan, cst, npart, passband=True,
+                                     response_as_args=True)(raw, gr, gi)
+            want, wpb = megafil_plain(plan, cst, raw, npart, torch.float64,
+                                      passband=True, gr=gr.double(),
+                                      gi=gi.double())
+            shp = (1, plan.nplane, plan.nsub, plan.nbin)
+            pk, hk = build_megastep(plan, cst, npart)(
+                torch.zeros(shp, device="cuda"),
+                torch.zeros(1, plan.nbin, device="cuda"), raw, phi0, dphi)
+            pp, hp = megastep_plain(
+                plan, cst, torch.zeros(shp, dtype=torch.float64,
+                                       device="cuda"),
+                torch.zeros(1, plan.nbin, dtype=torch.float64,
+                            device="cuda"), raw, phi0, dphi)
+            torch.cuda.synchronize()
+            errs = (rel_err(data, want), rel_err(pb, wpb), rel_err(pk, pp))
+            hdiff = float((hk.double() - hp).abs().max())
+            form = "clusters" if R2 >= CLUSTER_R2 else "row tile"
+            print(f"small cluster R2 {R2} ({form}) store {store} {kw}: rel "
+                  f"err data {errs[0]:.3e}, passband {errs[1]:.3e}, fold "
+                  f"{errs[2]:.3e}; hits diff {hdiff}", flush=True)
+            check(data.shape == want.shape and pb.shape == wpb.shape,
+                  f"cluster R2 {R2} store {store}: shapes")
+            check(bool(torch.isfinite(data).all() and torch.isfinite(pb).all()
+                       and torch.isfinite(pk).all()),
+                  f"cluster R2 {R2} store {store}: finite")
+            check(max(errs) < TOL_SMALL,
+                  f"cluster R2 {R2} store {store}: {errs} >= {TOL_SMALL}")
+            check(hdiff == 0 and float(hk.sum()) > 0,
+                  f"cluster R2 {R2} store {store}: hits")
 
 
 def guppi2_obs():
@@ -2183,25 +2331,20 @@ def guppi2_block(card: str) -> dict:
     nbytes = (raw.numel() + 8 * cst.gr.numel() + 4 * cst.twobit.numel()
               + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
     bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
-    # each pass's own bytes: codes and nlow in, cbuf and ybuf out and in
-    scratch = 8 * 32 * 2 * npart * plan.n_fft
-    nl = 2 * nlow.numel()
-    passes = {"mega_ja98": raw.numel() + nl + 4 * 32 * nlow.shape[-1],
-              "mega_fwd1": raw.numel() + nl + scratch,
-              "mega_fwd2c": 2 * scratch + 8 * cst.gr.numel(),
-              "mega_invfold": scratch}
-    parts = []
-    for name, nb in passes.items():
-        ms = pass_ms(times, name, "mega_guppi_2bit")
-        parts.append(f"{name} {ms:.3f} ms for {nb / 1e6:.0f} MB "
-                     f"({nb / (ms * 1e-3) / 1e12:.2f} TB/s; "
-                     f"{nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
+    # each pass's own bytes (forward_passes); the fold reads the spectra
+    passes = forward_passes(plan, npart, 2, 2, raw.numel())
+    print_forward(card, "mega_guppi_2bit", times, passes)
+    inv = 8 * 32 * 2 * npart * plan.n_fft
+    ms_inv = pass_ms(times, "mega_invfold", "mega_guppi_2bit")
+    total = sum(v for k, v in passes.items() if k != "fused") + inv
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
     print(f"mega_guppi_2bit step per block ({sky_ms:.2f} ms of sky): "
           f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
-          f"{bound['bound_by']}; passes "
-          f"{sum(passes.values()) / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s); "
-          f"plain {plain_ms:.3f} ms; {'; '.join(parts)} [{card}]",
+          f"{bound['bound_by']}; passes {total / HBM_BYTES_S * 1e3:.3f} ms "
+          f"at 3.35 TB/s); plain {plain_ms:.3f} ms; mega_invfold "
+          f"{ms_inv:.3f} ms for {inv / 1e6:.0f} MB "
+          f"({inv / (ms_inv * 1e-3) / 1e12:.2f} TB/s; "
+          f"{inv / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s) [{card}]",
           flush=True)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
@@ -3922,6 +4065,8 @@ def small_all() -> None:
         small_checks_conv(kind)
     small_unequal()
     small_checks_unpack()
+    small_checks_unpack(FTP_CASES)
+    small_checks_cluster()
     small_checks_multipass()
 
 

@@ -37,7 +37,9 @@
 //                JAX package's order), where the passband tap and the chirp
 //                are read too.  Subband s is then the slice [s*M, (s+1)*M)
 //                of the stored spectrum, as for real input, so the inverse
-//                kernels read it unchanged.
+//                kernels read it unchanged.  From R2 = kClusterR2 the same
+//                pass runs as mega_fwd2cc, one row a CTA in clusters (item
+//                7).
 // Both forms compute the inter-stage twiddle exp(-2 pi i m k1 / (R1 *
 // row_len)) from the same tables: R1 * row_len is 2N for real input and N
 // for complex input.
@@ -46,7 +48,9 @@
 // + pol.  CASPSR (one channel): four consecutive samples of each pol
 // together, sample (t, pol) at (t/4)*npol*4 + pol*4 + t%4; mega_polpow and
 // mega_fwd1<P, kRealCaspsr> read that index directly, so the layout costs
-// no pass.
+// no pass.  TFP input with nchan > 1 first goes through the pre-pass
+// mega_ftp (item 6), after which every channel is a one-channel TFP stream
+// of its own.
 // launch_forward() sets the shared-memory limits and launches the passes.
 //
 // Code kinds (Code, a template parameter of mega_polpow and mega_fwd1, as
@@ -140,6 +144,46 @@
 //    detection transforms both pols (the passband has both) and stores
 //    only the detected pol's spectrum.
 //
+// 6. Multi-channel TFP codes (mega_ftp, mega_ftpw; for JA98 codes
+//    mega_ja98), for build_megastep's and build_megafil's forward half.  A
+//    TFP time row holds every channel's codes (128 bytes for hybrid_conv32's
+//    32 complex dual-pol 8-bit channels, 32 for mega_guppi_2bit's 2-bit
+//    ones), and mega_fwd1 transforms one (channel, pol) sequence a CTA, so
+//    reading TFP in place put each 2-byte (or sub-byte) load alone in its
+//    32-byte sector, and the 64 CTAs that wanted the same sectors ran far
+//    apart: mega_fwd1 took 3.29 ms a hybrid_conv32 block for 1.3 GB (0.40
+//    TB/s) and 3.43 ms a mega_guppi_2bit one (H100, 700 W).  The JAX
+//    package first transposes [T, ndig] -> [ndig, T] (_prepare_input); so
+//    does the pre-pass, as a tile transpose in shared memory with 16-byte
+//    loads and stores (a tile of up to 256 samples and 512 bytes of
+//    channels; lane pairs store the two halves of each 32-byte sector),
+//    into a copy [nchan, tp, unit] in which every channel is a one-channel
+//    TFP stream (sub-byte units widened to a byte a code), which
+//    mega_polpow and mega_fwd1 read as they read one channel.  For JA98
+//    codes mega_ja98, which reads every byte of the block into shared
+//    memory anyway, stores the same copy.  mega_fwd1's grid runs the
+//    sequences of a channel next to each other, so its pols share their
+//    sectors in L2, and for JA98 it reads each (row, block)'s levels from a
+//    table it fills in shared memory (the per-sample nlow and level
+//    lookups spilled 240 bytes a thread at the 128-register cap).
+//    Measured (H100, 700 W): hybrid_conv32 mega_ftp 0.17 ms (2.9 TB/s) +
+//    mega_fwd1 1.56 ms (0.84 TB/s, the one-channel rate at R1 = 1024);
+//    mega_guppi_2bit mega_ja98 0.09 ms + mega_fwd1 1.38 ms.  Not kept: the
+//    sequence-first grid alone on the TFP bytes, 2.01 and 1.93 ms.
+// 7. Long complex rows (mega_fwd2cc).  At R2 >= 4096 a mega_fwd2c tile
+//    holds fewer than 4 rows (a row is 256-512 threads), so its stores of
+//    the centred bin index, which runs over consecutive k1, came in runs of
+//    1-2 bins.  Clusters of 4 one-row CTAs exchange their rows through
+//    distributed shared memory and store runs of 4 k1 (32 bytes), reading
+//    the chirp and adding the passband in the same runs; two CTAs an SM by
+//    registers (64 a thread) instead of one.  Measured at
+//    mega_analytic_j0613 (R2 = 8192, H100, 700 W): 2.40 ms against 4.49 for
+//    mega_fwd2c; without the stores (a measurement only) 1.91 ms: the
+//    load, the 4-pass FFT of a 64 KB row and the exchange now take most of
+//    it.  Not kept: clusters of 8 (2.56 ms) or 16 (4.6 ms, one CTA an SM),
+//    and the cluster form at R2 <= 2048 (hybrid_conv32 3.12 ms, guppi 4.57,
+//    against the row tile's 1.55 and 1.11).
+//
 // The multi-pass inverse's pass A (mega_inva, for a subband inverse past
 // one CTA), which both kernels run, lives here too; see the note above it.
 //
@@ -148,6 +192,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -382,10 +427,24 @@ __device__ __forceinline__ float unpack(uint8_t byte, int twos, float scale,
 enum Layout { kRealTfp = 0, kRealCaspsr = 1, kComplexTfp = 2 };
 
 // Code kinds of the raw input (the wrappers' code_kind; see the note at the
-// top): 8-bit, fixed-level 1-, 2- and 4-bit, JA98 2-bit, float32.
+// top): 8-bit, fixed-level 1-, 2- and 4-bit, JA98 2-bit, float32; and, read
+// only from the channel-transposed copy (mega_ftp), JA98 2-bit codes widened
+// to one byte each.
 enum Code {
-  kCode8 = 0, kCode1 = 1, kCode2 = 2, kCode4 = 3, kCodeJA98 = 4, kCodeF32 = 5
+  kCode8 = 0, kCode1 = 1, kCode2 = 2, kCode4 = 3, kCodeJA98 = 4, kCodeF32 = 5,
+  kCodeJA98W = 6
 };
+
+// Bits of a code of kind `code`.
+__host__ __device__ inline int code_bits(int code) {
+  switch (code) {
+    case kCode1: return 1;
+    case kCode2: case kCodeJA98: return 2;
+    case kCode4: return 4;
+    case kCodeF32: return 32;
+    default: return 8;
+  }
+}
 
 // How the first pass turns codes into samples.
 struct Unpack {
@@ -419,8 +478,8 @@ __device__ __forceinline__ float load_code(const uint8_t* __restrict__ raw,
     return unpack(raw[i], u.twos, u.scale, u.offset);
   } else if constexpr (CODE == kCodeF32) {
     return __ldg(reinterpret_cast<const float*>(raw) + i);
-  } else if constexpr (CODE == kCodeJA98) {
-    const int code = code_field<2>(raw, i);
+  } else if constexpr (CODE == kCodeJA98 || CODE == kCodeJA98W) {
+    const int code = CODE == kCodeJA98 ? code_field<2>(raw, i) : raw[i];
     const int nl = __ldg(u.nlow + dig * u.nweights + (t >> u.lg_npw));
     const float mag =
         __ldg(u.tables + ((code == 1 || code == 2) ? 0 : u.npw1) + nl);
@@ -438,48 +497,251 @@ __host__ __device__ inline int gcd4(int n) {
   return (n & 3) == 0 ? 4 : ((n & 1) == 0 ? 2 : 1);
 }
 
+// The channel-transposing pre-pass (see item 6 at the top).  A TFP block
+// with nchan > 1 is [T, nchan, unit] with unit one channel's npd = npol *
+// ndim codes of a time sample; the copy is [nchan, tp, unit], channel c's
+// stream at (c * tp) units, tp = T rounded up to kFtpAlign samples so that
+// every stream starts on a 16-byte boundary.  Where a unit is less than a
+// byte (npd * nbit < 8) each code is widened to a byte.  mega_polpow and
+// mega_fwd1 then read channel c as a one-channel TFP stream.
+constexpr int kFtpAlign = 16;      // samples: a channel stream's alignment
+constexpr int kFtpTile = 32768;    // bytes of a pre-pass tile at most
+constexpr int kFtpRow = 512;       // bytes of a tile's row segment at most
+
+__host__ __device__ inline long long ftp_stride(long long T) {
+  return (T + kFtpAlign - 1) / kFtpAlign * kFtpAlign;
+}
+
+// Row stride in shared memory of a tile whose rows hold `seg` bytes:
+// rounded up to 16 bytes, plus 16, so that the two lanes that assemble the
+// halves of one 32-byte output sector read rows 16 bytes of banks apart.
+__host__ __device__ inline int ftp_ld(int seg) {
+  return ((seg + 15) & ~15) + 16;
+}
+
+// Copy `rows` rows of `seg` bytes, `stride` bytes apart in device memory,
+// to shared memory `ld` bytes apart: 16-byte loads where the source allows
+// them, else bytes.
+__device__ __forceinline__ void load_rows(uint8_t* dst, int ld,
+                                          const uint8_t* __restrict__ src,
+                                          long long stride, int rows,
+                                          int seg) {
+  if ((((uintptr_t)src | (uintptr_t)stride | (uintptr_t)seg) & 15) == 0) {
+    const int nq = seg >> 4;
+    for (int i = threadIdx.x; i < rows * nq; i += blockDim.x) {
+      const int r = i / nq;
+      const int q = i - r * nq;
+      *reinterpret_cast<uint4*>(dst + r * ld + 16 * q) =
+          __ldg(reinterpret_cast<const uint4*>(src + r * stride) + q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * seg; i += blockDim.x) {
+      const int r = i / seg;
+      const int b = i - r * seg;
+      dst[r * ld + b] = __ldg(src + r * stride + b);
+    }
+  }
+}
+
+// Copy n contiguous bytes to shared memory: 16-byte loads for the body
+// when the source is aligned, bytes for the rest.
+__device__ __forceinline__ void load_span(uint8_t* dst,
+                                          const uint8_t* __restrict__ src,
+                                          int n) {
+  const int nq = ((uintptr_t)src & 15) == 0 ? n >> 4 : 0;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] =
+        __ldg(reinterpret_cast<const uint4*>(src) + i);
+  for (int i = 16 * nq + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = __ldg(src + i);
+}
+
+template <int E> struct UnitType;
+template <> struct UnitType<1> { using T = uint8_t; };
+template <> struct UnitType<2> { using T = uint16_t; };
+template <> struct UnitType<4> { using T = uint32_t; };
+template <> struct UnitType<8> { using T = uint2; };
+template <> struct UnitType<16> { using T = uint4; };
+
+// Output vector v of channel c for thread item i: lane pairs take the two
+// 16-byte halves of one 32-byte sector, consecutive pairs consecutive
+// channels.
+__device__ __forceinline__ void ftp_item(int i, int cc, int* c, int* v) {
+  *c = (i >> 1) % cc;
+  *v = 2 * ((i >> 1) / cc) + (i & 1);
+}
+
+// Store a tile of E-byte units to the copy: tile row r (time sample t0 + r,
+// r < tt) holds channels c0 .. c0 + cc - 1 at (c - c0) * E, rows ld bytes
+// apart; channel c's unit of time t goes to ftp + (c * tp + t) * E.  Each
+// thread assembles 16 bytes (16 / E samples of one channel) and stores them
+// with one 16-byte store.
+template <int E>
+__device__ __forceinline__ void store_units(const uint8_t* tile, int ld,
+                                            uint8_t* __restrict__ ftp,
+                                            long long tp, long long t0,
+                                            int tt, int c0, int cc) {
+  using U = typename UnitType<E>::T;
+  constexpr int per = 16 / E;
+  const int nv = (tt + per - 1) / per;
+  const int nitems = cc * 2 * ((nv + 1) >> 1);
+  for (int i = threadIdx.x; i < nitems; i += blockDim.x) {
+    int c, v;
+    ftp_item(i, cc, &c, &v);
+    if (v >= nv) continue;
+    const int r0 = v * per;
+    uint8_t* dst = ftp + ((long long)(c0 + c) * tp + t0 + r0) * E;
+    const uint8_t* src = tile + r0 * ld + c * E;
+    if (r0 + per <= tt && ((uintptr_t)dst & 15) == 0) {
+      union { uint4 q; U u[per]; } x;
+#pragma unroll
+      for (int k = 0; k < per; ++k)
+        x.u[k] = *reinterpret_cast<const U*>(src + k * ld);
+      *reinterpret_cast<uint4*>(dst) = x.q;
+    } else {
+      const int n = (tt - r0 < per ? tt - r0 : per) * E;
+      for (int b = 0; b < n; ++b) dst[b] = src[(b / E) * ld + b % E];
+    }
+  }
+}
+
+// Store a tile of NBIT-bit codes widened to a byte each: the tile holds
+// time samples t0 .. t0 + tt - 1 of all nchan channels as one span of
+// codes, the most significant first, code ((r * nchan + c) * npd + d) for
+// row r; channel c's code d of time t goes to byte (c * tp + t) * npd + d.
+// Two's-complement fields (twos) are stored sign-extended, so that the
+// kernels read them as 8-bit codes; JA98 fields (twos 0) as they are.
+template <int NBIT>
+__device__ __forceinline__ void store_widened(const uint8_t* span, int nchan,
+                                              int npd, int twos,
+                                              uint8_t* __restrict__ ftp,
+                                              long long tp, long long t0,
+                                              int tt) {
+  constexpr int lg = NBIT == 1 ? 3 : (NBIT == 2 ? 2 : 1);  // log2(8 / NBIT)
+  constexpr int per = 1 << lg;
+  const int nb = tt * npd;  // bytes of a channel in this tile
+  const int nv = (nb + 15) >> 4;
+  const int nitems = nchan * 2 * ((nv + 1) >> 1);
+  for (int i = threadIdx.x; i < nitems; i += blockDim.x) {
+    int c, v;
+    ftp_item(i, nchan, &c, &v);
+    if (v >= nv) continue;
+    const int b0 = 16 * v;
+    const int n = nb - b0 < 16 ? nb - b0 : 16;
+    uint8_t* dst = ftp + ((long long)c * tp + t0) * npd + b0;
+    union { uint4 q; uint8_t b[16]; } x;
+    for (int k = 0; k < n; ++k) {
+      const int r = (b0 + k) / npd;
+      const int idx = (r * nchan + c) * npd + (b0 + k - r * npd);
+      int f = (span[idx >> lg] >> ((per - 1 - (idx & (per - 1))) * NBIT)) &
+              ((1 << NBIT) - 1);
+      if (twos && f >= (1 << (NBIT - 1))) f -= 1 << NBIT;
+      x.b[k] = (uint8_t)f;
+    }
+    if (n == 16 && ((uintptr_t)dst & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = x.q;
+    } else {
+      for (int k = 0; k < n; ++k) dst[k] = x.b[k];
+    }
+  }
+}
+
+// The pre-pass for units of E whole bytes: one CTA per tile of TT time
+// samples and CC channels (grid: time tiles, channel tiles).
+template <int E>
+__global__ void __launch_bounds__(kThreads)
+mega_ftp(const uint8_t* __restrict__ raw, uint8_t* __restrict__ ftp,
+         long long T, int nchan, long long tp, int TT, int CC) {
+  extern __shared__ uint4 ftp_sm[];
+  uint8_t* tile = reinterpret_cast<uint8_t*>(ftp_sm);
+  const long long t0 = (long long)blockIdx.x * TT;
+  const int c0 = blockIdx.y * CC;
+  const int tt = T - t0 < TT ? (int)(T - t0) : TT;
+  const int cc = nchan - c0 < CC ? nchan - c0 : CC;
+  const int ld = ftp_ld(CC * E);
+  const long long rb = (long long)nchan * E;
+  load_rows(tile, ld, raw + t0 * rb + (long long)c0 * E, rb, tt, cc * E);
+  __syncthreads();
+  store_units<E>(tile, ld, ftp, tp, t0, tt, c0, cc);
+}
+
+// The pre-pass for units of less than a byte (NBIT-bit codes, npd * NBIT <
+// 8): one CTA per tile of TT time samples of every channel, a whole number
+// of bytes (TT a multiple of 8).
+template <int NBIT>
+__global__ void __launch_bounds__(kThreads)
+mega_ftpw(const uint8_t* __restrict__ raw, uint8_t* __restrict__ ftp,
+          long long T, int nchan, int npd, int twos, long long tp, int TT) {
+  extern __shared__ uint4 ftp_sm[];
+  uint8_t* span = reinterpret_cast<uint8_t*>(ftp_sm);
+  const long long t0 = (long long)blockIdx.x * TT;
+  const int tt = T - t0 < TT ? (int)(T - t0) : TT;
+  const long long rowbits = (long long)nchan * npd * NBIT;
+  load_span(span, raw + t0 * rowbits / 8, (int)((tt * rowbits + 7) / 8));
+  __syncthreads();
+  store_widened<NBIT>(span, nchan, npd, twos, ftp, tp, t0, tt);
+}
+
 // The JA98 pre-pass, one CTA per npw-sample block (see the note at the
 // top).  The block's npw*ndig codes are bytes [blk*nb, (blk+1)*nb), nb =
-// npw*ndig/4; field f of byte k is code 4k + f of the block, of digitizer
-// (4k + f) mod ndig, which is the same for every k of one residue r = k mod
-// pb (pb = ndig / gcd(ndig, 4)).  So each thread sums the four fields of
-// the bytes of one residue (consecutive threads on consecutive bytes) and
-// adds them into a shared count per digitizer.  Writes nlow[dig, blk] and
-// wblk[c, blk], the least of weight[nlow] over channel c's nd_chan
-// digitizers.
+// npw*ndig/4, read in chunks of TT samples (cb = TT*ndig/4 bytes, a
+// multiple of pb) into shared memory with 16-byte loads; field f of byte k
+// is code 4k + f of the block, of digitizer (4k + f) mod ndig, which is the
+// same for every k of one residue r = k mod pb (pb = ndig / gcd(ndig, 4)).
+// So each thread sums the four fields of the chunk's bytes of one residue
+// and adds them into a shared count per digitizer.  With ftp (nchan > 1)
+// each chunk is also stored to the channel-transposed copy (mega_ftp: whole
+// bytes when a channel's codes of a sample fill one, else widened), so the
+// transpose costs only its writes.  Writes nlow[dig, blk] and wblk[c, blk],
+// the least of weight[nlow] over channel c's nd_chan digitizers.
 __global__ void __launch_bounds__(kThreads)
 mega_ja98(const uint8_t* __restrict__ raw, uint16_t* __restrict__ nlow,
           float* __restrict__ wblk, const float* __restrict__ weight,
-          int ndig, int nd_chan, int npw, int nweights) {
-  extern __shared__ unsigned cnt[];
+          uint8_t* __restrict__ ftp, int ndig, int nd_chan, int npw,
+          int nweights, long long tp, int TT) {
+  extern __shared__ uint4 ja98_sm[];
+  unsigned* cnt = reinterpret_cast<unsigned*>(ja98_sm);
+  uint8_t* tile = reinterpret_cast<uint8_t*>(ja98_sm) + ((ndig * 4 + 15) & ~15);
   const int blk = blockIdx.x;
   for (int d = threadIdx.x; d < ndig; d += blockDim.x) cnt[d] = 0u;
-  __syncthreads();
   const int pb = ndig / gcd4(ndig);
-  const long long nb = (long long)npw * ndig / 4;
-  const uint8_t* src = raw + (long long)blk * nb;
+  const int cb = TT * ndig / 4;
+  const int nchan = ndig / nd_chan;
+  const uint8_t* src = raw + (long long)blk * npw * ndig / 4;
   const int S = pb >= (int)blockDim.x ? 1 : (int)blockDim.x / pb;
-  for (int unit = threadIdx.x; unit < pb * S; unit += blockDim.x) {
-    const int r = unit % pb;
-    const int s = unit / pb;
-    unsigned c0 = 0u, c1 = 0u, c2 = 0u, c3 = 0u;
-    for (long long k = r + (long long)s * pb; k < nb; k += (long long)S * pb) {
-      const unsigned b = __ldg(src + k);
-      const unsigned low = ((b >> 1) ^ b) & 0x55u;
-      c0 += (low >> 6) & 1u;
-      c1 += (low >> 4) & 1u;
-      c2 += (low >> 2) & 1u;
-      c3 += low & 1u;
+  for (int t = 0; t < npw; t += TT) {
+    __syncthreads();  // the counts zeroed; the previous chunk read
+    load_span(tile, src + (long long)t * ndig / 4, cb);
+    __syncthreads();
+    for (int unit = threadIdx.x; unit < pb * S; unit += blockDim.x) {
+      const int r = unit % pb;
+      const int s = unit / pb;
+      unsigned c0 = 0u, c1 = 0u, c2 = 0u, c3 = 0u;
+      for (int k = r + s * pb; k < cb; k += S * pb) {
+        const unsigned b = tile[k];
+        const unsigned low = ((b >> 1) ^ b) & 0x55u;
+        c0 += (low >> 6) & 1u;
+        c1 += (low >> 4) & 1u;
+        c2 += (low >> 2) & 1u;
+        c3 += low & 1u;
+      }
+      atomicAdd(&cnt[(4 * r) % ndig], c0);
+      atomicAdd(&cnt[(4 * r + 1) % ndig], c1);
+      atomicAdd(&cnt[(4 * r + 2) % ndig], c2);
+      atomicAdd(&cnt[(4 * r + 3) % ndig], c3);
     }
-    atomicAdd(&cnt[(4 * r) % ndig], c0);
-    atomicAdd(&cnt[(4 * r + 1) % ndig], c1);
-    atomicAdd(&cnt[(4 * r + 2) % ndig], c2);
-    atomicAdd(&cnt[(4 * r + 3) % ndig], c3);
+    if (ftp) {
+      const long long t0 = (long long)blk * npw + t;
+      if (nd_chan == 4)
+        store_units<1>(tile, nchan, ftp, tp, t0, TT, 0, nchan);
+      else
+        store_widened<2>(tile, nchan, nd_chan, 0, ftp, tp, t0, TT);
+    }
   }
   __syncthreads();
   for (int d = threadIdx.x; d < ndig; d += blockDim.x)
     nlow[(long long)d * nweights + blk] = (uint16_t)cnt[d];
-  for (int c = threadIdx.x; c < ndig / nd_chan; c += blockDim.x) {
+  for (int c = threadIdx.x; c < nchan; c += blockDim.x) {
     float w = __ldg(weight + cnt[c * nd_chan]);
     for (int d = 1; d < nd_chan; ++d)
       w = fminf(w, __ldg(weight + cnt[c * nd_chan + d]));
@@ -504,26 +766,104 @@ mega_ja98_windows(const float* __restrict__ wblk, float* __restrict__ wwin,
   wwin[i] = v;
 }
 
+// Set a kernel's dynamic shared-memory limit and launch it (grid, threads
+// and shared memory from the caller) on `stream`.
+template <class K, class... A>
+cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 // The JA98 pre-pass on the caller's stream: nlow (u.nlow), the block
 // weights wblk float[nchan, nweights] and the window weights wwin
-// float[nchan, npart].
+// float[nchan, npart]; with ftp (nchan > 1) the channel-transposed copy of
+// the codes too (streams tp samples apart).
 cudaError_t launch_ja98(const void* raw, const Unpack& u, void* wblk,
                         void* wwin, int nchan, int npol, int ndim, int npart,
-                        int nsamp_step, int nsamp_fft, cudaStream_t stream) {
+                        int nsamp_step, int nsamp_fft, void* ftp,
+                        long long tp, cudaStream_t stream) {
   const int npw = 1 << u.lg_npw;
   const int ndig = nchan * npol * ndim;
   if ((npw * ndig) % 4 || nsamp_step % npw || nsamp_fft % npw)
     return cudaErrorInvalidValue;
-  mega_ja98<<<u.nweights, kThreads, ndig * sizeof(unsigned), stream>>>(
+  // chunks of TT samples: a power of two dividing npw, 16 or more where
+  // npw allows, within kFtpTile bytes where that allows
+  int TT = npw;
+  while (TT > 16 && TT * ndig / 4 > kFtpTile) TT >>= 1;
+  if ((TT * ndig) % 4) return cudaErrorInvalidValue;
+  const int smem = ((ndig * 4 + 15) & ~15) + TT * ndig / 4;
+  cudaError_t err = launch(
+      &mega_ja98, dim3(u.nweights), kThreads, smem, stream,
       (const uint8_t*)raw, (uint16_t*)u.nlow, (float*)wblk,
-      u.tables + 2 * u.npw1, ndig, npol * ndim, npw, u.nweights);
-  cudaError_t err = cudaGetLastError();
+      u.tables + 2 * u.npw1, (uint8_t*)ftp, ndig, npol * ndim, npw,
+      u.nweights, tp, TT);
   if (err != cudaSuccess) return err;
   mega_ja98_windows<<<(nchan * npart + kThreads - 1) / kThreads, kThreads, 0,
                       stream>>>((const float*)wblk, (float*)wwin, nchan,
                                 npart, u.nweights, nsamp_step / npw,
                                 nsamp_fft / npw);
   return cudaGetLastError();
+}
+
+// The pre-pass for every code kind but JA98 on the caller's stream: T time
+// samples of nchan channels of npd codes of nbit bits -> the
+// channel-transposed copy ftp (streams tp samples apart).
+cudaError_t launch_ftp(const void* raw, void* ftp, long long T, int nchan,
+                       int npd, int nbit, int twos, long long tp,
+                       cudaStream_t stream) {
+  const uint8_t* src = (const uint8_t*)raw;
+  uint8_t* dst = (uint8_t*)ftp;
+  if (npd * nbit < 8) {
+    const long long rowbits = (long long)nchan * npd * nbit;
+    int TT = 256;
+    while (TT > 8 && TT * rowbits > 8LL * kFtpTile) TT >>= 1;
+    if (TT * rowbits > 8LL * kFtpTile) return cudaErrorInvalidValue;
+    const int smem = (int)(((TT * rowbits + 7) / 8 + 15) & ~15LL);
+    const dim3 grid((unsigned)((T + TT - 1) / TT));
+    switch (nbit) {
+      case 1:
+        return launch(&mega_ftpw<1>, grid, kThreads, smem, stream, src, dst,
+                      T, nchan, npd, twos, tp, TT);
+      case 2:
+        return launch(&mega_ftpw<2>, grid, kThreads, smem, stream, src, dst,
+                      T, nchan, npd, twos, tp, TT);
+      case 4:
+        return launch(&mega_ftpw<4>, grid, kThreads, smem, stream, src, dst,
+                      T, nchan, npd, twos, tp, TT);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  const int E = npd * nbit / 8;
+  const int CC = nchan * E > kFtpRow ? kFtpRow / E : nchan;
+  const int ld = ftp_ld(CC * E);
+  int TT = 256;
+  while (TT > 16 && TT * ld > kFtpTile) TT >>= 1;
+  const dim3 grid((unsigned)((T + TT - 1) / TT), (nchan + CC - 1) / CC);
+  const int smem = TT * ld;
+  switch (E) {
+    case 1:
+      return launch(&mega_ftp<1>, grid, kThreads, smem, stream, src, dst, T,
+                    nchan, tp, TT, CC);
+    case 2:
+      return launch(&mega_ftp<2>, grid, kThreads, smem, stream, src, dst, T,
+                    nchan, tp, TT, CC);
+    case 4:
+      return launch(&mega_ftp<4>, grid, kThreads, smem, stream, src, dst, T,
+                    nchan, tp, TT, CC);
+    case 8:
+      return launch(&mega_ftp<8>, grid, kThreads, smem, stream, src, dst, T,
+                    nchan, tp, TT, CC);
+    case 16:
+      return launch(&mega_ftp<16>, grid, kThreads, smem, stream, src, dst, T,
+                    nchan, tp, TT, CC);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The Unpack of a C entry point's arguments: nsamp_block time samples a
@@ -563,11 +903,13 @@ __device__ __forceinline__ int pol_exponent(const float* psum) {
 
 // Energy of both pols over each window (grid: chunks of the window, window,
 // input channel), added into psum[c, w, 2] (zeroed by the caller).  Real
-// input, pols 0 and 1, TFP or (caspsr != 0, 8-bit codes) CASPSR bytes.
+// input, pols 0 and 1, one-channel TFP streams cs codes apart (the raw
+// block, or with nchan > 1 the pre-pass's copy) or (caspsr != 0, 8-bit
+// codes, one channel) CASPSR bytes.
 template <int CODE>
 __global__ void __launch_bounds__(kThreads)
 mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
-            int nchan, int npol, int npart, int nsamp_step, int two_n,
+            long long cs, int npol, int npart, int nsamp_step, int two_n,
             Unpack u, int caspsr) {
   __shared__ float red[2][kThreads / 32];
   const int w = blockIdx.y;
@@ -577,12 +919,13 @@ mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
   const int twos = u.twos;
   const float scale = u.scale, offset = u.offset;
   float sa = 0.f, sb = 0.f;
-  if (CODE == kCode8 && nchan == 1 && chunk % 8 == 0 && (t0 & 7) == 0 &&
-      ((uintptr_t)raw & 15) == 0) {
-    // one input channel: 8 samples of both pols in one 16-byte load (the
-    // same 16 bytes in both layouts: TFP words hold a b a b, CASPSR words
-    // a a a a, b b b b, a a a a, b b b b)
-    const uint4* src = (const uint4*)(raw + 2 * t0);
+  const uint8_t* chan = raw + (CODE == kCode8 ? c * cs : 0);
+  if (CODE == kCode8 && chunk % 8 == 0 && (t0 & 7) == 0 &&
+      ((uintptr_t)chan & 15) == 0) {
+    // 8 samples of both pols in one 16-byte load (the same 16 bytes in both
+    // layouts: TFP words hold a b a b, CASPSR words a a a a, b b b b, a a a
+    // a, b b b b)
+    const uint4* src = (const uint4*)(chan + 2 * t0);
     for (int i = threadIdx.x; i < chunk / 8; i += blockDim.x) {
       const uint4 q = src[i];
       const uint32_t words[4] = {q.x, q.y, q.z, q.w};
@@ -606,7 +949,7 @@ mega_polpow(const uint8_t* __restrict__ raw, float* __restrict__ psum,
         a = unpack(raw[off], twos, scale, offset);
         b = unpack(raw[off + 4], twos, scale, offset);
       } else {
-        const long long k = (t * nchan + c) * npol;
+        const long long k = c * cs + t * npol;
         a = load_code<CODE>(raw, k, (long long)c * npol, t, u);
         b = load_code<CODE>(raw, k + 1, (long long)c * npol + 1, t, u);
       }
@@ -670,15 +1013,18 @@ Tables tables(const void* base, int R1, int row_len, int M) {
   return t;
 }
 
-// Real input: blockIdx.z is the input channel c, and pols pol0 (and pol0 + 1
-// when npolf == 2) are packed.  Complex input: blockIdx.z = c * npolf + q,
-// the sequence of pol pol0 + q.  cbuf is float2[nchan * (complex ? npolf :
-// 1), npart, R1, row_len].  CODE is the raw input's Code (the CASPSR layout
-// is 8-bit only).
+// Grid: (sequence, tile of S columns, window), the sequence first, so that
+// the CTAs of the pols of one channel, which read the same sectors, run
+// together.  Real input: the sequence is the input channel c, and pols pol0
+// (and pol0 + 1 when npolf == 2) are packed.  Complex input: sequence c *
+// npolf + q is pol pol0 + q.  cbuf is float2[nchan * (complex ? npolf : 1),
+// npart, R1, row_len].  Channel c is a one-channel TFP stream at code c *
+// cs of raw (the raw block, or with nchan > 1 the pre-pass's copy).  CODE
+// is the Code of that stream (the CASPSR layout is 8-bit only).
 template <int P, int LAYOUT, int CODE>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
-          const float* __restrict__ psum, Tables tb, int nchan, int npol,
+          const float* __restrict__ psum, Tables tb, long long cs, int npol,
           int pol0, int npolf, int npart, int R1, int row_len,
           int nsamp_step, int S, Unpack u) {
   constexpr bool CPLX = LAYOUT == kComplexTfp;
@@ -689,10 +1035,11 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   const int T = R1 / P;
   const int col = threadIdx.x & (S - 1);
   const int j = threadIdx.x / S;
-  const int m = blockIdx.x * S + col;
-  const int w = blockIdx.y;
-  const int c = CPLX ? blockIdx.z / npolf : blockIdx.z;
-  const int pol = pol0 + (CPLX ? blockIdx.z - c * npolf : 0);
+  const int seq = blockIdx.x;
+  const int m = blockIdx.y * S + col;
+  const int w = blockIdx.z;
+  const int c = CPLX ? seq / npolf : seq;
+  const int pol = pol0 + (CPLX ? seq - c * npolf : 0);
   const float sb =
       !CPLX && npolf == 2
           ? ldexpf(1.f, pol_exponent(psum + 2 * ((long long)c * npart + w)))
@@ -705,11 +1052,47 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   // allows it: a complex sample's (re, im), or both pols of a real TFP
   // sample
   const bool pairs = (CPLX || npolf == 2) && ((uintptr_t)raw & 1) == 0;
-  const long long stride = (long long)T * row_len * nchan * npol * ndim;
+  const long long stride = (long long)T * row_len * npol * ndim;
   // code index of this thread's first sample, and its digitizer
-  const long long k0 = ((t0 * nchan + c) * npol + pol) * ndim;
+  const long long k0 = c * cs + (t0 * npol + pol) * ndim;
   const long long dig0 = ((long long)c * npol + pol) * ndim;
   const uint8_t* src = raw + k0;
+  // JA98: this thread's first byte and the shift of its first code (the
+  // second code, when read, is the next field of the same byte, or with
+  // widened codes the next byte); sample i is i * jb bytes further, so the
+  // unrolled loads need no 64-bit index each.  The levels come from a
+  // table in shared memory, filled here from nlow and the lo/hi tables:
+  // jlev[(n1 * nb + b) * 4 + {0, 1, 2, 3}] = lo and hi of the first code's
+  // digitizer, lo and hi of the second's, for row n1 of the window and the
+  // tile's b-th npw-sample block of that row (a row of row_len samples
+  // holds whole blocks; a tile's columns lie in nb = max(1, S / npw) of
+  // them, block col >> lg_npw).  It sits in the exchange area, which the
+  // first pass overwrites only after the barrier that ends the loads.
+  constexpr bool JA98 = CODE == kCodeJA98 || CODE == kCodeJA98W;
+  constexpr int lgc = CODE == kCodeJA98 ? 2 : 0;  // log2(codes a byte)
+  const uint8_t* jbyte = raw + (k0 >> lgc);
+  const int jsh = CODE == kCodeJA98 ? (3 - (int)(k0 & 3)) * 2 : 0;
+  const int jb = (int)(stride >> lgc);
+  const int lgb = S > (1 << u.lg_npw) ? __ffs(S) - 1 - u.lg_npw : 0;
+  const float* jlev = reinterpret_cast<const float*>(sm);
+  if constexpr (JA98) {
+    float* lev = reinterpret_cast<float*>(sm);
+    const long long tw = (long long)w * nsamp_step + (m - col);
+    const uint16_t* nla = u.nlow + dig0 * u.nweights;
+    const uint16_t* nlb = nla + u.nweights;
+    for (int e = threadIdx.x; e < (R1 << lgb); e += blockDim.x) {
+      const long long blk =
+          ((tw + (long long)(e >> lgb) * row_len) >> u.lg_npw) +
+          (e & ((1 << lgb) - 1));
+      const int na = __ldg(nla + blk);
+      const int nb = CPLX || npolf == 2 ? __ldg(nlb + blk) : 0;
+      lev[4 * e] = __ldg(u.tables + na);
+      lev[4 * e + 1] = __ldg(u.tables + u.npw1 + na);
+      lev[4 * e + 2] = __ldg(u.tables + nb);
+      lev[4 * e + 3] = __ldg(u.tables + u.npw1 + nb);
+    }
+    __syncthreads();
+  }
   auto load = [&](int, float2(&x)[P]) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
@@ -737,6 +1120,22 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
           const float b = npolf == 2 ? unpack(cb, twos, scale, offset) : 0.f;
           x[i] = make_float2(a, b * sb);
         }
+      } else if constexpr (JA98) {
+        // sign * (code is 1 or 2 ? lo : hi), sign + for codes 2 and 3
+        const float* lv =
+            jlev + 4 * (((j + T * i) << lgb) + (col >> u.lg_npw));
+        const int byte = __ldg(jbyte + i * jb);
+        const int ca = CODE == kCodeJA98 ? (byte >> jsh) & 3 : byte;
+        const float ma = lv[(ca == 1 || ca == 2) ? 0 : 1];
+        float b = 0.f;
+        if (CPLX || npolf == 2) {
+          const int cb =
+              CODE == kCodeJA98 ? (byte >> (jsh - 2)) & 3
+                                : __ldg(jbyte + i * jb + 1);
+          const float mb = lv[(cb == 1 || cb == 2) ? 2 : 3];
+          b = cb >= 2 ? mb : -mb;
+        }
+        x[i] = make_float2(ca >= 2 ? ma : -ma, CPLX ? b : b * sb);
       } else {
         // the second code (the imaginary part, or pol b) follows the first
         const long long t = t0 + (long long)i * T * row_len;
@@ -756,6 +1155,8 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
         x[i] = make_float2(x[i].x * g, x[i].y * g);
       }
     }
+    // the level table is read: the first pass may overwrite it
+    if constexpr (JA98) __syncthreads();
   };
   fft_seqs<P, 1, -1, true>(v, load, sm + col * seq_ld(R1), 0, j, R1,
                            __ffs(R1) - 1, tb.r1);
@@ -766,7 +1167,7 @@ mega_fwd1(const uint8_t* __restrict__ raw, float2* __restrict__ cbuf,
   const int m0 = m - col;
   const int mask = (1 << tb.log2n) - 1;
   const int lo_mask = (1 << tb.lo_bits) - 1;
-  float2* dst = cbuf + ((long long)blockIdx.z * npart + w) * R1 * row_len + m;
+  float2* dst = cbuf + ((long long)seq * npart + w) * R1 * row_len + m;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int k1 = j + T * i;
@@ -1003,6 +1404,80 @@ mega_fwd2c(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   }
 }
 
+// The complex-input row pass at long rows (R2 >= kClusterR2, where a tile
+// of mega_fwd2c holds fewer than 4 rows and its stores come in runs of 1
+// or 2 bins): a thread-block cluster of CR CTAs (cluster dimension x, CR
+// consecutive blockIdx.x) transforms rows k1 = a + rank, one row a CTA in
+// its own shared memory; after cluster.sync() CTA `rank` stores k2 in
+// [rank * R2 / CR, (rank + 1) * R2 / CR) of all CR rows, reading its
+// partners' rows through distributed shared memory, so every store, chirp
+// read and passband atomic comes in runs of CR consecutive k1.  The second
+// cluster.sync() keeps each CTA's shared memory alive until its partners
+// have read it.  Arguments as mega_fwd2c's.
+constexpr int kClusterR2 = 4096;  // the cluster form from this R2
+constexpr int kClusterRows = 4;   // CTAs (rows) of a cluster at most
+
+template <int P>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+mega_fwd2cc(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
+            const float* __restrict__ gr, const float* __restrict__ gi,
+            float* __restrict__ pb, Tables tb, int npolf, int store,
+            int npart, int R1, int R2) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float2 sm[];
+  const int CR = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int T = R2 / P;
+  const int j = threadIdx.x;
+  const int a = blockIdx.x - rank;  // the cluster's first row
+  const int w = blockIdx.y;
+  const int c = blockIdx.z / npolf;
+  const int q = blockIdx.z - c * npolf;
+  const float2* src =
+      cbuf + (((long long)blockIdx.z * npart + w) * R1 + blockIdx.x) * R2;
+  float2 v[P];
+  auto load = [&](int, float2(&x)[P]) {
+#pragma unroll
+    for (int ii = 0; ii < P; ++ii) x[ii] = src[j + T * ii];
+  };
+  // this CTA's row a + rank in natural order after
+  fft_seqs<P, 1, -1, false>(v, load, sm, 0, j, R2, __ffs(R2) - 1, tb.row);
+  cluster.sync();
+
+  const long long n = (long long)R1 * R2;
+  const bool keep = (store >> q) & 1;
+  const int nstore = (store & 1) + (store >> 1);
+  const int slot = (q == 1 && (store & 1)) ? 1 : 0;
+  float2* y = ybuf + ((long long)(c * nstore + slot) * npart + w) * n;
+  float* pbc = pb ? pb + ((long long)c * npolf + q) * n : nullptr;
+  const float* grc = gr + (long long)c * n;
+  const float* gic = gi + (long long)c * n;
+  const int lg = __ffs(CR) - 1;
+  const int half = R2 / 2;
+  const int k2lo = rank * (R2 / CR);
+  // consecutive threads on consecutive k1 (runs of CR bins), each read
+  // from the CTA of that row: item t = threadIdx.x + T * ii (R2 = P * T
+  // items), all P remote reads issued before the first is used
+  float2 x[P];
+  int k[P];  // bins of the window: N <= 2^23
+#pragma unroll
+  for (int ii = 0; ii < P; ++ii) {
+    const int t = threadIdx.x + T * ii;
+    const int r = t & (CR - 1);
+    const int k2 = k2lo + (t >> lg);
+    x[ii] = cluster.map_shared_rank(sm, r)[sidx(k2)];
+    k[ii] = ((k2 + half) & (R2 - 1)) * R1 + a + r;
+  }
+#pragma unroll
+  for (int ii = 0; ii < P; ++ii) {
+    if (pbc) atomicAdd(pbc + k[ii], x[ii].x * x[ii].x + x[ii].y * x[ii].y);
+    if (keep)
+      y[k[ii]] = cmul(x[ii], make_float2(__ldg(grc + k[ii]), __ldg(gic + k[ii])));
+  }
+  cluster.sync();
+}
+
 enum Det { kDetOne = 0, kDetSum = 1, kDetPPQQ = 2, kDetCoh = 3, kDetStokes = 4 };
 
 // Detected planes of one output sample from the (1/freq_res-scaled) voltages
@@ -1229,6 +1704,7 @@ enum Pass {
   kInvBGlobal = 5,  // the fold's pass B with global atomics
   kRowFft = 6,      // mega_rowfft
   kRowPair = 7,     // mega_rowpair
+  kFwd2Cluster = 8, // mega_fwd2cc, one row a CTA (`tile` CTAs a cluster)
 };
 
 // Columns of a mega_rowpair tile.
@@ -1265,21 +1741,11 @@ int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
       return kind ? row_len / kRowPoints : seq_ld(row_len) * F2;
     case kRowPair:
       return kind ? kPairRows * pair_cols(R2) : 0;
+    case kFwd2Cluster:
+      return kind ? R2 / fft_points(R2) : seq_ld(R2) * F2;
     default:
       return -1;
   }
-}
-
-// Set a kernel's dynamic shared-memory limit and launch it (grid, threads
-// and shared memory from the caller) on `stream`.
-template <class K, class... A>
-cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
-                   cudaStream_t stream, A... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 // The mega_inva instance for length q of R2 and the Jones mix (J) or not
@@ -1325,6 +1791,7 @@ decltype(&mega_polpow<kCode8>) polpow_kernel(int code) {
     case kCode4: return &mega_polpow<kCode4>;
     case kCodeJA98: return &mega_polpow<kCodeJA98>;
     case kCodeF32: return &mega_polpow<kCodeF32>;
+    case kCodeJA98W: return &mega_polpow<kCodeJA98W>;
     default: return &mega_polpow<kCode8>;
   }
 }
@@ -1342,31 +1809,68 @@ decltype(&mega_fwd1<P, LAYOUT, kCode8>) fwd1_kernel(int code) {
       case kCode4: return &mega_fwd1<P, LAYOUT, kCode4>;
       case kCodeJA98: return &mega_fwd1<P, LAYOUT, kCodeJA98>;
       case kCodeF32: return &mega_fwd1<P, LAYOUT, kCodeF32>;
+      case kCodeJA98W: return &mega_fwd1<P, LAYOUT, kCodeJA98W>;
       default: return &mega_fwd1<P, LAYOUT, kCode8>;
     }
   }
 }
 
-// The forward half on the caller's stream: raw codes -> (psum) -> cbuf
-// float2[nchan * nseq, npart, R1, row_len] (nseq 1 for real input, npolf
-// for complex) -> ybuf float2[nchan*nstore, npart, R1*R2], the chirped
-// spectrum of each pol in `store` (bit 0 the first transformed pol, bit 1
-// the second; nstore of them) in natural bin order (centred for complex
-// input).  psum is float[nchan, npart, 2]; tw is the wrapper's table buffer
-// (Tables); pb, when not null, gets the passband float[nchan, npolf, R1*R2]
-// (zeroed here).  layout is a Layout (row_len = R2 for kComplexTfp), code
-// a Code; for JA98 codes the pre-pass runs first and writes u.nlow, wblk
+// Launch a kernel as clusters of `cluster` CTAs along x (grid, threads
+// and shared memory from the caller) on `stream`.
+template <class... KP, class... A>
+cudaError_t launch_cluster(void (*kernel)(KP...), dim3 grid, int threads,
+                           int smem, int cluster, cudaStream_t stream,
+                           A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// The forward half on the caller's stream: raw codes -> (the
+// channel-transposed copy ftp) -> (psum) -> cbuf float2[nchan * nseq,
+// npart, R1, row_len] (nseq 1 for real input, npolf for complex) -> ybuf
+// float2[nchan*nstore, npart, R1*R2], the chirped spectrum of each pol in
+// `store` (bit 0 the first transformed pol, bit 1 the second; nstore of
+// them) in natural bin order (centred for complex input).  psum is
+// float[nchan, npart, 2]; tw is the wrapper's table buffer (Tables); pb,
+// when not null, gets the passband float[nchan, npolf, R1*R2] (zeroed
+// here).  layout is a Layout (row_len = R2 for kComplexTfp), code a Code;
+// for JA98 codes the pre-pass runs first and writes u.nlow, wblk
 // float[nchan, nweights] and the window weights wwin float[nchan, npart].
+// ftp is the copy's buffer (nchan streams of ftp_stride(T) samples, a
+// unit of npd codes in whole bytes or, where they fill less than one, a
+// byte a code: kernels/megastep.py::ftp_nbytes) exactly when nchan > 1
+// (TFP; CASPSR is one channel), else null.  For complex input tk is the
+// rows of a mega_fwd2c tile, or from R2 = kClusterR2 the CTAs of a
+// mega_fwd2cc cluster.
 cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            const void* tw, void* psum, void* cbuf, void* ybuf,
-                           void* pb, int nchan, int npol, int pol0, int npolf,
-                           int store, int npart, int R1, int R2, int M,
-                           int code, const Unpack& u, void* wblk, void* wwin,
-                           int nsamp_step, int tc, int tk, int layout,
-                           cudaStream_t stream) {
+                           void* pb, void* ftp, int nchan, int npol, int pol0,
+                           int npolf, int store, int npart, int R1, int R2,
+                           int M, int code, const Unpack& u, void* wblk,
+                           void* wwin, int nsamp_step, int tc, int tk,
+                           int layout, cudaStream_t stream) {
   const bool cplx = layout == kComplexTfp;
   const int row_len = cplx ? R2 : 2 * R2;
   const int two_n = R1 * row_len;
+  const int npd = npol * (cplx ? 2 : 1);
+  const long long T = (long long)(npart - 1) * nsamp_step + two_n;
+  const long long tp = ftp_stride(T);
   const Tables tb = tables(tw, R1, row_len, M);
   cudaError_t err;
   if (tc > kMaxCols) return cudaErrorInvalidValue;
@@ -1374,12 +1878,35 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     return cudaErrorInvalidValue;
   if (layout < kRealTfp || layout > kComplexTfp) return cudaErrorInvalidValue;
   if (code < kCode8 || code > kCodeF32 ||
-      (layout == kRealCaspsr && code != kCode8))
+      (layout == kRealCaspsr && (code != kCode8 || nchan != 1)))
     return cudaErrorInvalidValue;
+  if ((ftp != nullptr) != (nchan > 1)) return cudaErrorInvalidValue;
+  // mega_fwd1's JA98 level table (16 bytes a row and npw-sample block of
+  // its tile) lives in its exchange area
   if (code == kCodeJA98 &&
-      (err = launch_ja98(raw, u, wblk, wwin, nchan, npol, cplx ? 2 : 1, npart,
-                         nsamp_step, two_n, stream)) != cudaSuccess)
+      16 * R1 * (tc > (1 << u.lg_npw) ? tc >> u.lg_npw : 1) >
+          pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx, 0))
+    return cudaErrorInvalidValue;
+  if (cplx && R2 >= kClusterR2 &&
+      (tk < 1 || tk > kClusterRows || (tk & (tk - 1)) || R1 % tk))
+    return cudaErrorInvalidValue;
+  // what mega_polpow and mega_fwd1 read: channel c's one-channel stream at
+  // code c * cs of src, codes of kind kcode (sub-byte units widened)
+  const uint8_t* src = (const uint8_t*)(ftp ? ftp : raw);
+  const long long cs = tp * npd;
+  int kcode = code;
+  if (ftp && npd * code_bits(code) < 8)
+    kcode = code == kCodeJA98 ? kCodeJA98W : kCode8;
+  if (code == kCodeJA98) {
+    if ((err = launch_ja98(raw, u, wblk, wwin, nchan, npol, cplx ? 2 : 1,
+                           npart, nsamp_step, two_n, ftp, tp, stream)) !=
+        cudaSuccess)
+      return err;
+  } else if (ftp &&
+             (err = launch_ftp(raw, ftp, T, nchan, npd, code_bits(code),
+                               u.twos, tp, stream)) != cudaSuccess) {
     return err;
+  }
   if (pb && (err = cudaMemsetAsync(
                  pb, 0, (size_t)nchan * npolf * R1 * R2 * sizeof(float),
                  stream)) != cudaSuccess)
@@ -1389,28 +1916,35 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                                stream)) != cudaSuccess)
       return err;
     const int chunks = two_n >= 8192 ? two_n / 8192 : 1;
-    const auto polpow = polpow_kernel(code);
+    const auto polpow = polpow_kernel(kcode);
     polpow<<<dim3(chunks, npart, nchan), kThreads, 0, stream>>>(
-        (const uint8_t*)raw, (float*)psum, nchan, npol, npart, nsamp_step,
-        two_n, u, layout == kRealCaspsr);
+        src, (float*)psum, cs, npol, npart, nsamp_step, two_n, u,
+        layout == kRealCaspsr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  auto fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealTfp>(code)
-                       : fwd1_kernel<8, kRealTfp>(code);
+  auto fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealTfp>(kcode)
+                       : fwd1_kernel<8, kRealTfp>(kcode);
   if (cplx)
-    fwd1 = R1 >= 16 ? fwd1_kernel<16, kComplexTfp>(code)
-                    : fwd1_kernel<8, kComplexTfp>(code);
+    fwd1 = R1 >= 16 ? fwd1_kernel<16, kComplexTfp>(kcode)
+                    : fwd1_kernel<8, kComplexTfp>(kcode);
   else if (layout == kRealCaspsr)
-    fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealCaspsr>(code)
-                    : fwd1_kernel<8, kRealCaspsr>(code);
+    fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealCaspsr>(kcode)
+                    : fwd1_kernel<8, kRealCaspsr>(kcode);
   const int nseq = cplx ? npolf : 1;
   const int smem1 = pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx, 0);
-  if ((err = launch(fwd1, dim3(row_len / tc, npart, nchan * nseq),
+  if ((err = launch(fwd1, dim3(nchan * nseq, row_len / tc, npart),
                     pass_resources(1, kFwd1, R1, row_len, M, 0, tc, cplx, 0),
-                    smem1, stream, (const uint8_t*)raw, (float2*)cbuf,
-                    (const float*)psum, tb, nchan, npol, pol0, npolf, npart,
-                    R1, row_len, nsamp_step, tc, u)) != cudaSuccess)
+                    smem1, stream, src, (float2*)cbuf, (const float*)psum,
+                    tb, cs, npol, pol0, npolf, npart, R1, row_len,
+                    nsamp_step, tc, u)) != cudaSuccess)
     return err;
+  if (cplx && R2 >= kClusterR2)
+    return launch_cluster(
+        &mega_fwd2cc<16>, dim3(R1, npart, nchan * npolf),
+        pass_resources(1, kFwd2Cluster, R1, row_len, M, 0, tk, 1, 0),
+        pass_resources(0, kFwd2Cluster, R1, row_len, M, 0, tk, 1, 0), tk,
+        stream, (const float2*)cbuf, (float2*)ybuf, (const float*)gr,
+        (const float*)gi, (float*)pb, tb, npolf, store, npart, R1, R2);
   const int threads2 = pass_resources(1, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
   const int smem2 = pass_resources(0, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
   if (cplx) {

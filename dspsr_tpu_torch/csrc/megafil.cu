@@ -283,13 +283,14 @@ static cudaError_t launch_multipass(
 // null or float[nchan, npolf, R1*R2].  ta > 0 runs the multi-pass inverse
 // (tiles ta, tb; tw2 the table buffer of (R1, q, M); cbuf is its zbuf),
 // else the one-CTA inverse; tk == 0 (real input) runs the long row pass
-// in place of mega_fwd2.  code, window, levels, nlow, wblk and wwin are
-// megastep_launch's; wwin gets the JA98 window weights.
+// in place of mega_fwd2.  code, window, levels, nlow, wblk, wwin, ftp and
+// the cluster form of tk are megastep_launch's; wwin gets the JA98 window
+// weights.
 int megafil_launch(const void* raw, const void* gr, const void* gi,
                    const void* tw, const void* tw2, const void* jones,
                    void* out, void* psum, void* cbuf, void* ybuf, void* pb,
                    const void* window, const void* levels, void* nlow,
-                   void* wblk, void* wwin,
+                   void* wblk, void* wwin, void* ftp,
                    int nchan, int npol, int pol0, int npolf, int store,
                    int nout, int jpol0, int npart, int R1, int R2, int nsub,
                    int M, int nfilt_pos, int nkeep, int nplane, int det,
@@ -316,7 +317,7 @@ int megafil_launch(const void* raw, const void* gr, const void* gi,
   if (ta == 0 && (err = cudaFuncSetAttribute(inv,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem3)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, pb, nchan,
+  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, pb, ftp, nchan,
                             npol, pol0, npolf, store, npart, R1, R2, M, code,
                             u, wblk, wwin, nsamp_step, tc, tk, layout,
                             stream)) != cudaSuccess)

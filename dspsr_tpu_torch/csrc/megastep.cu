@@ -352,9 +352,12 @@ int megastep_resources(int kind, int which, int R1, int row_len, int M,
 // each), and nlow uint16[nchan*npol*ndim, nweights], wblk float[nchan,
 // nweights] and wwin float[nchan, npart] are the pre-pass's scratch
 // (nweights = samples a block / npw).  wext is null or the caller's window
-// weights float[nchan, npart], which multiply the JA98 ones.  Output
-// samples g of the block fold only when lo <= g < hi.  tk == 0 (real
-// input) runs the long row pass in place of mega_fwd2; ta > 0 runs the
+// weights float[nchan, npart], which multiply the JA98 ones.  ftp is the
+// channel-transposed copy of the codes when nchan > 1, else null (see
+// launch_forward).  Output samples g of the block fold
+// only when lo <= g < hi.  tk == 0 (real input) runs the long row pass in
+// place of mega_fwd2; for complex input from R2 = kClusterR2 tk is the
+// CTAs of a mega_fwd2cc cluster; ta > 0 runs the
 // multi-pass inverse (tiles ta and tb <= q, tw2 the table buffer of (R1, q,
 // M), cbuf its zbuf) with the fold in pass B, by global atomics when gfold,
 // else the one-CTA mega_invfold.
@@ -365,7 +368,8 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
                     void* psum, void* cbuf, void* ybuf, void* pacc,
                     void* hacc, const void* wext,
                     const void* window, const void* levels, void* nlow,
-                    void* wblk, void* wwin, int nchan, int npol, int pol0,
+                    void* wblk, void* wwin, void* ftp, int nchan, int npol,
+                    int pol0,
                     int npolf, int npart, int R1, int R2, int nsub, int M,
                     int nfilt_pos, int nkeep, int nbin, int nplane, int det,
                     int fourth, int twos, float scale, float offset,
@@ -386,7 +390,7 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
     return (int)err;
   if ((err = cudaMemsetAsync(hacc, 0, nhits * sizeof(float), stream)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr,
+  if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr, ftp,
                             nchan, npol, pol0, npolf, npolf == 2 ? 3 : 1,
                             npart, R1, R2, M, code, u, wblk, wwin,
                             nsamp_step, tc, tk, layout,
@@ -439,7 +443,8 @@ int megastep_ja98(const void* raw, const void* levels, void* nlow, void* wblk,
       0, 1.f, 0.f, nullptr, levels, nlow, npw,
       (long long)(npart - 1) * nsamp_step + nsamp_fft);
   return (int)launch_ja98(raw, u, wblk, wwin, nchan, npol, ndim, npart,
-                          nsamp_step, nsamp_fft, (cudaStream_t)stream_ptr);
+                          nsamp_step, nsamp_fft, nullptr, 0,
+                          (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

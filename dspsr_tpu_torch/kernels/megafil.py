@@ -31,13 +31,13 @@ from ..ops.megakernel import (
 from . import build
 from .megastep import (
     FWD1, INV, INVA, INVA_COLS, INVB, cbuf_seqs, check_resources,
-    check_tensor, code_kind, device_tables, fits, forward_tiles, layout_code,
-    multipass_tiles, smem_limit, step_passes, unpack_operands)
+    check_tensor, code_kind, device_tables, fits, forward_tiles, ftp_buffer,
+    layout_code, multipass_tiles, smem_limit, step_passes, unpack_operands)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 16 + [_i] * 19 + [_f, _f] + [_i] * 8 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 17 + [_i] * 19 + [_f, _f] + [_i] * 8 + [_c]
 
 #: largest tiles of the multi-pass inverse: columns k1 of ``mega_inva``
 #: (times every subband that fits), rows of ``megafil_invb``
@@ -133,7 +133,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     tc, tk = forward_tiles(res, p, limit, row_pass)
     ta, tb = inverse_passes(res, p, limit, inverse)
     inv = ((INVA, ta), (INVB, tb)) if ta else ((INV, 0),)
-    check_resources(res, p, ((FWD1, tc),) + step_passes(tk, inv), limit)
+    check_resources(res, p, ((FWD1, tc),) + step_passes(p, tk, inv), limit)
 
     if voltage:
         out = torch.empty((nchan * p.nsub, p.npol, npart * p.nkeep),
@@ -153,6 +153,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                         p.n_fft, 2), dtype=f32, device=dev)
     pb = (torch.empty((nchan, npolf, p.n_fft), dtype=f32, device=dev)
           if passband else None)
+    ftp = ftp_buffer(p, npart, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.megafil_launch(
@@ -160,7 +161,8 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
             tw2.data_ptr(), None if jones is None else jones.data_ptr(),
             out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
             ybuf.data_ptr(), None if pb is None else pb.data_ptr(),
-            *unpack_ptrs, nchan, p.npol, fwd[0], npolf, store, nout,
+            *unpack_ptrs, None if ftp is None else ftp.data_ptr(), nchan,
+            p.npol, fwd[0], npolf, store, nout,
             pols[0] if jones is not None else 0, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nplane, detection_code(p),
             int(voltage), int(voltage_sign_flips(p)),

@@ -1,18 +1,21 @@
 """Wrapper of the hand-written CUDA fused fold step (``csrc/megastep.cu``).
 
 Replaces ``dspsr_tpu/ops/megakernel.py::build_megastep`` (the Pallas
-kernel) and, for JA98 2-bit input, the nlow counts, level tables and window
-weights its XLA pre-stage computed (``_prepare_input``).  The source note
-in ``csrc/megastep.cu`` says what bounds it and how it is laid out.  This
+kernel) and what its XLA pre-stage (``_prepare_input``) computed: for JA98
+2-bit input the nlow counts, level tables and window weights, and for
+multi-channel TFP input the channel transpose (the pre-pass ``mega_ftp``,
+into a copy this wrapper allocates, ``ftp_buffer``).  The source note in
+``csrc/megastep.cu`` says what bounds it and how it is laid out.  This
 wrapper checks every operand, chooses each pass from the geometry and the
 card's limits (``forward_tiles``, ``fold_passes``: the multi-pass inverse
-past one CTA, the long row pass at R2 = 8192; these choosers serve
-``kernels.megafil`` too), allocates the outputs and scratch with
-``torch.empty``, builds the plan's twiddle tables once (``twiddle_tables``,
-plain numpy, cached on the device), launches the kernels on the current
-stream through the library's C entry point, raises on any CUDA error, and
-counts the launch (``megastep``, and ``mega_ja98`` for the JA98 pre-pass).
-It never falls back to the plain version.
+past one CTA, the long row pass at R2 = 8192, the clustered complex row
+pass from ``CLUSTER_R2``; these choosers serve ``kernels.megafil`` too),
+allocates the outputs and scratch with ``torch.empty``, builds the plan's
+twiddle tables once (``twiddle_tables``, plain numpy, cached on the
+device), launches the kernels on the current stream through the library's
+C entry point, raises on any CUDA error, and counts the launch
+(``megastep``, and ``mega_ja98`` for the JA98 pre-pass).  It never falls
+back to the plain version.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from . import build
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 22 + [_i] * 16 + [_f, _f] + [_i] * 11 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 23 + [_i] * 16 + [_f, _f] + [_i] * 11 + [_c]
 _JA98_ARGTYPES = [_c] * 5 + [_i] * 7 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
@@ -42,8 +45,18 @@ TILE_CAPS = (8, 4, 8)
 #: the passes a resource query names (``Pass`` in ``csrc/mega_common.cuh``):
 #: the forward's two, the one-CTA inverse, the multi-pass inverse's pass A
 #: and pass B (the fold's with its shared-memory profile, or with global
-#: atomics), and the long row pass's two kernels
-FWD1, FWD2, INV, INVA, INVB, INVB_GLOBAL, ROWFFT, ROWPAIR = range(8)
+#: atomics), the long row pass's two kernels, and the complex row pass as
+#: thread-block clusters (``mega_fwd2cc``, one row a CTA)
+(FWD1, FWD2, INV, INVA, INVB, INVB_GLOBAL, ROWFFT, ROWPAIR,
+ FWD2_CLUSTER) = range(9)
+#: complex input from this R2 (``kClusterR2``), where a ``mega_fwd2c`` tile
+#: holds fewer than 4 rows, runs ``mega_fwd2cc`` in clusters of
+#: ``CLUSTER_ROWS`` CTAs (``kClusterRows``; fewer when R1 is smaller)
+CLUSTER_R2 = 4096
+CLUSTER_ROWS = 4
+#: time samples of a channel stream in the pre-pass's copy are rounded up
+#: to a multiple of this (``kFtpAlign``)
+FTP_ALIGN = 16
 #: k1 columns of a pass-A tile at most (``kInvaCols``); the tile then takes
 #: as many subbands as fit
 INVA_COLS = 8
@@ -175,7 +188,9 @@ def forward_tiles(res, plan: MegaPlan, limit: int,
     two up to ``TILE_CAPS`` (and row_len; R1/2 pairs or R1 rows) that fit
     (``fitting_tile``).  The second is 0 for the long row pass
     (``mega_rowfft``, ``mega_rowpair``): real input whose row pair fits no
-    CTA (R2 = 8192), or any real input with ``row_pass="long"``."""
+    CTA (R2 = 8192), or any real input with ``row_pass="long"``; for
+    complex input from ``CLUSTER_R2`` it is the CTAs of a ``mega_fwd2cc``
+    cluster: ``CLUSTER_ROWS``, or R1 when that is smaller."""
     if row_pass not in ("auto", "long"):
         raise ValueError(f"unknown row pass: {row_pass}")
     tc = fitting_tile(res, FWD1, min(TILE_CAPS[0], plan.row_len), limit)
@@ -189,7 +204,31 @@ def forward_tiles(res, plan: MegaPlan, limit: int,
                                 limit)
     if row_pass == "long":
         raise ValueError("the long row pass is for real input")
+    if plan.R2 >= CLUSTER_R2:
+        return tc, min(CLUSTER_ROWS, plan.R1)
     return tc, fitting_tile(res, FWD2, min(TILE_CAPS[2], plan.R1), limit)
+
+
+def ftp_nbytes(plan: MegaPlan, npart: int) -> int:
+    """Bytes of the pre-pass's channel-transposed copy of one block (the
+    ``ftp`` of ``launch_forward`` in ``csrc/mega_common.cuh``): 0 for one
+    input channel
+    (and the CASPSR layout), else nchan_in streams of block_ndat rounded up
+    to ``FTP_ALIGN`` samples, each sample's npol*ndim codes in whole bytes,
+    or a byte a code where they fill less than one."""
+    p = plan
+    if p.nchan_in == 1:
+        return 0
+    npd = p.npol * p.ndim
+    tp = -(-p.block_ndat(npart) // FTP_ALIGN) * FTP_ALIGN
+    bits = npd * p.nbit
+    return p.nchan_in * tp * (npd if bits < 8 else bits // 8)
+
+
+def ftp_buffer(plan: MegaPlan, npart: int, dev: torch.device):
+    """The copy's scratch (``torch.empty``), or None for one channel."""
+    n = ftp_nbytes(plan, npart)
+    return torch.empty(n, dtype=torch.uint8, device=dev) if n else None
 
 
 def fits(res, which: int, tile: int, limit: int) -> bool:
@@ -328,11 +367,17 @@ def check_resources(res, plan: MegaPlan, passes, limit: int) -> None:
                 f"card's {limit} B or {MAX_THREADS} threads")
 
 
-def step_passes(tk: int, inverse_tiles) -> tuple:
-    """The ``(which, tile)`` pairs a step launches: ``mega_fwd1`` at its
-    tile, the row pass (``mega_fwd2``/``mega_fwd2c`` at ``tk``, or the long
-    row pass when ``tk`` is 0), then ``inverse_tiles``."""
-    rows = ((ROWFFT, 0), (ROWPAIR, 0)) if tk == 0 else ((FWD2, tk),)
+def step_passes(plan: MegaPlan, tk: int, inverse_tiles) -> tuple:
+    """The ``(which, tile)`` pairs a step launches after ``mega_fwd1``:
+    the row pass (``mega_fwd2``/``mega_fwd2c`` at ``tk``, the long row pass
+    when ``tk`` is 0, ``mega_fwd2cc`` in clusters of ``tk`` for complex
+    input from ``CLUSTER_R2``), then ``inverse_tiles``."""
+    if tk == 0:
+        rows = ((ROWFFT, 0), (ROWPAIR, 0))
+    elif not plan.real_input and plan.R2 >= CLUSTER_R2:
+        rows = ((FWD2_CLUSTER, tk),)
+    else:
+        rows = ((FWD2, tk),)
     return rows + tuple(inverse_tiles)
 
 
@@ -386,7 +431,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     ta, tb, gfold = fold_passes(res, p, limit, inverse)
     inv = (((INVA, ta), (INVB_GLOBAL if gfold else INVB, tb)) if ta
            else ((INV, 0),))
-    check_resources(res, p, ((FWD1, tc),) + step_passes(tk, inv), limit)
+    check_resources(res, p, ((FWD1, tc),) + step_passes(p, tk, inv), limit)
 
     prof_out = torch.empty_like(profiles)
     hits_out = torch.empty_like(hits)
@@ -402,6 +447,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                        device=dev)
     pacc = torch.empty_like(profiles)
     hacc = torch.empty_like(hits)
+    ftp = ftp_buffer(p, npart, dev)
     lo, hi = bounds_pair(bounds)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -412,6 +458,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
             hits_out.data_ptr(), psum.data_ptr(), cbuf.data_ptr(),
             ybuf.data_ptr(), pacc.data_ptr(), hacc.data_ptr(),
             None if weights is None else weights.data_ptr(), *unpack_ptrs,
+            None if ftp is None else ftp.data_ptr(),
             nchan, p.npol, pols[0], npolf, npart, p.R1, p.R2, p.nsub,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),

@@ -11,9 +11,12 @@ complex sequence with the power-of-two scale of pol b, the row pairs
 {k1, R1 - k1} with the self-paired rows 0 and R1/2, the partner columns and
 the separation, the tile walk, the CASPSR byte index, the complex forward
 half (one sequence per pol, the twiddle divisor N, one row a slot, the
-centred store index), and the wrapper's twiddle-table layout
-(``kernels.megastep.twiddle_tables``, built here in float64 so that the
-mirror can be held to 1e-12).
+centred store index; from R2 = 4096 the cluster's rank and k2 slice), the
+channel-transposing pre-pass of multi-channel TFP input (``mega_ftp``,
+``mega_ftpw``, and ``mega_ja98``'s stores: the tile walk, the widening of
+sub-byte units, the one-channel addressing of the copy), and the wrapper's
+twiddle-table layout (``kernels.megastep.twiddle_tables``, built here in
+float64 so that the mirror can be held to 1e-12).
 """
 
 import dataclasses
@@ -26,7 +29,8 @@ from dspsr_tpu.ops import megakernel as jmk
 from dspsr_tpu.ops.filterbank import FilterbankPlan
 
 from dspsr_tpu_torch.kernels.megastep import (
-    TILE_CAPS, fft_pass_bits, twiddle_tables)
+    CLUSTER_R2, CLUSTER_ROWS, FTP_ALIGN, TILE_CAPS, fft_pass_bits,
+    ftp_nbytes, twiddle_tables)
 from dspsr_tpu_torch.ops import megakernel as tmk
 
 torch.set_num_threads(2)
@@ -139,6 +143,10 @@ class Geom:
     offset: float = -127.5
     cplx: bool = False  # complex (analytic) input: 2 bytes a pol sample
     caspsr: bool = False  # real input in the CASPSR byte layout
+    nbit: int = 8  # bits a code (32: float32 samples)
+    npw: int = 0  # JA98 2-bit codes: samples of a level block
+    levels: object = None  # JA98: the lo and hi tables [2, npw + 1]
+    nlow: object = None  # JA98: low-state counts [nchan*npol*ndim, blocks]
 
     @property
     def row_len(self):
@@ -186,6 +194,143 @@ def values(g, raw, pol):
     return x.T
 
 
+# ---- the channel-transposing pre-pass (launch_forward's copy) ----
+
+def ftp_layout(g):
+    """``(T, tp, npd, bits)``: samples a block, samples between two channel
+    streams of the copy (T rounded up to FTP_ALIGN), codes and bits of a
+    channel's unit."""
+    T = g.ndat()
+    npd = g.npol * (2 if g.cplx else 1)
+    return T, -(-T // FTP_ALIGN) * FTP_ALIGN, npd, npd * g.nbit
+
+
+def ftp_ld(seg):
+    return ((seg + 15) & ~15) + 16
+
+
+def ftp_items(cc, nv):
+    """``ftp_item``: thread item i -> (channel, 16-byte vector); lane pairs
+    take the two halves of a sector, consecutive pairs consecutive
+    channels."""
+    i = np.arange(cc * 2 * ((nv + 1) // 2))
+    c, v = (i >> 1) % cc, 2 * ((i >> 1) // cc) + (i & 1)
+    return c[v < nv], v[v < nv]
+
+
+def store_units(tile, E, out, writes, tp, t0, c0):
+    """``store_units<E>``: tile [tt, cc*E] (rows t0.., channels c0..) to the
+    copy, 16 bytes (16/E samples of one channel) an item."""
+    tt, cc = tile.shape[0], tile.shape[1] // E
+    per = 16 // E
+    for c, v in zip(*ftp_items(cc, -(-tt // per))):
+        r0 = v * per
+        n = min(per, tt - r0)
+        dst = ((c0 + c) * tp + t0 + r0) * E
+        out[dst:dst + n * E] = tile[r0:r0 + n, c * E:(c + 1) * E].ravel()
+        writes[dst:dst + n * E] += 1
+
+
+def store_widened(span, nbit, nchan, npd, twos, out, writes, tp, t0, tt):
+    """``store_widened<NBIT>``: rows t0 .. t0+tt-1 of every channel as one
+    span of codes; each code to a byte (two's complement sign-extended)."""
+    nb = tt * npd
+    for c, v in zip(*ftp_items(nchan, -(-nb // 16))):
+        o = 16 * v + np.arange(min(16, nb - 16 * v))
+        r = o // npd
+        f = code_field(span, (r * nchan + c) * npd + o - r * npd, nbit)
+        if twos:
+            f = np.where(f >= 1 << (nbit - 1), f - (1 << nbit), f)
+        dst = (c * tp + t0) * npd + o
+        out[dst] = f.astype(np.int64) & 0xFF
+        writes[dst] += 1
+
+
+def ftp_copy(g, raw):
+    """The pre-pass's copy of a TFP block with nchan > 1 (``mega_ftp``,
+    ``mega_ftpw``, or for JA98 ``mega_ja98``'s chunk stores), over the
+    tiles ``launch_ftp``/``launch_ja98`` choose; returns the copy and how
+    often each byte of it was written."""
+    T, tp, npd, bits = ftp_layout(g)
+    widen = bits < 8
+    ub = npd if widen else bits // 8
+    out = np.zeros(g.nchan * tp * ub, np.uint8)
+    writes = np.zeros(out.size, int)
+    rowbits = g.nchan * bits
+    if g.npw:  # mega_ja98: chunks of TT samples of each npw-sample block
+        TT = g.npw
+        while TT > 16 and TT * rowbits // 8 > 32768:
+            TT >>= 1
+    elif widen:
+        TT = 256
+        while TT > 8 and TT * rowbits > 8 * 32768:
+            TT >>= 1
+    if g.npw or widen:
+        for t0 in range(0, T, TT):
+            tt = min(TT, T - t0)
+            span = raw[t0 * rowbits // 8:(t0 * rowbits + tt * rowbits + 7) // 8]
+            if widen:
+                store_widened(span, g.nbit, g.nchan, npd,
+                              g.twos and not g.npw, out, writes, tp, t0, tt)
+            else:
+                store_units(span.reshape(tt, g.nchan), 1, out, writes, tp,
+                            t0, 0)
+        return out, writes
+    E = ub
+    CC = g.nchan if g.nchan * E <= 512 else 512 // E
+    TT = 256
+    while TT > 16 and TT * ftp_ld(CC * E) > 32768:
+        TT >>= 1
+    rows = raw.reshape(T, g.nchan * E)
+    for t0 in range(0, T, TT):
+        for c0 in range(0, g.nchan, CC):
+            cc = min(CC, g.nchan - c0)
+            store_units(rows[t0:t0 + TT, c0 * E:(c0 + cc) * E], E, out,
+                        writes, tp, t0, c0)
+    return out, writes
+
+
+def stream(g, raw):
+    """What ``mega_polpow`` and ``mega_fwd1`` read (``launch_forward``):
+    ``(bytes, cs, kind)``, the raw block or with nchan > 1 the pre-pass's
+    copy, channel c's one-channel TFP stream at code c*cs, its codes of
+    ``kind`` (the nbit, or "ja98", or "ja98w"/8 where the copy widened
+    sub-byte units to a byte a code)."""
+    kind = "ja98" if g.npw else g.nbit
+    if g.nchan == 1:
+        return raw, 0, kind
+    T, tp, npd, bits = ftp_layout(g)
+    if bits < 8:
+        kind = "ja98w" if g.npw else 8
+    return ftp_copy(g, raw)[0], tp * npd, kind
+
+
+def sample(g, st, t, c, pol, d=0):
+    """Float64 value of code d of (t, c, pol) as ``load_code`` reads it from
+    ``stream`` ``st`` (8-bit CASPSR bytes by ``byte_index``)."""
+    src, cs, kind = st
+    if g.caspsr:
+        codes = src.view(np.int8) if g.twos else src
+        return codes[byte_index(g, t, c, pol)] * g.scale + g.offset
+    ndim = 2 if g.cplx else 1
+    i = c * cs + (t * g.npol + pol) * ndim + d
+    dig = (c * g.npol + pol) * ndim + d
+    if kind == 32:
+        return src.view(np.float32)[i].astype(np.float64)
+    if kind == 8:
+        codes = src.view(np.int8) if g.twos else src
+        return codes[i] * g.scale + g.offset
+    if kind == "ja98w":
+        lo, hi = g.levels
+        code = src[i].astype(np.int64)
+        nl = g.nlow[dig, t >> (g.npw.bit_length() - 1)]
+        mag = np.where((code == 1) | (code == 2), lo[nl], hi[nl])
+        return np.where(code >= 2, mag, -mag)
+    return load_code(src, i, dig, t, 2 if kind == "ja98" else kind,
+                     kind == "ja98", g.twos, g.scale, g.offset, g.levels,
+                     g.nlow, g.npw.bit_length() - 1)
+
+
 def pol_exponent(ea, eb):
     if not (ea > 0 and eb > 0):
         return 0
@@ -194,10 +339,14 @@ def pol_exponent(ea, eb):
 
 
 def polpow(g, raw):
-    """``mega_polpow``: [nchan, npart, 2] energies of the two pols."""
+    """``mega_polpow``: [nchan, npart, 2] energies of the two pols, read
+    through ``stream``."""
+    st = stream(g, raw)
     out = np.zeros((g.nchan, g.npart, 2))
+    t = np.arange(g.ndat())[None, :]
+    c = np.arange(g.nchan)[:, None]
     for q in range(2):
-        x = values(g, raw, g.pols[0] + q)
+        x = sample(g, st, t, c, g.pols[0] + q)
         for w in range(g.npart):
             out[:, w, q] = (x[:, w * g.step:w * g.step + 2 * g.n] ** 2).sum(-1)
     return out
@@ -216,13 +365,12 @@ def fwd1(g, raw, tb, psum, tc):
     e = np.array([[pol_exponent(*psum[ci, wi]) if npolf == 2 else 0
                    for wi in range(g.npart)] for ci in range(g.nchan)])
     sb = np.ldexp(1.0, e)[None, :, :, None]
-    codes = raw.view(np.int8) if g.twos else raw
+    st = stream(g, raw)
     v = np.empty((P, T, g.nchan, g.npart, g.row_len), complex)
     for i in range(P):
         t = w * g.step + (j + T * i) * g.row_len + m
-        a = codes[byte_index(g, t, c, g.pols[0])] * g.scale + g.offset
-        b = (codes[byte_index(g, t, c, g.pols[0] + 1)] * g.scale
-             + g.offset) * sb if npolf == 2 else 0.0
+        a = sample(g, st, t, c, g.pols[0])
+        b = sample(g, st, t, c, g.pols[0] + 1) * sb if npolf == 2 else 0.0
         v[i] = a + 1j * b
     v = fft_regs(v, g.R1, -1, tb["r1"])
     cbuf = np.empty((g.nchan, g.npart, g.R1, g.row_len), complex)
@@ -330,13 +478,12 @@ def fwd1_complex(g, raw, tb, tc):
     q = np.arange(npolf)[None, None, :, None, None]
     w = np.arange(g.npart)[None, None, None, :, None]
     m = np.arange(g.row_len)[None, None, None, None, :]
-    codes = raw.view(np.int8) if g.twos else raw
+    st = stream(g, raw)
     v = np.empty((P, T, g.nchan, npolf, g.npart, g.row_len), complex)
     for i in range(P):
         t = w * g.step + (j + T * i) * g.row_len + m
-        off = byte_index(g, t, c, g.pols[0] + q)
-        v[i] = ((codes[off] * g.scale + g.offset)
-                + 1j * (codes[off + 1] * g.scale + g.offset))
+        v[i] = (sample(g, st, t, c, g.pols[0] + q, 0)
+                + 1j * sample(g, st, t, c, g.pols[0] + q, 1))
     v = fft_regs(v, g.R1, -1, tb["r1"])
     cbuf = np.empty((g.nchan, npolf, g.npart, g.R1, g.row_len), complex)
     mask = (1 << tb["log2n"]) - 1
@@ -351,12 +498,25 @@ def fwd1_complex(g, raw, tb, tc):
     return cbuf
 
 
+def cluster_slices(R2, cr):
+    """``mega_fwd2cc``'s store walk: for each rank of a cluster of ``cr``
+    one-row CTAs, thread item t -> (row r of the cluster, column k2): CTA
+    ``rank`` stores k2 in [rank*R2/cr, (rank+1)*R2/cr) of every row, runs of
+    cr consecutive rows."""
+    t = np.arange(R2)
+    lg = cr.bit_length() - 1
+    return [(t & (cr - 1), rank * (R2 // cr) + (t >> lg))
+            for rank in range(cr)]
+
+
 def fwd2_complex(g, cbuf, tb, chirp, tr, store=None, tap=False):
-    """``mega_fwd2c`` over every tile of ``tr`` rows: the length-R2 FFT of
-    each row, every column kept, bin k = k2*R1 + k1 stored at the centred
-    natural index ((k2 + R2/2) mod R2)*R1 + k1 of ybuf [nchan*nstore, npart,
-    N], where the chirp and the passband are read; also how often each
-    index was written and, with ``tap``, the passband [nchan, npolf, N]."""
+    """``mega_fwd2c`` over every tile of ``tr`` rows, or from R2 =
+    CLUSTER_R2 ``mega_fwd2cc`` over every cluster of ``tr`` one-row CTAs:
+    the length-R2 FFT of each row, every column kept, bin k = k2*R1 + k1
+    stored at the centred natural index ((k2 + R2/2) mod R2)*R1 + k1 of
+    ybuf [nchan*nstore, npart, N], where the chirp and the passband are
+    read; also how often each index was written and, with ``tap``, the
+    passband [nchan, npolf, N]."""
     R1, R2 = g.R1, g.R2
     P = fft_points(R2)
     T = R2 // P
@@ -379,20 +539,24 @@ def fwd2_complex(g, cbuf, tb, chirp, tr, store=None, tap=False):
         sm = np.empty((tr, R2, g.nchan, npolf, g.npart), complex)
         for ii in range(P):
             sm[:, j + T * ii] = v[ii].transpose(1, 0, 2, 3, 4)
-        t = np.arange(tr * R2)
-        k2, r = t >> lg, t & (tr - 1)
-        x = sm[r, k2]  # [tr*R2, nchan, npolf, npart]
-        k = ((k2 + R2 // 2) & (R2 - 1)) * R1 + a + r
-        np.add.at(writes, k, 1)
-        for c in range(g.nchan):
-            slot = c * nstore
-            for q in range(npolf):
-                if tap:
-                    pb[c, q, k] += (np.abs(x[:, c, q]) ** 2).sum(-1)
-                if store >> q & 1:
-                    # (slot, k) index first: [tr*R2, npart]
-                    ybuf[slot, :, k] = x[:, c, q] * chirp[c, k][:, None]
-                    slot += 1
+        if R2 >= CLUSTER_R2:
+            walk = cluster_slices(R2, tr)  # each rank's stores
+        else:
+            t = np.arange(tr * R2)
+            walk = [(t & (tr - 1), t >> lg)]
+        for r, k2 in walk:
+            x = sm[r, k2]  # [items, nchan, npolf, npart]
+            k = ((k2 + R2 // 2) & (R2 - 1)) * R1 + a + r
+            np.add.at(writes, k, 1)
+            for c in range(g.nchan):
+                slot = c * nstore
+                for q in range(npolf):
+                    if tap:
+                        pb[c, q, k] += (np.abs(x[:, c, q]) ** 2).sum(-1)
+                    if store >> q & 1:
+                        # (slot, k) index first: [items, npart]
+                        ybuf[slot, :, k] = x[:, c, q] * chirp[c, k][:, None]
+                        slot += 1
     return (ybuf, writes, pb) if tap else (ybuf, writes)
 
 
@@ -555,6 +719,18 @@ COMPLEX_CASES = [
     for tr, tc in ((1, 16), (min(TILE_CAPS[2], R1), TILE_CAPS[0]),
                    (min(2, R1), 4))
     if (nchan == 1 or npol == 2) and (tr == 1 or pols == (0, 1))
+] + [
+    # channels through the pre-pass's copy: 3 (no 16-byte multiple a row)
+    # and 32 (hybrid_conv32's 128-byte rows)
+    dict(R1=R1, R2=R2, npol=2, pols=(0, 1), nchan=nchan, tr=tr, tc=8)
+    for R1, R2 in ((8, 8), (16, 32)) for nchan in (3, 32)
+    for tr in (1, min(TILE_CAPS[2], R1))
+] + [
+    # long rows at R1 8: the row tile to 2048, clusters of 4 and 8 one-row
+    # CTAs from CLUSTER_R2
+    dict(R1=8, R2=R2, npol=2, pols=pols, nchan=1, tr=tr, tc=8)
+    for R2 in (2048, 4096, 8192) for tr in (4, 8)
+    for pols in ((0, 1), (1,))
 ]
 
 
@@ -609,12 +785,15 @@ NSUB, FREQ_RES, NPART = 4, 64, 3
 
 
 def _geom(plan, raw_kw=None):
-    """The mirror's geometry for a port plan."""
+    """The mirror's geometry for a port plan (JA98 levels and counts are
+    set by the caller)."""
     g = Geom(R1=plan.R1, R2=plan.R2, M=plan.freq_res, nchan=plan.nchan_in,
              npol=plan.npol, pols=tmk.fold_pols(plan), npart=NPART,
              step=plan.nsamp_step, twos=plan.twos_complement,
-             cplx=not plan.real_input, caspsr=plan.interleave == "caspsr")
-    g.scale, g.offset = tmk.unpack_affine(8, plan.twos_complement)
+             cplx=not plan.real_input, caspsr=plan.interleave == "caspsr",
+             nbit=plan.nbit, npw=plan.npw)
+    g.scale, g.offset = ((1.0, 0.0) if plan.npw else
+                         tmk.unpack_affine(plan.nbit, plan.twos_complement))
     return g
 
 
@@ -840,3 +1019,162 @@ def test_unpack_mirror_matches_plain(nbit, twos, real, ja98, nchan):
         assert np.array_equal((j + T * ii) * plan.row_len + m,
                               ts - w * plan.nsamp_step)
         assert ts.max() < T_
+
+
+# --------------------------------------------------------------------------
+# the channel-transposing pre-pass of multi-channel TFP input
+# --------------------------------------------------------------------------
+
+#: (nbit, twos, real, npol, ja98, nchan): every unit width the copy takes
+#: (whole bytes 1, 2, 4, 8, 16 a unit; 1, 2 and 4 bits widened), two's
+#: complement widened with its sign, JA98 stored whole and widened, odd
+#: channel counts, and 33 float32 dual-pol complex channels (two channel
+#: tiles of 512 and 16 bytes)
+FTP_CASES = [
+    (8, False, True, 2, False, 2), (8, True, True, 1, False, 3),
+    (8, False, False, 2, False, 3), (8, False, False, 2, False, 32),
+    (8, False, False, 1, False, 2), (4, False, True, 1, False, 3),
+    (4, True, True, 2, False, 2), (4, False, False, 2, False, 3),
+    (2, False, True, 2, False, 2), (2, True, True, 2, False, 3),
+    (2, False, False, 2, False, 2), (2, True, False, 1, False, 2),
+    (1, False, True, 1, False, 3), (1, False, False, 2, False, 2),
+    (2, False, False, 2, True, 2), (2, False, False, 2, True, 3),
+    (2, False, True, 2, True, 2), (2, False, False, 1, True, 3),
+    (32, False, True, 2, False, 2), (32, False, False, 2, False, 33),
+]
+
+
+def _ftp_case(nbit, twos, real, npol, ja98, nchan):
+    """Plan, mirror geometry (JA98 levels and counts set), constants and
+    one block of random bytes of an FTP_CASES entry at the test
+    geometry."""
+    npw = 16 if ja98 else 0
+    fb = FilterbankPlan(real_input=real, nchan_subband=NSUB,
+                        freq_res=FREQ_RES, nfilt_pos=5, nfilt_neg=6)
+    plan = tmk.MegaPlan(**dataclasses.asdict(jmk.MegaPlan.from_filterbank(
+        fb, nbin=2, npol=npol, nbit=nbit, nchan_in=nchan,
+        ndat_per_weight=npw, twos_complement=twos,
+        npol_out=2 if npol == 2 else 1)))
+    g = _geom(plan)
+    rng = np.random.default_rng(nbit * 100 + nchan * 10 + npol)
+    if nbit == 32:
+        raw = rng.normal(0, 20, plan.block_ndat(NPART) * nchan * npol
+                         * plan.ndim).astype(np.float32).view(np.uint8)
+    else:
+        raw = rng.integers(0, 256, tmk.raw_nbytes(plan, NPART),
+                           dtype=np.uint8)
+    cst = tmk.MegaConstants.build(plan, None, g.scale, g.offset).to("cpu")
+    if ja98:
+        ndig = nchan * npol * plan.ndim
+        g.nlow, _ = ja98_prepass(raw, ndig, npol * plan.ndim, npw,
+                                 g.ndat() // npw, cst.twobit[2].numpy())
+        g.levels = cst.twobit[:2].double().numpy()
+    return plan, g, cst, raw
+
+
+@pytest.mark.parametrize("nbit,twos,real,npol,ja98,nchan", FTP_CASES,
+                         ids=lambda v: str(v))
+def test_transposed_stream_matches_plain(nbit, twos, real, npol, ja98,
+                                         nchan):
+    """The pre-pass's copy (``mega_ftp``, ``mega_ftpw``, ``mega_ja98``'s
+    stores, over the tiles the launchers choose): every byte of each
+    channel's stream is written once and the padding to FTP_ALIGN samples
+    never; read with the one-channel addressing (code c*cs + (t*npol +
+    pol)*ndim + d, widened units as bytes), every code equals the port's
+    plain unpack of the TFP bytes; the copy's size is the wrapper's."""
+    plan, g, cst, raw = _ftp_case(nbit, twos, real, npol, ja98, nchan)
+    T, tp, npd, bits = ftp_layout(g)
+    copy, writes = ftp_copy(g, raw)
+    assert copy.size == ftp_nbytes(plan, NPART)
+    ub = copy.size // (nchan * tp)
+    per_chan = writes.reshape(nchan, tp, ub)
+    assert (per_chan[:, :T] == 1).all() and (per_chan[:, T:] == 0).all()
+    want, _ = tmk._unpack_plain(plan, cst, torch.from_numpy(raw), NPART,
+                                torch.float64)
+    st = stream(g, raw)
+    assert st[1] == tp * npd
+    assert st[2] == ("ja98w" if ja98 and bits < 8 else "ja98" if ja98
+                     else 8 if bits < 8 else nbit)
+    t = np.arange(T)[None, :]
+    c = np.arange(nchan)[:, None]
+    for pol in range(npol):
+        for d in range(plan.ndim):
+            got = sample(g, st, t, c, pol, d)
+            assert np.array_equal(got, want[:, pol, d].numpy()), (pol, d)
+
+
+@pytest.mark.parametrize("nbit,twos,real,npol,ja98,nchan", [
+    (2, False, False, 2, True, 3), (2, False, True, 2, True, 2),
+    (1, False, True, 2, False, 2), (4, True, False, 2, False, 3),
+    (2, True, True, 1, False, 2), (32, False, False, 2, False, 2),
+    (8, False, True, 2, False, 3)], ids=lambda v: str(v))
+def test_forward_mirror_through_copy(nbit, twos, real, npol, ja98, nchan):
+    """The forward half read through the pre-pass's copy (widened sub-byte
+    and JA98 units included): every bin of every transformed pol, window
+    and channel equals rfft (real) or fftshift(fft) (complex) of the plain
+    unpack's samples, times the chirp."""
+    plan, g, cst, raw = _ftp_case(nbit, twos, real, npol, ja98, nchan)
+    g.pols = tuple(range(npol))
+    g.npart = NPART
+    rng = np.random.default_rng(3)
+    chirp = np.exp(1j * rng.uniform(-3, 3, (nchan, g.n)))
+    ybuf, writes = mirror_forward(g, raw, chirp, _row_tile(plan))
+    assert (writes == 1).all() and np.isfinite(ybuf).all()
+    x, _ = tmk._unpack_plain(plan, cst, torch.from_numpy(raw), NPART,
+                             torch.float64)
+    x = x.numpy()
+    x = x[:, :, 0] + 1j * x[:, :, 1] if not real else x[:, :, 0]
+    for q in range(npol):
+        for w in range(NPART):
+            if real:
+                win = x[:, q, w * g.step:w * g.step + 2 * g.n]
+                want = np.fft.rfft(win, axis=-1)[:, :g.n] * chirp
+            else:
+                win = x[:, q, w * g.step:w * g.step + g.n]
+                want = np.fft.fftshift(np.fft.fft(win, axis=-1),
+                                       axes=-1) * chirp
+            got = ybuf[np.arange(nchan) * npol + q, w]
+            assert np.abs(got - want).max() / np.abs(want).max() < TOL
+
+
+@pytest.mark.parametrize("R2,cr", [(4096, 4), (4096, 8), (8192, 4),
+                                   (8192, 8), (8192, 2)])
+def test_cluster_store_walk(R2, cr):
+    """``mega_fwd2cc``'s stores: the cr ranks of a cluster together store
+    each of the cluster's cr rows' R2 columns once; each rank's slice is
+    R2/cr consecutive k2, and every warp of 32 threads stores runs of cr
+    consecutive rows (k1) at 32/cr columns."""
+    seen = np.zeros((cr, R2), int)
+    for rank, (r, k2) in enumerate(cluster_slices(R2, cr)):
+        np.add.at(seen, (r, k2), 1)
+        lo = rank * (R2 // cr)
+        assert k2.min() == lo and k2.max() == lo + R2 // cr - 1
+        for w in range(0, R2, 32):
+            assert (r[w:w + 32] == np.tile(np.arange(cr), 32 // cr)).all()
+            assert (np.diff(k2[w:w + 32:cr]) == 1).all()
+    assert (seen == 1).all()
+    assert CLUSTER_ROWS == 4 and CLUSTER_R2 == 4096
+
+
+@pytest.mark.parametrize("row_len,npw,S", [(256, 256, 8), (64, 16, 8),
+                                           (64, 4, 8), (32, 8, 8),
+                                           (128, 2, 4), (8, 8, 8)])
+def test_ja98_level_table_blocks(row_len, npw, S):
+    """``mega_fwd1``'s JA98 level table: entry (n1 << lgb) + (col >> lg_npw)
+    of the tile of columns m0 .. m0 + S - 1 holds the npw-sample block of
+    sample (w*step + n1*row_len + m0 + col), for every window, row, tile and
+    column; the table (16 bytes an entry) fits the tile's exchange area."""
+    R1, npart = 16, 3
+    step = row_len * 8
+    lg = npw.bit_length() - 1
+    lgb = (S.bit_length() - 1 - lg) if S > npw else 0
+    assert 16 * R1 * (1 << lgb) <= S * seq_ld(R1) * 8
+    for w in range(npart):
+        for m0 in range(0, row_len, S):
+            tw = w * step + m0
+            e = np.arange(R1 << lgb)
+            table = ((tw + (e >> lgb) * row_len) >> lg) + (e & ((1 << lgb) - 1))
+            n1, col = np.meshgrid(np.arange(R1), np.arange(S), indexing="ij")
+            got = table[(n1 << lgb) + (col >> lg)]
+            want = (w * step + n1 * row_len + m0 + col) >> lg
+            assert np.array_equal(got, want)

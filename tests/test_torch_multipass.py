@@ -91,6 +91,8 @@ def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
                 + (prof_bytes if which == kstep.INVB else 0))
     if which == kstep.ROWFFT:
         return row_len // 32 if kind else seq_ld(row_len) * 8
+    if which == kstep.FWD2_CLUSTER:
+        return R2 // fft_points(R2) if kind else seq_ld(R2) * 8
     assert which == kstep.ROWPAIR
     return 8 * min(32, R2) if kind else 0
 
@@ -155,6 +157,14 @@ def test_no_plan_is_refused(nsub, real):
                 res = step_res(plan, npolf)
                 tc, tk = kstep.forward_tiles(res, plan, LIMIT)
                 assert (tk == 0) == (real and plan.R2 == 8192)
+                if not real:
+                    # a row tile of 4 or more, else clusters of up to
+                    # CLUSTER_ROWS one-row CTAs
+                    cluster = plan.R2 >= kstep.CLUSTER_R2
+                    assert cluster == (not kstep.fits(
+                        res, kstep.FWD2, min(4, plan.R1), LIMIT))
+                    if cluster:
+                        assert tk == min(kstep.CLUSTER_ROWS, plan.R1)
                 ta, tb, gfold = kstep.fold_passes(res, plan, LIMIT)
                 one_cta = kstep.fits(res, kstep.INV, 0, LIMIT)
                 assert (ta == 0) == one_cta
@@ -165,7 +175,7 @@ def test_no_plan_is_refused(nsub, real):
                                           else kstep.INVB, tb)) if ta \
                     else ((kstep.INV, 0),)
                 _fitting(res, ((kstep.FWD1, tc),)
-                         + kstep.step_passes(tk, inv))
+                         + kstep.step_passes(plan, tk, inv))
                 if fourth:
                     continue  # the search front end takes no fourth moments
                 for nout in (1, 2):
@@ -175,7 +185,7 @@ def test_no_plan_is_refused(nsub, real):
                     inv = ((kstep.INVA, ta), (kstep.INVB, tb)) if ta \
                         else ((kstep.INV, 0),)
                     _fitting(fres, ((kstep.FWD1, tc),)
-                             + kstep.step_passes(tk, inv))
+                             + kstep.step_passes(plan, tk, inv))
     assert seen > 0
 
 
