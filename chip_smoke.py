@@ -234,7 +234,7 @@ class NoLibraryFFT:
 
 
 def small_plan(kind: str, nbin: int, nsub: int = 4, freq_res: int = 64,
-               **kw):
+               nfilt: tuple = (5, 6), **kw):
     """The test geometry (nsub 4, freq_res 64, nfilt 5/6 before rounding)
     for ``kind``, or None where the variant does not exist (CASPSR is one
     input channel)."""
@@ -246,7 +246,8 @@ def small_plan(kind: str, nbin: int, nsub: int = 4, freq_res: int = 64,
             return None
         kw["interleave"] = "caspsr"
     fb = FilterbankPlan(real_input=kind != "complex", nchan_subband=nsub,
-                        freq_res=freq_res, nfilt_pos=5, nfilt_neg=6)
+                        freq_res=freq_res, nfilt_pos=nfilt[0],
+                        nfilt_neg=nfilt[1])
     return MegaPlan.from_filterbank(fb, nbin=nbin, **kw)
 
 
@@ -1376,6 +1377,80 @@ def small_checks_conv(kind: str = "real") -> None:
                   f"{what}: finite")
             check(max(err, perr) < TOL_SMALL,
                   f"{what}: {err}, {perr} >= {TOL_SMALL}")
+    small_checks_tiles(kind, rng)
+
+
+#: geometries of the pass-tile checks, (nsub, freq_res, nfilt): R1 8 and 16
+#: (below pass A's 16-column tile; R1 8 only without a filter, where a
+#: window keeps all 8q of its samples), q 1, 2, 8, 16, 32 and 512, nsub 1,
+#: 4 and 64: (R1, q) = (8, 2), (8, 8), (32, 1), (16, 16), (128, 32),
+#: (128, 2), (512, 512)
+TILE_GEOMS = ((4, 16, (0, 0)), (1, 64, (0, 0)), (64, 32, (5, 6)),
+              (1, 256, (5, 6)), (4, 4096, (5, 6)), (64, 256, (5, 6)),
+              (1, 1 << 18, (5, 6)))
+
+
+def small_checks_tiles(kind: str, rng) -> None:
+    """The multi-pass inverse forced at ``TILE_GEOMS``, each kernel (f32)
+    against its plain version (f64) at TOL_SMALL: ``megafil`` (pass A's
+    column tiles and ring of stages, ``megafil_invb``'s tiles of 4 rows,
+    and of 8 for Stokes) with Intensity, PPQQ and Stokes detected and the
+    voltage (its (-1)^t sign where the plan flips), with at nsub 1 the
+    Jones mix at npol_out 2 and 4; ``megastep`` (pass A, then the fold in
+    pass B with shared-memory and global sums), hits exact."""
+    from dspsr_tpu_torch.kernels.megafil import megafil_cuda
+    from dspsr_tpu_torch.ops.megakernel import (
+        MegaConstants, megafil_plain, unpack_affine, voltage_sign_flips)
+
+    npart, nbin = 3, 32
+    for nsub, freq_res, nfilt in TILE_GEOMS:
+        def consts(plan, jones=False):
+            nci = plan.nchan_in
+            resp = np.exp(1j * rng.uniform(-3, 3, (nci * nsub, freq_res)))
+            J = (leaky_jones(plan.n_fft, nci) * resp.reshape(nci, -1)[
+                :, :, None, None] if jones else None)
+            scale, offset = unpack_affine(8, plan.twos_complement)
+            return MegaConstants.build(plan, None if jones else resp, scale,
+                                       offset, jones=J).to("cuda")
+
+        runs = [(dict(npol=2), "detected", False),
+                (dict(npol=2, npol_out=2), "detected", False),
+                (dict(npol=2, npol_out=4), "detected", False),
+                (dict(npol=2), "voltage", False)]
+        if nsub == 1:
+            runs += [(dict(npol=2, npol_out=2), "detected", True),
+                     (dict(npol=2, npol_out=4), "detected", True)]
+        for kw, output, jones in runs:
+            plan = small_plan(kind, 2, nsub=nsub, freq_res=freq_res,
+                              nfilt=nfilt, **kw)
+            if plan is None:
+                continue
+            cst, raw = consts(plan, jones), small_raw(plan, npart, rng)
+            got = megafil_cuda(plan, cst, raw, npart, output=output,
+                               inverse="multipass")
+            want = megafil_plain(plan, cst, raw, npart, torch.float64,
+                                 output=output)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            flip = output == "voltage" and voltage_sign_flips(plan)
+            what = (f"small tiles front {kind} nsub {nsub} M={freq_res} R1 "
+                    f"{plan.R1} q {plan.q} {kw} {output}"
+                    f"{' flip' if flip else ''}{' jones' if jones else ''}")
+            print(f"{what}: rel err {err:.3e}", flush=True)
+            check(got.shape == want.shape and err < TOL_SMALL,
+                  f"{what}: {err} >= {TOL_SMALL}")
+        plan = small_plan(kind, nbin, nsub=nsub, freq_res=freq_res,
+                          nfilt=nfilt, npol=2)
+        cst, raw = consts(plan), small_raw(plan, npart, rng)
+        for inverse in ("multipass", "global"):
+            err, hdiff, hsum = fold_against_plain(plan, cst, raw, npart, nbin,
+                                                  rng, inverse=inverse)
+            what = (f"small tiles fold {kind} nsub {nsub} M={freq_res} R1 "
+                    f"{plan.R1} q {plan.q} {inverse}")
+            print(f"{what}: rel err {err:.3e}, hits diff {hdiff}",
+                  flush=True)
+            check(err < TOL_SMALL and hdiff == 0 and hsum > 0,
+                  f"{what}: {err} >= {TOL_SMALL} or hits {hdiff} {hsum}")
 
 
 #: geometries of the forced multi-pass checks: (nsub, freq_res), q 4 (the
@@ -1598,9 +1673,36 @@ def multipass_bounds(plan, npart: int, nout: int, out_bytes: int,
     a_ops = seqs * (5 * N * math.log2(q) + 6 * N
                     + (16 * N if jones else 0))
     b_ops = seqs * 5 * N * math.log2(R1)
-    return {"A": bound_of(a_bytes, a_ops),
-            "B": bound_of(8 * plan.nchan_in * npart * N * nout + out_bytes,
-                          b_ops)}
+    b_bytes = 8 * plan.nchan_in * npart * N * nout + out_bytes
+    return {"A": dict(bound_of(a_bytes, a_ops), bytes=a_bytes),
+            "B": dict(bound_of(b_bytes, b_ops), bytes=b_bytes)}
+
+
+def print_attributes(tag: str, plan, nout: int, fold: bool = False,
+                     jones: bool = False) -> dict:
+    """Print the registers and local bytes a thread (spills and stack,
+    ``cudaFuncGetAttributes``) of the multi-pass inverse's kernels for
+    ``plan``: ``mega_inva`` and the fold's ``mega_invbfold`` (``fold``) or
+    ``megafil_invb`` (nout pols, the Jones mix when ``jones``)."""
+    from dspsr_tpu_torch.kernels import megafil as kfil
+    from dspsr_tpu_torch.kernels import megastep as kstep
+
+    attrs = (kstep.multipass_attributes(plan) if fold
+             else kfil.multipass_attributes(plan, nout, jones))
+    print(f"{tag} multi-pass kernels: " + "; ".join(
+        f"{k} {a['regs']} registers, {a['local_bytes']} B local a thread "
+        f"(blocks of at most {a['max_threads']})" for k, a in attrs.items()),
+        flush=True)
+    return attrs
+
+
+def pass_line(name: str, ms: float, bound: dict) -> str:
+    """``name``'s time beside its bytes (``bound["bytes"]``), their rate and
+    its bound (:func:`multipass_bounds`)."""
+    nb = bound["bytes"]
+    return (f"{name} {ms:.3f} ms for {nb / 1e6:.0f} MB "
+            f"({nb / (ms * 1e-3) / 1e12:.2f} TB/s; bound "
+            f"{bound['bound_ms']:.4f} ms, {bound['bound_by']})")
 
 
 def row_bounds(plan, npart: int, nstore: int) -> dict:
@@ -1642,10 +1744,11 @@ def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
     if multipass:
         mb = multipass_bounds(plan, npart, nout, out_bytes, False)
         pass_b = "mega_invbfold" if name in DM_FOLD else "megafil_invb"
-        parts += [f"pass A {pass_ms(times, 'mega_inva', name):.3f} ms (bound "
-                  f"{mb['A']['bound_ms']:.4f} ms, {mb['A']['bound_by']})",
-                  f"pass B {pass_ms(times, pass_b, name):.3f} ms (bound "
-                  f"{mb['B']['bound_ms']:.4f} ms, {mb['B']['bound_by']})"]
+        parts += [pass_line("pass A mega_inva", pass_ms(times, "mega_inva",
+                                                        name), mb["A"]),
+                  pass_line(f"pass B {pass_b}", pass_ms(times, pass_b, name),
+                            mb["B"])]
+        print_attributes(name, plan, nout, fold=name in DM_FOLD)
     if rows:
         parts += [f"{k} {pass_ms(times, 'mega_' + k, name):.3f} ms (bound "
                   f"{v['bound_ms']:.4f} ms, {v['bound_by']})"
@@ -1777,15 +1880,14 @@ def conv32_block(card: str, jones_path: str | None = None) -> dict:
                              if k.startswith("mega_fwd2"))
     ms_a = pass_ms(times, "mega_inva", tag)
     ms_b = pass_ms(times, "megafil_invb", tag)
+    print_attributes(tag, plan, 2, jones=bool(jones_path))
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
     print(f"{tag} per block ({sky_ms:.2f} ms of sky): front end "
           f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
           f"{bound['bound_by']}; plain {plain_ms:.3f} ms): forward passes "
-          f"{fwd:.3f} ms, pass A {ms_a:.3f} ms (bound "
-          f"{mb['A']['bound_ms']:.4f} ms, {mb['A']['bound_by']}), pass B "
-          f"{ms_b:.3f} ms (bound {mb['B']['bound_ms']:.4f} ms, "
-          f"{mb['B']['bound_by']}); tail {tail_ms:.3f} ms [{card}]",
-          flush=True)
+          f"{fwd:.3f} ms, {pass_line('pass A', ms_a, mb['A'])}, "
+          f"{pass_line('pass B', ms_b, mb['B'])}; tail {tail_ms:.3f} ms "
+          f"[{card}]", flush=True)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 

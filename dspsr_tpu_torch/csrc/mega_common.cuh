@@ -183,9 +183,31 @@
 //    it.  Not kept: clusters of 8 (2.56 ms) or 16 (4.6 ms, one CTA an SM),
 //    and the cluster form at R2 <= 2048 (hybrid_conv32 3.12 ms, guppi 4.57,
 //    against the row tile's 1.55 and 1.11).
+// 8. The multi-pass inverse's pass A (mega_inva, both kernels) and
+//    build_megafil's pass B (megafil_invb, megafil.cu), for freq_res past
+//    one CTA.  Both move 1-2 GB a block and ran at 1.0-1.6 TB/s with
+//    nothing in flight during their FFTs.  Pass A walks 16-column (and
+//    wider) boxes with one persistent CTA an SM and a ring of 3 cp.async
+//    stages, transforms in place and twiddles by recurrence.  Pass B keeps
+//    its form (two CTAs an SM overlap one's loads with the other's
+//    transform; its bulk-copy form measured slower) and takes 8 rows for
+//    four detected planes.  The notes above mega_inva and megafil_invb give
+//    the times and what was not kept.
+// 9. The bit reversal of the radix-8 butterflies (dft<8>) is a renaming of
+//    registers at compile-time indices (bitrev_regs).  Written as a loop
+//    over brev, which was left unrolled for R = 8, it put the 8 points in a
+//    64-byte local array, stored and reloaded in every radix-8 butterfly
+//    (SASS: STL.64 and LDL.64 in each pass that has radix 8: 512 =
+//    16*8*4, 1024 = 16*8*8).  Removing it (H100, 700 W, per block):
+//    mega_fwd1 0.40 -> 0.28 ms on the flagship, 1.56 -> 1.11 at
+//    hybrid_conv32; mega_rowfft 1.87 -> 1.02; mega_invbfold 1.48 -> 1.01
+//    at J0613; megafil_invb 1.16 -> 0.75; mega_invfold 1.44 -> 1.23 on
+//    mega_guppi_2bit, but 0.272 -> 0.278-0.282 on the flagship; the
+//    flagship fold step 1.23 -> 1.07-1.08.
 //
 // The multi-pass inverse's pass A (mega_inva, for a subband inverse past
-// one CTA), which both kernels run, lives here too; see the note above it.
+// one CTA), which both kernels run, lives here too; see item 8 and the note
+// above it.
 //
 // Each library that includes this header is its own translation unit and
 // shared object, so everything here has internal linkage.
@@ -239,12 +261,25 @@ __host__ __device__ constexpr int ilog2c(int x) {
   return x <= 1 ? 0 : 1 + ilog2c(x >> 1);
 }
 
-// Bit reversal of a compile-time index (no recursion, so that the renaming
-// of registers in dft() folds away).
+// Bit reversal of i over `bits` bits.
 __host__ __device__ __forceinline__ constexpr int brev(int i, int bits) {
   int r = 0;
   for (int b = 0; b < bits; ++b) r |= ((i >> b) & 1) << (bits - 1 - b);
   return r;
+}
+
+// x[i] = y[brev(i)] for i = I .. R-1.  Each index is a constant expression,
+// so the renaming is of registers: called as a loop, brev's own loop was
+// left in the code for R = 8, and y went to a 64-byte local array, stored
+// and reloaded in every radix-8 butterfly.
+template <int R, int I = 0>
+__device__ __forceinline__ void bitrev_regs(float2 (&x)[R],
+                                            const float2 (&y)[R]) {
+  if constexpr (I < R) {
+    constexpr int b = brev(I, ilog2c(R));
+    x[I] = y[b];
+    bitrev_regs<R, I + 1>(x, y);
+  }
 }
 
 // x * exp(DIR * 2 pi i j / 16) for j known at compile time once unrolled.
@@ -295,16 +330,14 @@ __device__ __forceinline__ void dif_stages(float2 (&x)[R]) {
 
 // In-register DFT of R points (R = 2, 4, 8, 16), natural order in and out,
 // sign DIR of the exponent: radix-2 decimation in frequency, then the
-// bit-reversal as a renaming of registers.
+// bit-reversal as a renaming of registers (bitrev_regs).
 template <int R, int DIR>
 __device__ __forceinline__ void dft(float2 (&x)[R]) {
-  constexpr int LOG = ilog2c(R);
   dif_stages<R, R / 2, DIR>(x);
   float2 y[R];
 #pragma unroll
-  for (int i = 0; i < R; ++i) y[brev(i, LOG)] = x[i];
-#pragma unroll
-  for (int i = 0; i < R; ++i) x[i] = y[i];
+  for (int i = 0; i < R; ++i) y[i] = x[i];
+  bitrev_regs(x, y);
 }
 
 // Bits of pass s of a length-2^logL transform whose radix is at most 2^lgP
@@ -322,18 +355,31 @@ __host__ __device__ inline int num_passes(int logL, int lgP) {
   return 1 + (logL - lgP + lgP - 1) / lgP;
 }
 
+// Where element i of a sequence lies in shared memory, from the sequence's
+// start: the padded layout (PadIdx), or a column of a row-major tile of S
+// columns (ColIdx: element i at i*S, as mega_inva lands its boxes).
+struct PadIdx {
+  __device__ __forceinline__ int operator()(int i) const { return sidx(i); }
+};
+struct ColIdx {
+  int S;
+  __device__ __forceinline__ int operator()(int i) const { return i * S; }
+};
+
 // One Stockham pass of radix R over one sequence: thread j runs the P/R
 // butterflies b = j + u*T on its registers, whose v[i] holds element
 // j + T*i of the pass input.  A butterfly reads b + r*L/R, applies
 // exp(DIR 2 pi i k r / (Ns R)) with k = b mod Ns, transforms, and writes
-// (b/Ns)*Ns*R + k + r*Ns to shared memory (on the last pass that is the
-// natural position b + r*L/R), or, when to_regs, back into the registers it
-// came from.  The twiddle of (k, r) is tw[(r-1)*Ns + k] of this pass's
-// table, so the lanes of a warp (consecutive k) read consecutive entries.
-template <int P, int R, int DIR>
+// (b/Ns)*Ns*R + k + r*Ns to shared memory at seq + idx(position) (on the
+// last pass that is the natural position b + r*L/R), or, when to_regs, back
+// into the registers it came from.  The twiddle of (k, r) is
+// tw[(r-1)*Ns + k] of this pass's table, so the lanes of a warp
+// (consecutive k) read consecutive entries.
+template <int P, int R, int DIR, class Idx = PadIdx>
 __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
                                          int T, int Ns, bool to_regs,
-                                         const float2* __restrict__ tw) {
+                                         const float2* __restrict__ tw,
+                                         Idx idx = Idx()) {
   constexpr int B = P / R;
 #pragma unroll
   for (int u = 0; u < B; ++u) {
@@ -356,7 +402,7 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
       for (int r = 0; r < R; ++r) v[u + r * B] = x[r];
     } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r) seq[sidx(base + r * Ns)] = x[r];
+      for (int r = 0; r < R; ++r) seq[idx(base + r * Ns)] = x[r];
     }
   }
 }
@@ -365,7 +411,7 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
 // L/P threads j = 0..T-1 on each.  load(q, v) fills v[i] with element
 // j + T*i of sequence q.  Sequence q exchanges through shared memory at
 // seq + q*seq_stride (seq_ld(L) float2) and, unless KEEP, ends there in
-// natural order, X[t] at sidx(t), after a closing barrier.  With KEEP (one
+// natural order, X[t] at idx(t), after a closing barrier.  With KEEP (one
 // sequence) the result stays in v: v[i] = X[j + T*i].  The sequences are
 // walked in turn within each pass, so a thread holds P points at a time;
 // the barrier after one sequence's reads also orders the previous one's
@@ -374,12 +420,14 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
 // (L - P entries in all).  Every thread of the block calls it.  With P = 32
 // (the long row pass) no pass is wider than radix 16: a thread runs two
 // butterflies a pass, and the passes (and so the tables) are those of P =
-// 16.
-template <int P, int NS, int DIR, bool KEEP, class Load>
+// 16.  idx places an element of a sequence (PadIdx, or ColIdx for a column
+// of a tile).
+template <int P, int NS, int DIR, bool KEEP, class Load, class Idx = PadIdx>
 __device__ __forceinline__ void fft_seqs(float2 (&v)[P], Load load,
                                          float2* seq, int seq_stride, int j,
                                          int L, int logL,
-                                         const float2* __restrict__ tw) {
+                                         const float2* __restrict__ tw,
+                                         Idx idx = Idx()) {
   static_assert(!KEEP || NS == 1, "KEEP holds one sequence");
   constexpr int lgP = ilog2c(P) > 4 ? 4 : ilog2c(P);
   const int T = L / P;
@@ -396,16 +444,16 @@ __device__ __forceinline__ void fft_seqs(float2 (&v)[P], Load load,
       } else {
         if (q == 0 && (NS == 1 || s == 1)) __syncthreads();
 #pragma unroll
-        for (int i = 0; i < P; ++i) v[i] = sq[sidx(j + T * i)];
+        for (int i = 0; i < P; ++i) v[i] = sq[idx(j + T * i)];
         __syncthreads();
       }
       switch (bits) {
-        case 1: fft_pass<P, 2, DIR>(v, sq, j, T, Ns, to_regs, tw); break;
-        case 2: fft_pass<P, 4, DIR>(v, sq, j, T, Ns, to_regs, tw); break;
-        case 3: fft_pass<P, 8, DIR>(v, sq, j, T, Ns, to_regs, tw); break;
+        case 1: fft_pass<P, 2, DIR>(v, sq, j, T, Ns, to_regs, tw, idx); break;
+        case 2: fft_pass<P, 4, DIR>(v, sq, j, T, Ns, to_regs, tw, idx); break;
+        case 3: fft_pass<P, 8, DIR>(v, sq, j, T, Ns, to_regs, tw, idx); break;
         default:
           if constexpr (P >= 16)
-            fft_pass<P, 16, DIR>(v, sq, j, T, Ns, to_regs, tw);
+            fft_pass<P, 16, DIR>(v, sq, j, T, Ns, to_regs, tw, idx);
           break;
       }
     }
@@ -1580,18 +1628,18 @@ __device__ __forceinline__ void inverse_subband(
 //          sum_{k2l} exp(2 pi i k2l n2 / q) X_s[k2l*R1 + k1],
 // so the inverse runs as two passes through device memory, as the forward
 // does, with zbuf between (the forward's cbuf, free by then and as large):
-//   mega_inva  (pass A) per (tile of S consecutive k1 and G subbands,
-//              window, input channel): for each output pol, the length-q
-//              inverse over k2l of each (k1, s) (the Jones mix in its
-//              load), times exp(+2 pi i k1 n2 / M), stored at Z[s*M +
-//              n2*R1 + k1] (runs of S consecutive k1, as mega_fwd1's
-//              columns).  Up to q = 16 a thread holds a whole sequence and
-//              no shared memory is used.
+//   mega_inva  (pass A) per (window, tile of S consecutive k1, subband,
+//              input channel, output pol): the [q, S] box of the pol's
+//              spectrum (rows s*q + k2l, R1 apart), the length-q inverse
+//              over k2l of each column (the Jones mix before it), times
+//              exp(+2 pi i k1 n2 / M), stored as the [q, S] box Z[s*M +
+//              n2*R1 + k1] of the same offsets.
 //   pass B     per (tile of S consecutive rows r = s*q + n2, window, input
 //              channel): the length-R1 inverse over k1 of each row of every
-//              output pol (inverse_rows), then 1/M, and sample t of output
-//              channel c*nsub + s: megafil_invb detects it or stores its
-//              voltage, mega_invbfold (megastep.cu) folds it.
+//              output pol, then 1/M, and sample t of output channel
+//              c*nsub + s: megafil_invb (megafil.cu) detects it or stores
+//              its voltage, mega_invbfold (megastep.cu, through
+//              inverse_rows) folds it.
 // At nsub == 1, q = R2 and M = N: the hybrid_conv32 convolution.  The TPU
 // kernel ran the same split as dense DFT matmuls in VMEM (the
 // block-diagonal radix-q matrix, the twiddle and the radix-R1 matrix,
@@ -1599,78 +1647,234 @@ __device__ __forceinline__ void inverse_subband(
 // register-resident FFT.  tb is the table buffer of (R1, q, M): tb.row the
 // length-q FFT table, tb.r1 the length-R1 one, the inter-stage factors
 // lo/hi over M.  zbuf is float2[nchan*nout, npart, N].
-constexpr int kInvaCols = 8;  // k1 of a pass-A tile at most
+//
+// mega_inva (build_megastep's and build_megafil's multi-pass inverse, pass
+// A) moves the spectra in and zbuf out once and does 5 q log2 q operations
+// a point: bound by bytes (hybrid_conv32: 2.15 GB, 0.64 ms at 3.35 TB/s).
+// The first form gathered tiles of 8 columns (64-byte runs, half of each
+// 128-byte line left to another CTA), held its 16 points a thread in
+// registers with nothing in flight during the FFT, spilled 72-208 bytes a
+// thread under the 128-register cap of its 512-thread launch bound, read
+// two twiddle tables a point, and reloaded both input pols and two Jones
+// planes for each output pol: 1.6 TB/s at best (hybrid_conv32 1.345 ms,
+// conv32_jones 2.59, J0613 1.36; H100, 700 W).  Now:
+// - a tile is S >= 16 consecutive k1 where R1 allows (INVA_COLS in
+//   kernels/megastep.py; more where q is short, up to S*T = 512 threads),
+//   so every row of the box is a run of 128 bytes or more, loaded and
+//   stored whole;
+// - one persistent CTA an SM (kPassStages stages of q*S points each, 192 KB
+//   at q = 512) walks the tiles in order (window fastest, so the CTAs that
+//   run together read one column tile of every window, and its Jones rows
+//   from L2), with the next stages' boxes in flight (cp.async, 16 bytes a
+//   thread) while one is transformed and stored;
+// - the FFT runs in place in the landed box (ColIdx: the half-warp on 16
+//   consecutive columns of one element, so no bank conflicts), the result
+//   in registers (KEEP), twiddled by a recurrence from two table reads a
+//   thread (the per-point reads scattered over the lo table, a line a
+//   lane) and stored in runs of S;
+// - with Jones, a tile's two input pols are two stages: both output pols
+//   are mixed from them in place (each input and Jones value read once),
+//   then transformed in turn.
+// No spills and no local memory at 101-127 registers.  Measured (H100, 700
+// W, with item 9's bit reversal in registers): 0.86-0.89 ms hybrid_conv32,
+// 1.84 conv32_jones, 0.75-0.76 at J0613, 0.22 at J1713, where the first
+// form with the same fix took 0.98-0.99, 1.86-1.87, 0.91, 0.26.  Not kept
+// (measured before that fix, when this form took 1.24, 2.21, 0.92, 0.22):
+// the launch bound alone (256 threads: no spills, one CTA an SM by
+// registers; hybrid_conv32 1.869, conv32_jones 2.125); the tables read a
+// point (1.342, 2.788, J0613 1.03); the box column by column with each
+// column's threads a warp exchanging by __syncwarp (8-byte copies, a
+// twiddled store from shared memory: 1.605, 3.186, 1.34).  What holds it
+// at q = 512 is the FFT's three passes of block barriers in one CTA an SM
+// (two passes at J0613's q = 128: 0.75 ms for the same bytes), and with
+// Jones the mix's Jones reads, two planes of every bin.
+constexpr int kPassStages = 3;  // ring stages of mega_inva
 
-// Columns S and subbands G of a pass-A tile of `tile` sequences.
-__host__ __device__ inline void inva_tile(int tile, int R1, int* S, int* G) {
-  const int cap = R1 < kInvaCols ? R1 : kInvaCols;
-  *S = tile < cap ? tile : cap;
-  *G = tile / *S;
+// Shared-memory address of a generic pointer to shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// ONE: nsub == 1 (q = R2, G = 1): the tile's subband and its offset are
-// the constant 0.  Under the 128-register cap of 512 threads that instance
-// spills 72 B (Jones: 24 B) where the run-time subband indexing spills 104
-// (208) B, and runs hybrid_conv32's pass A 6% (Jones 30%) faster on an
-// H100.
-template <int P, bool JONES, bool ONE>
-__global__ void __launch_bounds__(kMaxThreads)
+// Asynchronous copies global -> shared of 16 bytes (L2 only) or 8 bytes,
+// committed as one group a call of cp_commit; cp_wait(n) returns once at
+// most n of this thread's groups are pending (n < kPassStages).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// The tile walk of both passes: items blockIdx.x, blockIdx.x + gridDim.x,
+// ... of `nitems`; how many this CTA takes.
+__device__ __forceinline__ int local_items(int nitems) {
+  return (int)blockIdx.x < nitems
+             ? (nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+             : 0;
+}
+
+// Item it of pass A's walk (window fastest, then column tile, subband,
+// channel, output pol): window w, first column k0, subband s, channel c,
+// output pol p.
+__device__ __forceinline__ void inva_item(int it, int npart, int ntile,
+                                          int S, int nsub, int nchan, int& w,
+                                          int& k0, int& s, int& c, int& p) {
+  w = it % npart;
+  it /= npart;
+  k0 = (it % ntile) * S;
+  it /= ntile;
+  s = it % nsub;
+  it /= nsub;
+  c = it % nchan;
+  p = it / nchan;
+}
+
+// The [q, S] box at src (rows R1 apart) into dst row-major, by every
+// thread of the block with cp.async (16-byte pieces, or 8 where S is 1),
+// committed as one group.
+__device__ __forceinline__ void inva_copy(float2* dst,
+                                          const float2* __restrict__ src,
+                                          int q, int S, int R1) {
+  if (S >= 2) {
+    const int lgh = __ffs(S) - 2;  // 16-byte pieces a row: S / 2
+    for (int x = threadIdx.x; x < (q * S) >> 1; x += blockDim.x) {
+      const int r = x >> lgh;
+      const int h = 2 * (x - (r << lgh));
+      cp_async16(dst + r * S + h, src + (long long)r * R1 + h);
+    }
+  } else {
+    for (int r = threadIdx.x; r < q; r += blockDim.x)
+      cp_async8(dst + r, src + (long long)r * R1);
+  }
+  cp_commit();
+}
+
+// exp(+2 pi i e / M) from the lo/hi tables of M (e mod M).
+__device__ __forceinline__ float2 inv_turn(const Tables& tb, int e) {
+  e &= (1 << tb.log2n) - 1;
+  const float2 t = cmul(__ldg(tb.hi + (e >> tb.lo_bits)),
+                        __ldg(tb.lo + (e & ((1 << tb.lo_bits) - 1))));
+  return make_float2(t.x, -t.y);
+}
+
+// Pass A (see above): S*T threads, thread (col, j) = (tid mod S, tid / S)
+// on column k0 + col of the tile, T = q/P threads a column.  Item i of the
+// walk is (window, column tile, subband, channel[, output pol]); its units
+// (one input pol each: the pol itself, or under JONES both input pols)
+// land in consecutive stages, the box row-major (element (e, col) at e*S +
+// col, where the transform runs in place: ColIdx).  The twiddle of element
+// n2 = j + T*i of column k1 is exp(+2 pi i k1 n2 / M) = f g^i, f and g
+// from the tables once a thread (exp(+2 pi i k1 j / M), exp(+2 pi i k1 T /
+// M)), the powers by recurrence (within 3e-6 after 15 steps).
+template <int P, bool JONES>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 mega_inva(const float2* __restrict__ ybuf, float2* __restrict__ zbuf,
-          const float2* __restrict__ jones, Tables tb, int nout, int jpol0,
-          int npart, int R1, int R2, int q, int S, int G) {
+          const float2* __restrict__ jones, Tables tb, int nchan, int nout,
+          int jpol0, int npart, int R1, int R2, int q, int S) {
   extern __shared__ float2 sm[];
+  constexpr int NU = JONES ? 2 : 1;
   const int T = q / P;
   const int col = threadIdx.x & (S - 1);
-  const int j = ONE ? threadIdx.x / S : (threadIdx.x / S) & (T - 1);
-  const int g = ONE ? 0 : threadIdx.x / (S * T);
+  const int j = threadIdx.x / S;
   const int ntile = R1 / S;
-  const int k1 = (ONE ? blockIdx.x : blockIdx.x % ntile) * S + col;
-  const int s = ONE ? 0 : (blockIdx.x / ntile) * G + g;
-  const int w = blockIdx.y;
-  const int c = blockIdx.z;
+  const int nsub = R2 / q;
   const long long n = (long long)R1 * R2;
-  const long long off = (long long)s * q * R1 + k1;
-  const int mask = (1 << tb.log2n) - 1;
-  const int lo_mask = (1 << tb.lo_bits) - 1;
+  const int stage = q * S;
+  const int nlocal =
+      local_items(npart * ntile * nsub * nchan * (JONES ? 1 : nout));
+  const int nunits = nlocal * NU;
+  // issue units up to `upto` (unit u: input pol u % NU of item u / NU, to
+  // stage u % kPassStages)
+  int issued = 0;
+  auto refill = [&](int upto) {
+    for (upto = min(nunits, upto); issued < upto; ++issued) {
+      int w, k0, s, c, p;
+      inva_item(blockIdx.x + (issued / NU) * gridDim.x, npart, ntile, S, nsub,
+                nchan, w, k0, s, c, p);
+      const int slot = JONES ? c * 2 + issued % NU : c * nout + p;
+      inva_copy(sm + (issued % kPassStages) * stage,
+                ybuf + ((long long)slot * npart + w) * n +
+                    (long long)s * q * R1 + k0,
+                q, S, R1);
+    }
+  };
+  refill(kPassStages);
   float2 v[P];
-  for (int p = 0; p < nout; ++p) {
-    const float2* y = ybuf + ((long long)(c * (JONES ? 2 : nout) +
-                                          (JONES ? 0 : p)) * npart + w) * n +
-                      off;
-    const float2* jp = JONES ? jones + ((long long)c * 4 + 2 * (jpol0 + p)) *
-                                           n + off
-                             : nullptr;
-    auto load = [&](int, float2(&x)[P]) {
+  for (int k = 0; k < nlocal; ++k) {
+    int w, k0, s, c, p;
+    inva_item(blockIdx.x + k * gridDim.x, npart, ntile, S, nsub, nchan, w, k0,
+              s, c, p);
+    cp_wait(issued - (k + 1) * NU);  // this item's units, this thread's part
+    __syncthreads();                 // ... and every thread's
+    float2* st0 = sm + ((k * NU) % kPassStages) * stage;
+    float2* st1 = sm + ((k * NU + NU - 1) % kPassStages) * stage;
+    const int k1 = k0 + col;
+    const long long off = (long long)s * q * R1 + k1;
+    if constexpr (JONES) {
+      // output pols jpol0 (, jpol0 + 1) from both input pols, in place, on
+      // the elements this thread transforms
+      const float2* jp = jones + ((long long)c * 4 + 2 * jpol0) * n + off;
 #pragma unroll
       for (int i = 0; i < P; ++i) {
-        const long long k = (long long)(j + T * i) * R1;
-        if constexpr (JONES)
-          x[i] = jones_mix(y, jp, (long long)npart * n, n, k);
-        else
-          x[i] = y[k];
+        const int e = (j + T * i) * S + col;
+        const long long kk = (long long)(j + T * i) * R1;
+        const float2 a = st0[e];
+        const float2 b = st1[e];
+        st0[e] = cadd(cmul(__ldg(jp + kk), a), cmul(__ldg(jp + n + kk), b));
+        if (nout > 1)
+          st1[e] = cadd(cmul(__ldg(jp + 2 * n + kk), a),
+                        cmul(__ldg(jp + 3 * n + kk), b));
       }
-    };
-    if constexpr (P == 1) {
-      load(0, v);  // q == 1: nothing to transform
-    } else {
-      // one sequence a (k1, s); the last pass's reads end at a barrier, so
-      // the next pol's first pass may write the same shared memory
-      fft_seqs<P, 1, +1, true>(v, load, sm + (g * S + col) * seq_ld(q), 0, j,
-                               q, __ffs(q) - 1, tb.row);
     }
-    float2* dst = zbuf + ((long long)(c * nout + p) * npart + w) * n + off;
+    for (int po = 0; po < (JONES ? nout : 1); ++po) {
+      float2* st = po ? st1 : st0;
+      auto load = [&](int, float2(&x)[P]) {
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const int n2 = j + T * i;
-      const int e = (k1 * n2) & mask;
-      const float2 t = cmul(__ldg(tb.hi + (e >> tb.lo_bits)),
-                            __ldg(tb.lo + (e & lo_mask)));
-      dst[(long long)n2 * R1] = cmul(v[i], make_float2(t.x, -t.y));
+        for (int i = 0; i < P; ++i) x[i] = st[(j + T * i) * S + col];
+        __syncthreads();  // every read before the first pass writes the box
+      };
+      if constexpr (P == 1)
+        load(0, v);  // q == 1: nothing to transform
+      else
+        fft_seqs<P, 1, +1, true>(v, load, st + col, 0, j, q, __ffs(q) - 1,
+                                 tb.row, ColIdx{S});
+      // the item's stages are read out (the transform's last reads end at a
+      // barrier): refill them while this pol is stored
+      if (po == (JONES ? nout : 1) - 1) refill((k + 1) * NU + kPassStages);
+      float2* dst = zbuf +
+                    ((long long)(c * nout + (JONES ? po : p)) * npart + w) *
+                        n +
+                    off;
+      float2 f = inv_turn(tb, k1 * j);
+      const float2 g = inv_turn(tb, k1 * T);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        dst[(long long)(j + T * i) * R1] = cmul(v[i], f);
+        f = cmul(f, g);
+      }
     }
   }
 }
 
-// Pass B's transform: rows a .. a + S - 1 of zbuf (R1 points each, row r
+// mega_invbfold's transform (pass B of the fold; megafil_invb copies its
+// rows in first): rows a .. a + S - 1 of zbuf (R1 points each, row r
 // at r*R1) of each of NS output pols, window w, input channel c,
 // inverse-FFT'd (unscaled): pol q's row a + i ends at sm[(q*S + i) *
 // seq_ld(R1) + sidx(n1)].  Ends with a barrier.
@@ -1729,8 +1933,7 @@ int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
       return kind ? M / fft_points(M) : nout * seq_ld(M) * F2 + prof_bytes;
     case kInvA: {
       const int q = M / R1;
-      const int T = q / fft_points(q);
-      return kind ? tile * T : (T > 1 ? tile * seq_ld(q) * F2 : 0);
+      return kind ? tile * (q / fft_points(q)) : kPassStages * q * tile * F2;
     }
     case kInvB:
     case kInvBGlobal:
@@ -1748,39 +1951,72 @@ int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
   }
 }
 
-// The mega_inva instance for length q of R2 and the Jones mix (J) or not
-// (the one-subband form from 16 points a thread).
+// The mega_inva instance for length q and the Jones mix (J) or not.
 template <bool J>
-decltype(&mega_inva<16, J, false>) inva_kernel(int q, int R2) {
+decltype(&mega_inva<16, J>) inva_kernel(int q) {
   switch (fft_points(q)) {
-    case 16:
-      return q == R2 ? &mega_inva<16, J, true> : &mega_inva<16, J, false>;
-    case 8: return &mega_inva<8, J, false>;
-    case 4: return &mega_inva<4, J, false>;
-    case 2: return &mega_inva<2, J, false>;
-    default: return &mega_inva<1, J, false>;
+    case 16: return &mega_inva<16, J>;
+    case 8: return &mega_inva<8, J>;
+    case 4: return &mega_inva<4, J>;
+    case 2: return &mega_inva<2, J>;
+    default: return &mega_inva<1, J>;
   }
 }
 
+// Registers, local (spill) bytes and the most threads a block of `kernel`
+// may have, into out[0..2].
+template <class K>
+cudaError_t kernel_attributes(K kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return cudaSuccess;
+}
+
+// The persistent grid of a walk over `items`: as many CTAs of `kernel`
+// (threads, smem) as the card holds at once, at most one an item.
+template <class K>
+cudaError_t persistent_grid(K kernel, int threads, int smem, long long items,
+                            int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev, sms, per_sm;
+  if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long most = (long long)sms * per_sm;
+  *grid = (int)(items < most ? (items > 0 ? items : 1) : most);
+  return cudaSuccess;
+}
+
 // Pass A on the caller's stream: ybuf -> zbuf (see mega_inva); tw2 is the
-// table buffer of (R1, q, M), ta the tile.
+// table buffer of (R1, q, M), ta the columns S of a tile.
 cudaError_t launch_inva(const void* ybuf, void* zbuf, const void* jones,
                         const void* tw2, int nchan, int nout, int jpol0,
                         int npart, int R1, int R2, int M, int ta,
                         cudaStream_t stream) {
   const int q = M / R1;
-  int S, G;
-  inva_tile(ta, R1, &S, &G);
-  if (ta < 1 || (R2 / q) % G) return cudaErrorInvalidValue;
-  const dim3 grid((R1 / S) * (R2 / q / G), npart, nchan);
+  if (ta < 1 || (ta & (ta - 1)) || R1 % ta || (jones && jpol0 + nout > 2))
+    return cudaErrorInvalidValue;
   const int threads = pass_resources(1, kInvA, R1, R2, M, nout, ta, 1, 0);
   const int smem = pass_resources(0, kInvA, R1, R2, M, nout, ta, 1, 0);
-  const Tables t2 = tables(tw2, R1, q, M);
-  const auto k =
-      jones ? inva_kernel<true>(q, R2) : inva_kernel<false>(q, R2);
-  return launch(k, grid, threads, smem, stream, (const float2*)ybuf,
-                (float2*)zbuf, (const float2*)jones, t2, nout, jpol0, npart,
-                R1, R2, q, S, G);
+  const auto k = jones ? inva_kernel<true>(q) : inva_kernel<false>(q);
+  int grid;
+  const cudaError_t err = persistent_grid(
+      k, threads, smem,
+      (long long)npart * (R1 / ta) * (R2 / q) * nchan * (jones ? 1 : nout),
+      &grid);
+  if (err != cudaSuccess) return err;
+  return launch(k, dim3(grid), threads, smem, stream, (const float2*)ybuf,
+                (float2*)zbuf, (const float2*)jones, tables(tw2, R1, q, M),
+                nchan, nout, jpol0, npart, R1, R2, q, ta);
 }
 
 // The mega_polpow instance of code kind `code`.

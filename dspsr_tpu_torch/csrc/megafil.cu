@@ -151,13 +151,33 @@ megafil_invvolt(const float2* __restrict__ ybuf, float2* __restrict__ out,
   }
 }
 
-// Pass B of the multi-pass inverse (see mega_inva in mega_common.cuh): per
-// (tile of S consecutive rows r = s*q + n2, window, input channel), the
-// length-R1 inverse over k1 of every output pol's rows, 1/M; sample t = n2 +
-// q*n1 of output channel c*nsub + s is kept for nfilt_pos <= t < nfilt_pos
-// + nkeep and detected, or stored as voltage with the (-1)^t sign of
-// megafil_invvolt, straight to time order (runs of S consecutive samples
-// while S <= q).
+// Pass B of the multi-pass inverse (see mega_inva in mega_common.cuh), for
+// build_megafil's multi-pass inverse: per (tile of S consecutive rows r =
+// s*q + n2, window, input channel), the length-R1 inverse over k1 of every
+// output pol's rows, 1/M; sample t = n2 + q*n1 of output channel c*nsub +
+// s is kept for nfilt_pos <= t < nfilt_pos + nkeep and detected, or stored
+// as voltage with the (-1)^t sign of megafil_invvolt, straight to time
+// order (runs of S consecutive samples while S <= q).
+//
+// It reads zbuf once and writes the output once, 5 R1 log2 R1 operations a
+// point: bound by bytes (hybrid_conv32: 1.31 GB, 0.39 ms at 3.35 TB/s).
+// Its rows are contiguous (8 KB at R1 = 1024), loaded coalesced as the
+// transform's first pass.  With 4 rows (256 threads, 70 KB) two CTAs share
+// an SM, so one's loads run while the other transforms and stores.  Four
+// detected planes take 8 rows (kernels/megafil.py::INVB_ROWS: one CTA an
+// SM), so that each plane is stored in runs of 8 samples, 32 bytes, where
+// 4 rows stored half sectors: conv32_jones 1.82 ms against 2.41 (H100, 700
+// W).  With the radix-8 bit reversal in registers (mega_common.cuh item 9)
+// it takes 0.73-0.75 ms at hybrid_conv32 (1.16 before).  Measured and not
+// kept (hybrid_conv32, conv32_jones, search_j0613): both pols' rows brought
+// in at once by bulk copies (cp.async.bulk) on one mbarrier a pol, each
+// row's threads exchanging through their own named barrier, the first pol
+// transformed while the second lands: 0.84, 1.84-1.88, 0.80-0.81 ms against
+// this form's 0.75, 1.82, 0.75 (before the bit-reversal fix 1.13, 1.91,
+// 1.13 against 1.16, 1.67, 1.17); a persistent CTA an SM walking the tiles
+// through a ring of 3 such stages (1.26-1.46, 3.23-3.29, 1.27-1.48 before
+// the fix): one CTA's transforms, detection and stores alternate with
+// nothing beside them.
 template <int P, int NS>
 __global__ void __launch_bounds__(kMaxThreads)
 megafil_invb(const float2* __restrict__ zbuf, void* __restrict__ out,
@@ -224,6 +244,12 @@ decltype(&megafil_invvolt<16, 2, J>) invvolt_kernel(int M, int nout) {
   return nout == 2 ? &megafil_invvolt<8, 2, J> : &megafil_invvolt<8, 1, J>;
 }
 
+// megafil_invb for R1 and nout pols.
+decltype(&megafil_invb<16, 2>) invb_kernel(int R1, int nout) {
+  if (R1 >= 16) return nout == 2 ? &megafil_invb<16, 2> : &megafil_invb<16, 1>;
+  return nout == 2 ? &megafil_invb<8, 2> : &megafil_invb<8, 1>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -244,6 +270,20 @@ int megafil_resources(int kind, int which, int R1, int row_len, int M,
                         layout == kComplexTfp, 0);
 }
 
+// The registers, local (spill) bytes and most threads a block of the
+// multi-pass inverse's pass `which` (kInvA: mega_inva for length q, with
+// the Jones mix when jones; kInvB: megafil_invb for R1 and nout pols),
+// into out[0..2].
+int megafil_attributes(int which, int R1, int q, int nout, int jones,
+                       int* out) {
+  if (which == kInvA)
+    return (int)kernel_attributes(
+        jones ? inva_kernel<true>(q) : inva_kernel<false>(q), out);
+  if (which == kInvB)
+    return (int)kernel_attributes(invb_kernel(R1, nout), out);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The multi-pass inverse on the caller's stream (see mega_inva): ybuf ->
 // zbuf -> out.  tw2 is the table buffer of (R1, q, M); ta and tb are the
 // passes' tiles.
@@ -254,12 +294,11 @@ static cudaError_t launch_multipass(
     int voltage, int flip, int ta, int tb, cudaStream_t stream) {
   cudaError_t err;
   const int q = M / R1;
+  if (tb < 1 || (tb & (tb - 1)) || R2 % tb) return cudaErrorInvalidValue;
   if ((err = launch_inva(ybuf, zbuf, jones, tw2, nchan, nout, jpol0, npart,
                          R1, R2, M, ta, stream)) != cudaSuccess)
     return err;
-  auto invb = R1 >= 16 ? (nout == 2 ? &megafil_invb<16, 2> : &megafil_invb<16, 1>)
-                       : (nout == 2 ? &megafil_invb<8, 2> : &megafil_invb<8, 1>);
-  return launch(invb, dim3(R2 / tb, npart, nchan),
+  return launch(invb_kernel(R1, nout), dim3(R2 / tb, npart, nchan),
                 pass_resources(1, kInvB, R1, R2, M, nout, tb, 1, 0),
                 pass_resources(0, kInvB, R1, R2, M, nout, tb, 1, 0), stream,
                 (const float2*)zbuf, out, tables(tw2, R1, q, M), npart, R1,

@@ -340,6 +340,19 @@ int megastep_resources(int kind, int which, int R1, int row_len, int M,
                         layout == kComplexTfp, (nplane * nbin + nbin) * 4);
 }
 
+// The registers, local (spill) bytes and most threads a block of the
+// multi-pass inverse's pass `which` (kInvA: mega_inva for length q;
+// kInvB, kInvBGlobal: mega_invbfold for R1 and npolf pols), into out[0..2].
+int megastep_attributes(int which, int R1, int q, int npolf, int* out) {
+  if (which == kInvA)
+    return (int)kernel_attributes(inva_kernel<false>(q), out);
+  if (which == kInvB)
+    return (int)kernel_attributes(invbfold_kernel<false>(R1, npolf), out);
+  if (which == kInvBGlobal)
+    return (int)kernel_attributes(invbfold_kernel<true>(R1, npolf), out);
+  return (int)cudaErrorInvalidValue;
+}
+
 // One fused fold step.  Pointers are device pointers; tw is the wrapper's
 // twiddle-table buffer (see Tables in mega_common.cuh); scratch buffers are
 // sized by the wrapper: psum float[nchan, npart, 2], cbuf float2[nchan *

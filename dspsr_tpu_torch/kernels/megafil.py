@@ -30,18 +30,23 @@ from ..ops.megakernel import (
     voltage_sign_flips)
 from . import build
 from .megastep import (
-    FWD1, INV, INVA, INVA_COLS, INVB, cbuf_seqs, check_resources,
-    check_tensor, code_kind, device_tables, fits, forward_tiles, ftp_buffer,
-    layout_code, multipass_tiles, smem_limit, step_passes, unpack_operands)
+    FWD1, INV, INVA, INVB, cbuf_seqs, check_resources, check_tensor,
+    code_kind, device_tables, fits, forward_tiles, ftp_buffer,
+    kernel_attributes, layout_code, multipass_tiles, smem_limit, step_passes,
+    unpack_operands)
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _LAUNCH_ARGTYPES = [_c] * 17 + [_i] * 19 + [_f, _f] + [_i] * 8 + [_c]
 
-#: largest tiles of the multi-pass inverse: columns k1 of ``mega_inva``
-#: (times every subband that fits), rows of ``megafil_invb``
-MULTIPASS_CAPS = (INVA_COLS, 4)
+#: rows of a ``megafil_invb`` tile at most: 4 (at R1 = 1024, 256 threads
+#: and two CTAs an SM), or 8 for four detected planes, whose runs of 4
+#: samples were half sectors (8 rows, one CTA an SM: ``conv32_jones`` 1.82
+#: ms against 2.41, while ``hybrid_conv32``'s Intensity took 1.25-1.27
+#: against 1.16, measured before the radix-8 fix of ``mega_common.cuh``
+#: item 9; H100, 700 W)
+INVB_ROWS = (4, 8)
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,22 +56,39 @@ def _lib() -> ctypes.CDLL:
         lib.megafil_launch.restype = _i
         lib.megafil_resources.argtypes = [_i] * 8
         lib.megafil_resources.restype = _i
+        lib.megafil_attributes.argtypes = [_i] * 5 + [_c]
+        lib.megafil_attributes.restype = _i
         lib.megafil_error_string.argtypes = [_i]
         lib.megafil_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def inverse_passes(res, plan: MegaPlan, limit: int,
-                   inverse: str = "auto") -> tuple[int, int]:
+def inverse_passes(res, plan: MegaPlan, limit: int, inverse: str = "auto",
+                   output: str = "detected") -> tuple[int, int]:
     """The inverse for ``plan``: ``(0, 0)`` for the one-CTA inverse
     (``megafil_invdet``/``megafil_invvolt``) while its shared memory and
     threads (``res(kind, INV, 0)``) fit, else the tiles ``(ta, tb)`` of the
-    multi-pass inverse (``mega_inva``, ``megafil_invb``: any ``nsub``),
-    which ``inverse="multipass"`` also forces."""
+    multi-pass inverse (``mega_inva``, ``megafil_invb``: any ``nsub``; pass
+    B's rows ``INVB_ROWS``, the second for four detected planes), which
+    ``inverse="multipass"`` also forces."""
     if inverse == "auto" and fits(res, INV, 0, limit):
         return 0, 0
-    return multipass_tiles(res, plan, limit,
-                           min(MULTIPASS_CAPS[1], plan.R2))
+    rows = INVB_ROWS[1 if output == "detected" and plan.nplane == 4 else 0]
+    return multipass_tiles(res, plan, limit, min(rows, plan.R2))
+
+
+def multipass_attributes(plan: MegaPlan, nout: int,
+                         jones: bool = False) -> dict:
+    """Registers and local bytes of the search front end's multi-pass
+    passes for ``plan`` and ``nout`` pols (with the Jones mix when
+    ``jones``): ``{"mega_inva": ..., "megafil_invb": ...}``
+    (``kernels.megastep.kernel_attributes``)."""
+    lib = _lib()
+    return {"mega_inva": kernel_attributes(lib.megafil_attributes, INVA,
+                                           plan.R1, plan.q, nout, int(jones)),
+            "megafil_invb": kernel_attributes(lib.megafil_attributes,
+                                              INVB, plan.R1, plan.q, nout,
+                                              int(jones))}
 
 
 def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
@@ -131,7 +153,7 @@ def megafil_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit, row_pass)
-    ta, tb = inverse_passes(res, p, limit, inverse)
+    ta, tb = inverse_passes(res, p, limit, inverse, output)
     inv = ((INVA, ta), (INVB, tb)) if ta else ((INV, 0),)
     check_resources(res, p, ((FWD1, tc),) + step_passes(p, tk, inv), limit)
 

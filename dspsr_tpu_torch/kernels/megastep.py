@@ -57,9 +57,10 @@ CLUSTER_ROWS = 4
 #: time samples of a channel stream in the pre-pass's copy are rounded up
 #: to a multiple of this (``kFtpAlign``)
 FTP_ALIGN = 16
-#: k1 columns of a pass-A tile at most (``kInvaCols``); the tile then takes
-#: as many subbands as fit
-INVA_COLS = 8
+#: k1 columns of a pass-A tile (``mega_inva``) at least, where R1 and the
+#: card allow: rows of 128 bytes; more where q is short, up to
+#: ``MAX_THREADS`` threads
+INVA_COLS = 16
 #: rows of the fold's pass-B tile at most (``mega_invbfold``)
 FOLD_ROWS = 8
 
@@ -71,11 +72,53 @@ def _lib() -> ctypes.CDLL:
         lib.megastep_launch.restype = _i
         lib.megastep_resources.argtypes = [_i] * 10
         lib.megastep_resources.restype = _i
+        lib.megastep_attributes.argtypes = [_i] * 4 + [_c]
+        lib.megastep_attributes.restype = _i
         lib.megastep_ja98.argtypes = _JA98_ARGTYPES
         lib.megastep_ja98.restype = _i
         lib.megastep_error_string.argtypes = [_i]
         lib.megastep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_attributes(fn, *args) -> dict:
+    """``cudaFuncGetAttributes`` of a kernel through a library's C entry
+    point ``fn(*args, out)``: its registers a thread, local (spill) bytes a
+    thread and the most threads a block may have."""
+    out = (ctypes.c_int * 3)()
+    rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc}")
+    return dict(regs=out[0], local_bytes=out[1], max_threads=out[2])
+
+
+def step_resources(lib, p: MegaPlan):
+    """``res(kind, which, tile)``: the fold step's shared-memory bytes
+    (kind 0) or threads (kind 1) of pass ``which`` for ``p``
+    (``megastep_resources``)."""
+    npolf = len(fold_pols(p))
+
+    def res(kind, which, tile):
+        return lib.megastep_resources(kind, which, p.R1, p.row_len,
+                                      p.freq_res, npolf, p.nplane, p.nbin,
+                                      tile, layout_code(p))
+    return res
+
+
+def multipass_attributes(plan: MegaPlan) -> dict:
+    """Registers and local bytes of the fold step's multi-pass passes for
+    ``plan`` on the card: ``{"mega_inva": ..., "mega_invbfold": ...}``
+    (``kernel_attributes``), pass B with the fold ``fold_passes`` chooses
+    (shared-memory or global-atomic sums)."""
+    lib = _lib()
+    npolf = len(fold_pols(plan))
+    gfold = fold_passes(step_resources(lib, plan), plan,
+                        smem_limit(torch.device("cuda")))[2]
+    return {"mega_inva": kernel_attributes(lib.megastep_attributes, INVA,
+                                           plan.R1, plan.q, npolf),
+            "mega_invbfold": kernel_attributes(
+                lib.megastep_attributes, INVB_GLOBAL if gfold else INVB,
+                plan.R1, plan.q, npolf)}
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -239,11 +282,13 @@ def fits(res, which: int, tile: int, limit: int) -> bool:
 
 def multipass_tiles(res, plan: MegaPlan, limit: int, rows: int,
                     which_b: int = INVB) -> tuple[int, int]:
-    """Tiles of the multi-pass inverse: ``(k1, subband)`` sequences of pass
-    A (``mega_inva``: up to ``INVA_COLS`` columns times every subband,
-    halved until it fits) and rows of pass B ``which_b`` (up to ``rows``)."""
-    return (fitting_tile(res, INVA, min(INVA_COLS, plan.R1) * plan.nsub,
-                         limit),
+    """Tiles of the multi-pass inverse: the k1 columns of a pass-A tile
+    (``mega_inva``: ``INVA_COLS``, or where q is short as many as make
+    ``MAX_THREADS`` threads of q/16 a column; at most R1; halved until it
+    fits) and the rows of pass B ``which_b`` (up to ``rows``)."""
+    threads = plan.q // min(16, plan.q)  # a column's
+    cols = min(plan.R1, max(INVA_COLS, MAX_THREADS // threads))
+    return (fitting_tile(res, INVA, cols, limit),
             fitting_tile(res, which_b, rows, limit))
 
 
@@ -420,12 +465,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     lib = _lib()
     pols = fold_pols(p)
     npolf = len(pols)
-
-    def res(kind, which, tile):
-        return lib.megastep_resources(kind, which, p.R1, p.row_len,
-                                      p.freq_res, npolf, p.nplane, p.nbin,
-                                      tile, layout_code(p))
-
+    res = step_resources(lib, p)
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit, row_pass)
     ta, tb, gfold = fold_passes(res, p, limit, inverse)

@@ -35,13 +35,14 @@ from dspsr_tpu.ops import megakernel as jmk
 from dspsr_tpu.ops.filterbank import FilterbankPlan
 
 from dspsr_tpu_torch import convert
-from dspsr_tpu_torch.kernels.megafil import MULTIPASS_CAPS, inverse_passes
+from dspsr_tpu_torch.kernels.megafil import INVB_ROWS, inverse_passes
+from dspsr_tpu_torch.kernels.megastep import INVA_COLS
 from dspsr_tpu_torch.kernels.megastep import MAX_THREADS, twiddle_tables
 from dspsr_tpu_torch.models import load_to_fold as tl
 from dspsr_tpu_torch.ops import convolution as tconv
 from dspsr_tpu_torch.ops import megakernel as tmk
-from test_torch_fourstep import (
-    Geom, _raw, fft_points, fft_regs, mirror_forward, seq_ld)
+from test_torch_fourstep import Geom, _raw, mirror_forward
+from test_torch_multipass import inva_mirror, invb_mirror, tables_m
 from test_torch_hybrid import _assert_results, _write_rfi
 from test_torch_pipeline import BASE, raw_source
 
@@ -170,104 +171,31 @@ def test_voltage_sign_rule_at_nsub_1():
 # ------------------------------------------------- the multi-pass mirror
 
 
-def tables_n(R1, R2):
-    """The wrapper's table buffer of the multi-pass inverse (geometry (R1,
-    R2, N)), in float64: the length-R1 and length-R2 FFT tables and the lo/hi
-    factors over N."""
-    N = R1 * R2
-    buf = twiddle_tables(R1, R2, N, dtype=np.complex128)
-    log2n = N.bit_length() - 1
-    lo_bits = (log2n + 1) // 2
-    o = np.cumsum([0, R1, R2, N, 1 << lo_bits, 1 << (log2n - lo_bits)])
-    r1, row, _, lo, hi = (buf[o[i]:o[i + 1]] for i in range(5))
-    return dict(r1=r1, row=row, lo=lo, hi=hi, log2n=log2n, lo_bits=lo_bits)
-
-
-def out_bins(ybuf, jones, nchan, nout, jpol0):
-    """What ``out_bin`` reads: each output pol's spectrum, [nchan*nout,
-    npart, N]; with ``jones`` ([nchan, 4, N] complex) the mix of the two
-    stored pols."""
-    if jones is None:
-        return ybuf
-    x = ybuf.reshape(nchan, 2, *ybuf.shape[1:])
-    y = [jones[:, 2 * p, None] * x[:, 0] + jones[:, 2 * p + 1, None] * x[:, 1]
-         for p in range(jpol0, jpol0 + nout)]
-    return np.stack(y, axis=1).reshape(nchan * nout, *ybuf.shape[1:])
-
-
-def inva(y, R1, R2, tb, S):
-    """``mega_inva`` over every tile of ``S`` columns k1: the length-R2
-    inverse over k2 of y[seq, w, k2*R1 + k1], times exp(+2 pi i k1 n2 / N)
-    from the lo/hi tables; z[seq, w, n2*R1 + k1]."""
-    N = R1 * R2
-    P = fft_points(R2)
-    T = R2 // P
-    yy = y.reshape(*y.shape[:2], R2, R1)
-    z = np.full(y.shape, np.nan, complex)
-    zz = z.reshape(*y.shape[:2], R2, R1)
-    for a in range(0, R1, S):
-        cols = a + np.arange(S)
-        # v[i, j, seq, w, col] = element k2 = j + T*i of column a + col
-        v = np.stack([yy[:, :, np.arange(T) + T * i][..., cols]
-                      for i in range(P)])
-        v = fft_regs(np.moveaxis(v, 3, 1), R2, +1, tb["row"])
-        for i in range(P):
-            n2 = (np.arange(T) + T * i)[:, None, None, None]
-            e = (cols[None, None, None, :] * n2) & (N - 1)
-            t = (tb["hi"][e >> tb["lo_bits"]]
-                 * tb["lo"][e & ((1 << tb["lo_bits"]) - 1)])
-            zz[:, :, n2[:, 0, 0, 0], a:a + S] = np.moveaxis(
-                v[i] * np.conj(t), 0, 2)
-    return z
-
-
-def invb(z, R1, R2, tb, S, nfilt_pos, nkeep, flip):
-    """``megafil_invb`` over every tile of ``S`` rows n2: the length-R1
-    inverse over k1 of z[seq, w, n2*R1 + k1], 1/N, sample t = n2 + R2*n1
-    kept for nfilt_pos <= t < nfilt_pos + nkeep and stored at t -
-    nfilt_pos with the (-1)^t sign when ``flip``; also how often each
-    output sample was written."""
-    N = R1 * R2
-    P = fft_points(R1)
-    T = R1 // P
-    zz = z.reshape(*z.shape[:2], R2, R1)
-    out = np.full((*z.shape[:2], nkeep), np.nan, complex)
-    writes = np.zeros(nkeep, int)
-    lg = S.bit_length() - 1
-    for a in range(0, R2, S):
-        rows = a + np.arange(S)
-        # v[ii, j, seq, w, r] = element k1 = j + T*ii of row a + r
-        v = np.stack([zz[:, :, rows][..., np.arange(T) + T * ii]
-                      for ii in range(P)])
-        v = fft_regs(np.moveaxis(v, 4, 1), R1, +1, tb["r1"])
-        sm = np.empty((S, R1) + z.shape[:2], complex)
-        for ii in range(P):
-            sm[:, np.arange(T) + T * ii] = np.moveaxis(v[ii], 3, 0)
-        idx = np.arange(S * R1)
-        n1, r = idx >> lg, idx & (S - 1)
-        t = a + r + R2 * n1
-        o = t - nfilt_pos
-        keep = (o >= 0) & (o < nkeep)
-        g = np.where(flip & t & 1, -1.0, 1.0) / N
-        np.add.at(writes, o[keep], 1)
-        out[:, :, o[keep]] = np.moveaxis(
-            sm[r[keep], n1[keep]] * g[keep][:, None, None], 0, -1)
-    return out, writes
-
-
 def mirror_multipass(ybuf, R1, R2, nchan, nout, nfilt_pos, nkeep, flip,
                      ta, tb_rows, jones=None, jpol0=0):
-    tb = tables_n(R1, R2)
-    y = out_bins(ybuf, jones, nchan, nout, jpol0)
-    return invb(inva(y, R1, R2, tb, ta), R1, R2, tb, tb_rows, nfilt_pos,
-                nkeep, flip)
+    """The multi-pass inverse at nsub == 1 (q = R2, M = N) on the mirrors
+    of ``test_torch_multipass.py``: ``mega_inva``'s tile walk of ``ta``
+    columns (with a Jones response ``jones`` [nchan, 4, N], both output
+    pols mixed in its stages from the two stored input pols, each read
+    once), every zbuf element written once, then ``megafil_invb``'s tiles
+    of ``tb_rows`` rows.  ybuf is [nchan*nin, npart, N] (nin 2 with Jones,
+    else nout); returns out [nchan*nout, npart, nkeep] (1/N, the (-1)^t
+    sign when ``flip``) and how often each output sample was written."""
+    tb = tables_m(R1, R2)
+    z, zw = inva_mirror(ybuf, R1, R2, R2, tb, ta, nout=nout, jones=jones,
+                        jpol0=jpol0)
+    assert (zw == 1).all()
+    assert z.shape[0] == nchan * nout
+    out, writes = invb_mirror(z, R1, R2, R2, tb, tb_rows, nfilt_pos, nkeep,
+                              flip, nout=nout)
+    return out[:, :, 0], writes[:, :, 0]
 
 
 MIRROR_CASES = [
     dict(R1=R1, R2=R2, ta=ta, tb=tb, flip=flip)
     for R1, R2 in ((8, 8), (16, 32), (64, 8), (64, 64))
-    for ta, tb in ((1, 1), (min(MULTIPASS_CAPS[0], R1),
-                            min(MULTIPASS_CAPS[1], R2)), (2, min(8, R2)))
+    for ta, tb in ((1, 1), (min(INVA_COLS, R1), min(INVB_ROWS[0], R2)),
+                   (2, min(INVB_ROWS[1], R2)), (R1, 2))
     for flip in (0, 1)
 ]
 
@@ -370,35 +298,43 @@ def _res(R1, R2, M, nout, real):
 
 def test_inverse_choice():
     """One CTA while it fits; the multi-pass inverse past it (the
-    hybrid_conv32 geometry) or when forced; at nsub 4 and freq_res 16384,
-    past one CTA's 512 threads, the multi-pass inverse with pass A's tile
-    of 8 columns and all 4 subbands (q = 256: 512 threads)."""
+    hybrid_conv32 geometry: pass A 16 columns of 32 threads, 512 threads;
+    pass B 4 rows of 64 threads, or 8 for four detected planes) or when
+    forced (q = 64: pass A all 64 columns of 4 threads); at nsub 4 and
+    freq_res 16384, past one CTA's 512 threads, pass A's tile of 32 columns
+    (q = 256: 16 threads a column, 512 threads)."""
+    from dspsr_tpu_torch.kernels.megastep import INVA, INVB
+
     limit = 232448
     small = tmk.MegaPlan(**dataclasses.asdict(conv_plan(freq_res=4096)))
     assert inverse_passes(_res(64, 64, 4096, 2, True), small, limit) == (0, 0)
     ta, tb = inverse_passes(_res(64, 64, 4096, 2, True), small, limit,
                             "multipass")
-    assert (ta, tb) == (MULTIPASS_CAPS[0], MULTIPASS_CAPS[1])
+    assert (ta, tb) == (64, INVB_ROWS[0])
     big = dataclasses.replace(small, freq_res=1 << 19, R1=1024,
                               real_input=False)
     assert (big.R1, big.R2) == (1024, 512)
     res = _res(1024, 512, 1 << 19, 2, False)
     ta, tb = inverse_passes(res, big, limit)
-    assert ta and tb
-    for which, tile in ((3, ta), (4, tb)):
+    assert (ta, tb) == (INVA_COLS, INVB_ROWS[0])
+    assert inverse_passes(res, dataclasses.replace(big, npol_out=4),
+                          limit) == (INVA_COLS, INVB_ROWS[1])
+    assert inverse_passes(res, dataclasses.replace(big, npol_out=4), limit,
+                          output="voltage") == (INVA_COLS, INVB_ROWS[0])
+    for which, tile, threads in ((INVA, ta, MAX_THREADS),
+                                 (INVB, tb, MAX_THREADS // 2),
+                                 (INVB, INVB_ROWS[1], MAX_THREADS)):
         assert res(0, which, tile) <= limit
-        assert res(1, which, tile) <= MAX_THREADS
+        assert res(1, which, tile) == threads
     sub = dataclasses.replace(small, nsub=4, freq_res=16384)
     assert (sub.R1, sub.R2, sub.q) == (64, 1024, 256)
     res = _res(64, 1024, 16384, 2, True)
     assert res(1, 2, 0) > MAX_THREADS
-    assert inverse_passes(res, sub, limit) == (
-        MULTIPASS_CAPS[0] * sub.nsub, MULTIPASS_CAPS[1])
-    for which, tile in ((3, MULTIPASS_CAPS[0] * sub.nsub),
-                        (4, MULTIPASS_CAPS[1])):
+    assert inverse_passes(res, sub, limit) == (32, INVB_ROWS[0])
+    for which, tile in ((INVA, 32), (INVB, INVB_ROWS[0])):
         assert res(0, which, tile) <= limit
         assert res(1, which, tile) <= MAX_THREADS
-    assert res(1, 3, MULTIPASS_CAPS[0] * sub.nsub) == MAX_THREADS
+    assert res(1, INVA, 32) == MAX_THREADS
 
 
 def test_hybrid_conv32_geometry():
@@ -419,7 +355,7 @@ def test_hybrid_conv32_geometry():
     assert p.block_ndat(4) == 1912832
     limit = 232448
     ta, tb = inverse_passes(_res(1024, 512, 1 << 19, 2, False), p, limit)
-    assert (ta, tb) == (MULTIPASS_CAPS[0], MULTIPASS_CAPS[1])
+    assert (ta, tb) == (INVA_COLS, INVB_ROWS[0])
 
 
 # ------------------------------------------------------------- the slice

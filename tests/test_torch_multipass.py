@@ -44,7 +44,8 @@ from dspsr_tpu_torch.models import load_to_fold as tl
 from dspsr_tpu_torch.ops import megakernel as tmk
 from test_megakernel import _write_raw
 from test_torch_fourstep import (
-    Geom, _raw, fft_points, fft_regs, fwd1, fwd2, polpow, seq_ld, tables64)
+    Geom, _raw, dft, fft_points, fft_regs, fwd1, fwd2, num_passes, pass_bits,
+    polpow, seq_ld, tables64)
 from test_torch_pipeline import BASE, raw_source
 from test_torch_search import _assert_data_close, _run_both
 
@@ -57,6 +58,8 @@ NPART = 3
 #: the H100's shared memory a block may opt in to, and the kernels' threads
 LIMIT = 232448
 MAX_THREADS = kstep.MAX_THREADS
+#: ring stages of ``mega_inva`` (``kPassStages``)
+PASS_STAGES = 3
 
 
 def _rel(got, want):
@@ -83,8 +86,8 @@ def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
             prof_bytes
     if which == kstep.INVA:
         q = M // R1
-        T = q // fft_points(q)
-        return tile * T if kind else (tile * seq_ld(q) * 8 if T > 1 else 0)
+        return (tile * (q // fft_points(q)) if kind
+                else PASS_STAGES * q * tile * 8)
     if which in (kstep.INVB, kstep.INVB_GLOBAL):
         return (tile * (R1 // fft_points(R1)) if kind
                 else nout * tile * seq_ld(R1) * 8
@@ -170,7 +173,11 @@ def test_no_plan_is_refused(nsub, real):
                 assert (ta == 0) == one_cta
                 if ta:
                     assert tb <= plan.q and plan.q % tb == 0
-                    assert plan.nsub % max(1, ta // min(8, plan.R1)) == 0
+                    # pass A: whole columns of R1, rows of 128 bytes
+                    # wherever 16 columns fit 512 threads
+                    assert plan.R1 % ta == 0
+                    if plan.q <= 512:
+                        assert ta >= min(16, plan.R1)
                 inv = ((kstep.INVA, ta), (kstep.INVB_GLOBAL if gfold
                                           else kstep.INVB, tb)) if ta \
                     else ((kstep.INV, 0),)
@@ -184,6 +191,11 @@ def test_no_plan_is_refused(nsub, real):
                     assert (ta == 0) == kstep.fits(fres, kstep.INV, 0, LIMIT)
                     inv = ((kstep.INVA, ta), (kstep.INVB, tb)) if ta \
                         else ((kstep.INV, 0),)
+                    if ta:
+                        # pass B: 4 rows, 8 for four planes (32-byte
+                        # runs of each), where R2 allows
+                        rows = kfil.INVB_ROWS[int(nplane == 4)]
+                        assert tb == min(rows, plan.R2)
                     _fitting(fres, ((kstep.FWD1, tc),)
                              + kstep.step_passes(plan, tk, inv))
     assert seen > 0
@@ -206,9 +218,9 @@ def test_flagship_dm_plans():
         assert (plan.R1, plan.R2, plan.q) == (R1, R2, q)
         res = step_res(plan, 2)
         assert not kstep.fits(res, kstep.INV, 0, LIMIT)
-        # pass A: 512 threads, q / 16 a sequence (8 columns and 32 or 8
-        # subbands); pass B: 8 rows, 512 threads, the profile in shared
-        # memory (the search front end: 4 rows)
+        # pass A: 512 threads, q / 16 a column (256 or 64 columns of one
+        # subband); pass B: 8 rows, 512 threads, the profile in shared
+        # memory (the search front end, Intensity: 4 rows, 256 threads)
         ta = MAX_THREADS // (q // 16)
         assert kstep.fold_passes(res, plan, LIMIT) == (ta, 8, 0)
         assert kfil.inverse_passes(fil_res(plan, 1), plan, LIMIT) == (ta, 4)
@@ -405,45 +417,155 @@ def tables_m(R1, q):
     return dict(r1=r1, row=row, lo=lo, hi=hi, lo_bits=lo_bits)
 
 
-def inva_mirror(y, R1, R2, q, tb, ta):
-    """``mega_inva`` over every tile of ``ta`` sequences (S columns k1, G
-    subbands): y [seq, w, N] stored spectra -> z [seq, w, N], Z[s*M + n2*R1
-    + k1]; also how often each element was written."""
-    M, nsub = R1 * q, R2 // q
+def ring_walk(nitems, grid, NU, stages=PASS_STAGES):
+    """The persistent tile walk of ``mega_inva``: CTA b takes items b, b +
+    grid, ...; its unit u (part u % NU of its item u // NU: an input pol)
+    lands in stage u % stages.  Checks what the kernel relies on: each
+    unit is issued once and before it is waited on; a stage is refilled
+    only after the item holding it has been transformed; the cp.async
+    groups a wait leaves pending number 0 .. stages - 1.  Returns, per CTA,
+    its items in order, each with the stages of its units."""
+    walks, taken = [], []
+    for b in range(grid):
+        nlocal = (nitems - 1 - b) // grid + 1 if b < nitems else 0
+        nunits = nlocal * NU
+        holder = [None] * stages
+        issued, walk = 0, []
+
+        def fill(upto):
+            nonlocal issued
+            while issued < min(nunits, upto):
+                assert holder[issued % stages] is None
+                holder[issued % stages] = issued
+                issued += 1
+        fill(stages)
+        for k in range(nlocal):
+            units = [k * NU + part for part in range(NU)]
+            assert issued > units[-1]
+            assert 0 <= issued - (k + 1) * NU <= stages - 1
+            for u in units:
+                assert holder[u % stages] == u
+            walk.append((b + k * grid, [u % stages for u in units]))
+            taken.append(b + k * grid)
+            for u in units:
+                holder[u % stages] = None
+            fill((k + 1) * NU + stages)
+        assert issued == nunits
+        walks.append(walk)
+    assert sorted(taken) == list(range(nitems))
+    return walks
+
+
+def stage_fft(st, q, S, tw):
+    """``mega_inva``'s transform of one landed box: st, flat [q*S]
+    (row-major), holds column col's element i at i*S + col (``ColIdx``);
+    the passes of ``fft_seqs`` run in place in it, thread (col, j) on
+    elements j + T*i.  Returns the registers (KEEP): v[i][j, col] = X[j +
+    T*i] of column col, the length-q inverse (unscaled)."""
     P = fft_points(q)
     T = q // P
-    S = min(ta, min(8, R1))
-    G = ta // S
-    lead = y.shape[:2]
-    yy = y.reshape(*lead, nsub, q, R1)
-    z = np.full(y.shape, np.nan, complex)
-    zz = z.reshape(*lead, nsub, q, R1)
-    writes = np.zeros((nsub, q, R1), int)
+    j = np.arange(T)[:, None]
+    at = np.arange(S)[None, :]
+
+    def pos(i):
+        return i * S + at
+
+    v = np.stack([st[pos(j + T * i)] for i in range(P)])
+    if P == 1:
+        return v
+    lgP, logL = min(P.bit_length() - 1, 4), q.bit_length() - 1
+    n, Ns, toff = num_passes(logL, lgP), 1, 0
+    for s in range(n):
+        if s > 0:
+            v = np.stack([st[pos(j + T * i)] for i in range(P)])
+        bits = pass_bits(s, logL, lgP)
+        R, last = 1 << bits, s == n - 1
+        B = P // R
+        for u in range(B):
+            b = j + u * T
+            k = b & (Ns - 1)
+            base = (b - k) * R + k
+            x = [v[u + r * B].copy() for r in range(R)]
+            if Ns > 1:
+                for r in range(1, R):
+                    x[r] = x[r] * np.conj(tw[toff + (r - 1) * Ns + k])
+            x = dft(x, +1)
+            for r in range(R):
+                if last:
+                    v[u + r * B] = x[r]
+                else:
+                    st[pos(base + r * Ns)] = x[r]
+        if s > 0:
+            toff += (R - 1) * Ns
+        Ns <<= bits
+    return v
+
+
+def inva_mirror(y, R1, R2, q, tb, S, nout=1, grid=3, jones=None, jpol0=0):
+    """``mega_inva`` over its tile walk (``ring_walk``): item (w, column
+    tile of S k1, subband s, channel c[, output pol]) with w fastest; each
+    unit's [q, S] box of y [nchan*nin, w, N] (rows s*q + k2l, R1 apart;
+    nin = 2 input pols with a Jones response ``jones`` [nchan, 4, N], else
+    nout) lands in its stage; under Jones both output pols are mixed in
+    place from the two landed input pols, reading each once; each column
+    is inverse-transformed in place (``stage_fft``), twiddled by
+    exp(+2 pi i k1 n2 / M) (two lo/hi table reads a thread and a
+    recurrence) and stored at Z[s*M + n2*R1 + k1] in rows of S consecutive
+    k1.  Returns z [nchan*nout, w, N] and how often each element was
+    written."""
+    M, nsub = R1 * q, R2 // q
+
+    def turn(e):
+        e = e & (M - 1)
+        return np.conj(tb["hi"][e >> tb["lo_bits"]]
+                       * tb["lo"][e & ((1 << tb["lo_bits"]) - 1)])
+
+    nin = 2 if jones is not None else nout
+    nchan, npart, N = y.shape[0] // nin, y.shape[1], y.shape[2]
     ntile = R1 // S
-    for tile in range(ntile * (nsub // G)):
-        cols = (tile % ntile) * S + np.arange(S)
-        subs = (tile // ntile) * G + np.arange(G)
-        # v[i, j, seq, w, g, col] = element k2l = j + T*i of (subs[g], col)
-        v = np.stack([yy[:, :, subs][:, :, :, np.arange(T) + T * i][
-            ..., cols].transpose(3, 0, 1, 2, 4) for i in range(P)])
-        if P > 1:
-            v = fft_regs(v, q, +1, tb["row"])
-        for i in range(P):
-            n2 = np.arange(T) + T * i
-            e = (cols[None, :] * n2[:, None]) & (M - 1)  # [T, S]
-            t = (tb["hi"][e >> tb["lo_bits"]]
-                 * tb["lo"][e & ((1 << tb["lo_bits"]) - 1)])
-            for g, s in enumerate(subs):
-                vals = v[i][:, :, :, g] * np.conj(t)[:, None, None, :]
-                zz[:, :, s, n2[:, None], cols[None, :]] = np.moveaxis(
-                    vals, 0, 2)
-                np.add.at(writes, (s, n2[:, None], cols[None, :]), 1)
+    P = fft_points(q)
+    T = q // P
+    nitems = npart * ntile * nsub * nchan * (1 if jones is not None else nout)
+    z = np.full((nchan * nout,) + y.shape[1:], np.nan, complex)
+    writes = np.zeros(z.shape, int)
+    rows = np.arange(q)[:, None] * R1
+    for walk in ring_walk(nitems, grid, 2 if jones is not None else 1):
+        for it, _ in walk:
+            w, rest = it % npart, it // npart
+            k0, rest = (rest % ntile) * S, rest // ntile
+            s, rest = rest % nsub, rest // nsub
+            c, p = rest % nchan, rest // nchan
+            box = s * q * R1 + k0 + rows + np.arange(S)[None, :]  # [q, S]
+            if jones is None:
+                boxes = [y[c * nout + p, w][box].ravel()]
+                pols = [p]
+            else:
+                a, b = (y[c * 2 + i, w][box].ravel() for i in range(2))
+                jb = [jones[c, i][box].ravel() for i in range(4)]
+                pols = list(range(nout))
+                boxes = [jb[2 * (jpol0 + o)] * a + jb[2 * (jpol0 + o) + 1] * b
+                         for o in pols]
+            k1 = k0 + np.arange(S)[None, :]
+            j = np.arange(T)[:, None]
+            for st, po in zip(boxes, pols):
+                v = stage_fft(st, q, S, tb["row"])
+                # exp(+2 pi i k1 n2 / M) = f g^i from two table reads a
+                # thread, the powers by recurrence
+                f, g = turn(k1 * j), turn(k1 * T)
+                for i in range(P):
+                    n2 = j + T * i
+                    dst = s * M + n2 * R1 + k1
+                    # a row of the store: S consecutive k1
+                    assert (np.diff(dst, axis=1) == 1).all()
+                    z[c * nout + po, w][dst] = v[i] * f
+                    np.add.at(writes[c * nout + po, w], dst, 1)
+                    f = f * g
     return z, writes
 
 
 def invb_rows(z, R1, R2, tb, a, S):
-    """``inverse_rows``: rows a .. a + S - 1 of z [seq, w, N] inverse-FFT'd
-    (unscaled), [S, R1, seq, w]."""
+    """The length-R1 inverse of rows a .. a + S - 1 of z [seq, w, N]
+    (unscaled), [S, R1, seq, w], on the register-FFT mirror."""
     P = fft_points(R1)
     T = R1 // P
     zz = z.reshape(*z.shape[:2], R2, R1)
@@ -457,60 +579,114 @@ def invb_rows(z, R1, R2, tb, a, S):
     return sm
 
 
-def invb_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, flip):
-    """``megafil_invb`` over every tile of ``S`` rows: out [seq, w, nsub,
-    nkeep] (1/M, the (-1)^t sign when ``flip``) and how often each output
-    sample was written."""
+def invb_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, flip, nout=1):
+    """``megafil_invb`` over its grid of tiles (S rows a .. a + S - 1,
+    window w, channel c; each tile loads the nout pols' rows, then
+    transforms them): out [nchan*nout, w, nsub, nkeep] (1/M, the (-1)^t
+    sign when ``flip``) and how often each output sample was written.
+    While S <= q, the S rows of each n1 are S consecutive samples (runs of
+    S outputs of each plane)."""
     M, nsub = R1 * q, R2 // q
+    nchan, npart = z.shape[0] // nout, z.shape[1]
     out = np.full((*z.shape[:2], nsub, nkeep), np.nan, complex)
-    writes = np.zeros((nsub, nkeep), int)
+    writes = np.zeros(out.shape, int)
     lg = S.bit_length() - 1
+    idx = np.arange(S * R1)
+    n1, r = idx >> lg, idx & (S - 1)
     for a in range(0, R2, S):
-        sm = invb_rows(z, R1, R2, tb, a, S)
-        idx = np.arange(S * R1)
-        n1, r = idx >> lg, idx & (S - 1)
+        rows = invb_rows(z, R1, R2, tb, a, S)
         row = a + r
         s, t = row // q, row % q + q * n1
         o = t - nfilt_pos
+        if S <= q:
+            assert (np.diff(o.reshape(R1, S), axis=1) == 1).all()
         keep = (o >= 0) & (o < nkeep)
         g = np.where(flip & t & 1, -1.0, 1.0) / M
-        np.add.at(writes, (s[keep], o[keep]), 1)
-        out[:, :, s[keep], o[keep]] = np.moveaxis(
-            sm[r[keep], n1[keep]] * g[keep][:, None, None], 0, -1)
+        for w in range(npart):
+            for c in range(nchan):
+                for p in range(nout):
+                    sq = c * nout + p
+                    out[sq, w, s[keep], o[keep]] = (
+                        rows[r[keep], n1[keep], sq, w] * g[keep])
+                    np.add.at(writes[sq, w], (s[keep], o[keep]), 1)
     return out, writes
 
 
 MIRROR_CASES = [
     dict(R1=R1, R2=R2, q=q, ta=ta, tb=tb)
     for R1, R2, q in ((8, 16, 2), (16, 32, 4), (16, 64, 16), (32, 64, 32),
-                      (8, 64, 1))
-    for ta, tb in ((1, 1), (min(8, R1) * (R2 // q), 4), (2, 2))
-    if ta <= min(8, R1) * (R2 // q)
+                      (8, 64, 1), (64, 64, 16))
+    for ta, tb in ((1, 1), (min(16, R1), 8), (2, 2), (R1, 4))
 ]
 
 
 @pytest.mark.parametrize("case", MIRROR_CASES, ids=lambda c: "-".join(
     f"{k}{v}" for k, v in c.items()))
 def test_multipass_mirror_matches_subband_ifft(case):
-    """Every kept sample of every subband is written once and equals
-    numpy's length-M ifft of the subband, signed."""
+    """Every zbuf element and every kept sample of every subband is
+    written once, and each sample equals numpy's length-M ifft of the
+    subband, signed."""
     R1, R2, q = case["R1"], case["R2"], case["q"]
     N, M = R1 * R2, R1 * q
     rng = np.random.default_rng(R1 + 7 * R2 + q)
     y = rng.normal(size=(2, 2, N)) + 1j * rng.normal(size=(2, 2, N))
     tb = tables_m(R1, q)
-    z, zw = inva_mirror(y, R1, R2, q, tb, case["ta"])
+    z, zw = inva_mirror(y, R1, R2, q, tb, case["ta"], nout=2)
     assert (zw == 1).all()
     nfilt_pos, nkeep = 1, M - 3
     for flip in (0, 1):
         got, writes = invb_mirror(z, R1, R2, q, tb, case["tb"], nfilt_pos,
-                                  nkeep, flip)
+                                  nkeep, flip, nout=2)
         assert (writes == 1).all()
         t = np.arange(nfilt_pos, nfilt_pos + nkeep)
         sign = np.where(flip & t & 1, -1.0, 1.0)
         want = np.fft.ifft(y.reshape(2, 2, R2 // q, M), axis=-1)[
             ..., nfilt_pos:nfilt_pos + nkeep] * sign
         assert _rel(got, want) < TOL_MIRROR
+
+
+@pytest.mark.parametrize("jpol0,nout", [(0, 2), (0, 1), (1, 1)])
+@pytest.mark.parametrize("R1,R2,q,S", [(16, 64, 16, 16), (8, 32, 4, 8),
+                                       (32, 64, 32, 16)])
+def test_multipass_mirror_jones_reads_once(R1, R2, q, S, jpol0, nout):
+    """Pass A's Jones form at nsub > 1: both output pols mixed in the
+    stages from the two landed input pols (each read once), then
+    transformed: every zbuf element written once, and each subband of each
+    output pol the ifft of its mix."""
+    N, M, nchan = R1 * R2, R1 * q, 2
+    rng = np.random.default_rng(R1 + q + 5 * nout + jpol0)
+    y = rng.normal(size=(2 * nchan, 2, N)) + 1j * rng.normal(
+        size=(2 * nchan, 2, N))
+    J = rng.normal(size=(nchan, 4, N)) + 1j * rng.normal(size=(nchan, 4, N))
+    tb = tables_m(R1, q)
+    z, zw = inva_mirror(y, R1, R2, q, tb, S, nout=nout, jones=J,
+                        jpol0=jpol0)
+    assert (zw == 1).all()
+    got, writes = invb_mirror(z, R1, R2, q, tb, min(8, R2), 0, M, 0,
+                              nout=nout)
+    assert (writes == 1).all()
+    x = y.reshape(nchan, 2, 2, N)
+    for o in range(nout):
+        p = jpol0 + o
+        mix = J[:, 2 * p, None] * x[:, 0] + J[:, 2 * p + 1, None] * x[:, 1]
+        want = np.fft.ifft(mix.reshape(nchan, 2, R2 // q, M), axis=-1)
+        assert _rel(got.reshape(nchan, nout, 2, R2 // q, M)[:, o],
+                    want) < TOL_MIRROR
+
+
+@pytest.mark.parametrize("nitems,grid,NU", [(1, 3, 1), (7, 3, 1),
+                                            (7, 3, 2), (132, 132, 2),
+                                            (1000, 132, 1), (5, 8, 2)])
+def test_ring_walk(nitems, grid, NU):
+    """The persistent walk covers every item once, in order within each
+    CTA, and its ring keeps every unit in a stage of its own until its item
+    is done (``ring_walk``'s checks)."""
+    walks = ring_walk(nitems, grid, NU)
+    assert len(walks) == grid
+    for b, walk in enumerate(walks):
+        assert [it for it, _ in walk] == list(range(b, nitems, grid))
+        for _, st in walk:
+            assert len(set(st)) == NU
 
 
 def fold_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, phi0, dphi, nbin,
