@@ -39,9 +39,9 @@ and prints timings:
 
 Every unpack variant of both kernels (JA98, fixed-level 1/2/4-bit, float32,
 apodization windows) is held against plain at the test geometry first, and
-so are the multi-pass inverse at nsub > 1 (forced, with the fold's
-shared-memory and global-atomic sums), the long row pass (forced) and the
-fold's external window weights.
+so are the multi-pass inverse at nsub > 1 (forced, with the fold in its
+pass B), the long row pass (forced) and the fold's external window
+weights.
 
 Then the general chain, which runs where neither fused kernel can and
 launches neither: the flagship fold with ``use_megakernel=False``
@@ -486,11 +486,13 @@ def flagship_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
           flush=True)
     times = kernel_breakdown(lambda: pipe._megastep(*args), card,
                              label=f" ({name} {kind} fold)")
-    pass_bounds(card, name, plan, pipe.npart, nf,
-                8 * (prof0.numel() + hits0.numel()), times)
-    if kind == "complex":
-        print_forward(card, f"{name} {kind}", times, forward_passes(
-            plan, pipe.npart, nf, nf, raw.numel()))
+    out_bytes = 8 * (prof0.numel() + hits0.numel())
+    pass_bounds(card, name, plan, pipe.npart, nf, out_bytes, times)
+    one_cta = name not in DM_FOLD
+    print_passes(card, f"{name} {kind}", plan, pipe.npart, nf, raw.numel(),
+                 times, "mega_invfold" if one_cta else None, out_bytes)
+    if one_cta:
+        print_attributes(f"{name} {kind}", plan, nf, fold=True)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 
@@ -778,6 +780,10 @@ def search_block(card: str, kind: str = "real", dm: float = FLAGSHIP_DM,
     times = kernel_breakdown(lambda: pipe._megafil(raw), card,
                              label=f" ({name} {kind} search)")
     pass_bounds(card, name, plan, pipe.npart, nf, 4 * got.numel(), times)
+    print_passes(card, f"{name} {kind} search", plan, pipe.npart, nf,
+                 raw.numel(), times,
+                 None if name in DM_SEARCH else "megafil_invdet",
+                 4 * got.numel())
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 
@@ -1397,7 +1403,7 @@ def small_checks_tiles(kind: str, rng) -> None:
     and of 8 for Stokes) with Intensity, PPQQ and Stokes detected and the
     voltage (its (-1)^t sign where the plan flips), with at nsub 1 the
     Jones mix at npol_out 2 and 4; ``megastep`` (pass A, then the fold in
-    pass B with shared-memory and global sums), hits exact."""
+    pass B), hits exact."""
     from dspsr_tpu_torch.kernels.megafil import megafil_cuda
     from dspsr_tpu_torch.ops.megakernel import (
         MegaConstants, megafil_plain, unpack_affine, voltage_sign_flips)
@@ -1442,15 +1448,13 @@ def small_checks_tiles(kind: str, rng) -> None:
         plan = small_plan(kind, nbin, nsub=nsub, freq_res=freq_res,
                           nfilt=nfilt, npol=2)
         cst, raw = consts(plan), small_raw(plan, npart, rng)
-        for inverse in ("multipass", "global"):
-            err, hdiff, hsum = fold_against_plain(plan, cst, raw, npart, nbin,
-                                                  rng, inverse=inverse)
-            what = (f"small tiles fold {kind} nsub {nsub} M={freq_res} R1 "
-                    f"{plan.R1} q {plan.q} {inverse}")
-            print(f"{what}: rel err {err:.3e}, hits diff {hdiff}",
-                  flush=True)
-            check(err < TOL_SMALL and hdiff == 0 and hsum > 0,
-                  f"{what}: {err} >= {TOL_SMALL} or hits {hdiff} {hsum}")
+        err, hdiff, hsum = fold_against_plain(plan, cst, raw, npart, nbin,
+                                              rng, inverse="multipass")
+        what = (f"small tiles fold {kind} nsub {nsub} M={freq_res} R1 "
+                f"{plan.R1} q {plan.q}")
+        print(f"{what}: rel err {err:.3e}, hits diff {hdiff}", flush=True)
+        check(err < TOL_SMALL and hdiff == 0 and hsum > 0,
+              f"{what}: {err} >= {TOL_SMALL} or hits {hdiff} {hsum}")
 
 
 #: geometries of the forced multi-pass checks: (nsub, freq_res), q 4 (the
@@ -1492,8 +1496,8 @@ def small_checks_multipass() -> dict:
     kernel (f32) against its plain version (f64) within TOL_SMALL, hits
     exact:
 
-    - ``megastep`` (pass B folds: shared-memory profile, and forced global
-      atomics) for real, complex and CASPSR input at q 4, 32 and 64:
+    - ``megastep`` (the fold in pass B) for real, complex and CASPSR input
+      at q 4, 32 and 64:
       Intensity, coherence, fourth moments, PP, two input channels, bounds;
       JA98 2-bit input with an excised window;
     - ``megafil`` (``megafil_invb``): Intensity, PPQQ and Stokes detected,
@@ -1566,12 +1570,10 @@ def small_checks_multipass() -> dict:
                 if plan is None:
                     continue
                 cst, raw = consts(plan), small_raw(plan, npart, rng)
-                for inverse in ("multipass", "global"):
-                    for bounds in (None, (7, 70)):
-                        fold(f"small multipass fold {kind} nsub {nsub} "
-                             f"M={freq_res} q {plan.q} {kw} {inverse} "
-                             f"bounds={bounds}", plan, cst, raw,
-                             bounds=bounds, inverse=inverse)
+                for bounds in (None, (7, 70)):
+                    fold(f"small multipass fold {kind} nsub {nsub} "
+                         f"M={freq_res} q {plan.q} {kw} bounds={bounds}",
+                         plan, cst, raw, bounds=bounds, inverse="multipass")
             for kw, output, tap in fil_cases:
                 plan = small_plan(kind, 2, nsub=nsub, freq_res=freq_res,
                                   npol=2, **kw)
@@ -1589,9 +1591,8 @@ def small_checks_multipass() -> dict:
     for kind in ("real", "complex"):
         plan, cst, raw = unpack_case(kind, dict(nbit=2, ndat_per_weight=16),
                                      None, npart, rng)
-        for inverse in ("multipass", "global"):
-            fold(f"small multipass fold {kind} JA98 {inverse}", plan, cst,
-                 raw, inverse=inverse)
+        fold(f"small multipass fold {kind} JA98", plan, cst, raw,
+             inverse="multipass")
     # the long row pass, forced where mega_fwd2 fits
     for kind in ("real", "caspsr"):
         for kw in (dict(npol_out=4), dict(npol_out=1, detection="qq")):
@@ -1610,7 +1611,7 @@ def small_checks_multipass() -> dict:
         cst, raw = consts(plan), small_raw(plan, npart, rng)
         for w in ([1.0, 0.0, 1.0], [0.5, 1.0, 0.25]):
             weights = torch.tensor([w], dtype=torch.float32, device="cuda")
-            for inverse in ("auto", "multipass", "global"):
+            for inverse in ("auto", "multipass"):
                 fold(f"small external weights {kind} {w} {inverse}", plan,
                      cst, raw, weights=weights, inverse=inverse)
     return worst
@@ -1681,15 +1682,16 @@ def multipass_bounds(plan, npart: int, nout: int, out_bytes: int,
 def print_attributes(tag: str, plan, nout: int, fold: bool = False,
                      jones: bool = False) -> dict:
     """Print the registers and local bytes a thread (spills and stack,
-    ``cudaFuncGetAttributes``) of the multi-pass inverse's kernels for
-    ``plan``: ``mega_inva`` and the fold's ``mega_invbfold`` (``fold``) or
-    ``megafil_invb`` (nout pols, the Jones mix when ``jones``)."""
+    ``cudaFuncGetAttributes``) of the inverse's kernels for ``plan``: the
+    fold's (``fold``: ``mega_invfold``, or ``mega_inva`` and
+    ``mega_invbfold``), or the multi-pass search front end's ``mega_inva``
+    and ``megafil_invb`` (nout pols, the Jones mix when ``jones``)."""
     from dspsr_tpu_torch.kernels import megafil as kfil
     from dspsr_tpu_torch.kernels import megastep as kstep
 
-    attrs = (kstep.multipass_attributes(plan) if fold
+    attrs = (kstep.inverse_attributes(plan) if fold
              else kfil.multipass_attributes(plan, nout, jones))
-    print(f"{tag} multi-pass kernels: " + "; ".join(
+    print(f"{tag} inverse kernels: " + "; ".join(
         f"{k} {a['regs']} registers, {a['local_bytes']} B local a thread "
         f"(blocks of at most {a['max_threads']})" for k, a in attrs.items()),
         flush=True)
@@ -1758,6 +1760,29 @@ def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
               flush=True)
 
 
+def inverse_bound(plan, npart: int, nout: int, out_bytes: int) -> dict:
+    """The one-CTA inverse's bound over one block (``mega_invfold``,
+    ``megafil_invdet``): it reads nout stored spectra of N bins a window and
+    writes ``out_bytes``, nout nsub FFTs of freq_res points a window."""
+    seqs = plan.nchan_in * npart * nout
+    nbytes = 8 * seqs * plan.n_fft + out_bytes
+    ops = seqs * 5 * plan.n_fft * math.log2(plan.freq_res)
+    return dict(bound_of(nbytes, ops), bytes=nbytes)
+
+
+def fold_times(card: str) -> None:
+    """The blocks whose fold runs ``mega_invfold`` or ``mega_invbfold``
+    (the flagship real, complex and CASPSR, ``mega_guppi_2bit`` and the
+    ``DM_FOLD`` cells), each checked against plain and timed pass by pass
+    by its block function: for comparing two trees, or the variants of one,
+    in one call."""
+    for kind in KINDS:
+        flagship_block(card, kind)
+    guppi2_block(card)
+    for name, (kind, dm) in DM_FOLD.items():
+        flagship_block(card, kind, dm, name)
+
+
 def forward_passes(plan, npart: int, nfwd: int, nstore: int,
                    raw_bytes: int) -> dict:
     """The bytes each pass of the forward half must move over one block
@@ -1793,27 +1818,49 @@ def forward_passes(plan, npart: int, nfwd: int, nstore: int,
     return out
 
 
-def print_forward(card: str, tag: str, times: dict, passes: dict) -> dict:
-    """Print each forward pass of ``passes`` (``forward_passes``) against
-    its own bytes at 3.35 TB/s, and ``mega_fwd1`` with its pre-pass
-    against the fused function's; fails when the step did not run one of
-    them.  Returns each pass's milliseconds (``"fused"``: the sum)."""
-    parts, ms = [], {}
+def print_passes(card: str, tag: str, plan, npart: int, nf: int,
+                 raw_bytes: int, times: dict, inverse: str | None = None,
+                 out_bytes: int = 0) -> dict:
+    """Print every pass of a step's forward half (``times`` from
+    :func:`kernel_breakdown`) against its bytes and bound
+    (:func:`pass_line`), and the one-CTA inverse ``inverse`` where given
+    (:func:`inverse_bound`, ``out_bytes`` written): ``mega_polpow`` (real
+    input, two pols: the codes in, the pol energies out), the pre-pass and
+    ``mega_fwd1`` (:func:`forward_passes`; R1-point FFTs of every column),
+    after a pre-pass also the two as one function (raw codes in, ``cbuf``
+    out), and the row pass (row_len-point FFTs of every row and 16
+    operations a kept bin and pol; the long row pass is
+    :func:`pass_bounds`'s).  Fails when the step did not run one of them.
+    Returns each pass's milliseconds (``"fused"``: ``mega_fwd1`` with its
+    pre-pass)."""
+    ran = {k.split("<")[0] for k in times}
+    passes = forward_passes(plan, npart, nf, nf, raw_bytes)
+    nseq = 1 if plan.real_input else nf
+    cols = plan.nchan_in * nseq * npart * plan.R1 * plan.row_len
+    fwd1_ops = 5 * cols * math.log2(plan.R1)
+    row_ops = (5 * cols * math.log2(plan.row_len)
+               + 16 * plan.nchan_in * npart * nf * plan.n_fft)
+    bounds = {}
+    if plan.real_input and nf == 2:
+        nb = raw_bytes + 8 * plan.nchan_in * npart
+        bounds["mega_polpow"] = dict(bound_of(nb, 0), bytes=nb)
     for name, nb in passes.items():
-        if name == "fused":
+        if name == "fused" or (name == "mega_fwd2" and "mega_rowfft" in ran):
             continue
-        ms[name] = pass_ms(times, name, tag)
-        parts.append(f"{name} {ms[name]:.3f} ms for {nb / 1e6:.0f} MB "
-                     f"({nb / (ms[name] * 1e-3) / 1e12:.2f} TB/s; "
-                     f"{nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
+        ops = (fwd1_ops if name == "mega_fwd1"
+               else row_ops if name.startswith("mega_fwd2") else 0)
+        bounds[name] = dict(bound_of(nb, ops), bytes=nb)
+    if inverse:
+        bounds[inverse] = inverse_bound(plan, npart, nf, out_bytes)
+    ms = {name: pass_ms(times, name, tag) for name in bounds}
+    parts = [pass_line(name, ms[name], b) for name, b in bounds.items()]
     pre = [n for n in ("mega_ftp", "mega_ftpw", "mega_ja98") if n in ms]
     ms["fused"] = sum(ms[n] for n in pre) + ms["mega_fwd1"]
     if pre:
         nb = passes["fused"]
-        parts.append(f"mega_fwd1 with its pre-pass {ms['fused']:.3f} ms for "
-                     f"{nb / 1e6:.0f} MB of codes in and cbuf out "
-                     f"({nb / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s)")
-    print(f"{tag} forward passes per block: {'; '.join(parts)} [{card}]",
+        parts.append(pass_line("mega_fwd1 with its pre-pass", ms["fused"],
+                               dict(bound_of(nb, fwd1_ops), bytes=nb)))
+    print(f"{tag} passes per block: {'; '.join(parts)} [{card}]",
           flush=True)
     return ms
 
@@ -1874,8 +1921,7 @@ def conv32_block(card: str, jones_path: str | None = None) -> dict:
               + (4 * cst.jones.numel() if jones_path else 0))
     bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
     mb = multipass_bounds(plan, npart, 2, 4 * got.numel(), bool(jones_path))
-    fwd = print_forward(card, tag, times, forward_passes(
-        plan, npart, 2, 2, raw.numel()))
+    fwd = print_passes(card, tag, plan, npart, 2, raw.numel(), times)
     fwd = fwd["fused"] + sum(v for k, v in times.items()
                              if k.startswith("mega_fwd2"))
     ms_a = pass_ms(times, "mega_inva", tag)
@@ -2433,21 +2479,20 @@ def guppi2_block(card: str) -> dict:
     nbytes = (raw.numel() + 8 * cst.gr.numel() + 4 * cst.twobit.numel()
               + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
     bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
-    # each pass's own bytes (forward_passes); the fold reads the spectra
-    passes = forward_passes(plan, npart, 2, 2, raw.numel())
-    print_forward(card, "mega_guppi_2bit", times, passes)
-    inv = 8 * 32 * 2 * npart * plan.n_fft
-    ms_inv = pass_ms(times, "mega_invfold", "mega_guppi_2bit")
-    total = sum(v for k, v in passes.items() if k != "fused") + inv
+    out_bytes = 8 * (prof0.numel() + hits0.numel())
+    print_passes(card, "mega_guppi_2bit", plan, npart, 2, raw.numel(), times,
+                 "mega_invfold", out_bytes)
+    print_attributes("mega_guppi_2bit", plan, 2, fold=True)
+    # each pass's own bytes, the fold's inverse reading the spectra
+    total = (sum(v for k, v in forward_passes(plan, npart, 2, 2,
+                                              raw.numel()).items()
+                 if k != "fused")
+             + inverse_bound(plan, npart, 2, out_bytes)["bytes"])
     sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
     print(f"mega_guppi_2bit step per block ({sky_ms:.2f} ms of sky): "
           f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
           f"{bound['bound_by']}; passes {total / HBM_BYTES_S * 1e3:.3f} ms "
-          f"at 3.35 TB/s); plain {plain_ms:.3f} ms; mega_invfold "
-          f"{ms_inv:.3f} ms for {inv / 1e6:.0f} MB "
-          f"({inv / (ms_inv * 1e-3) / 1e12:.2f} TB/s; "
-          f"{inv / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s) [{card}]",
-          flush=True)
+          f"at 3.35 TB/s); plain {plain_ms:.3f} ms [{card}]", flush=True)
     return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 **bound, library_ms=None)
 

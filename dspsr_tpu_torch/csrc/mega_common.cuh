@@ -1904,11 +1904,10 @@ enum Pass {
   kFwd2 = 1,        // mega_fwd2 (`tile` row pairs) or mega_fwd2c (`tile` rows)
   kInv = 2,         // the one-CTA inverse (megafil_invdet/invvolt, mega_invfold)
   kInvA = 3,        // mega_inva, tile of `tile` (k1, subband) sequences
-  kInvB = 4,        // pass B, tile of `tile` rows (the fold: shared profile)
-  kInvBGlobal = 5,  // the fold's pass B with global atomics
-  kRowFft = 6,      // mega_rowfft
-  kRowPair = 7,     // mega_rowpair
-  kFwd2Cluster = 8, // mega_fwd2cc, one row a CTA (`tile` CTAs a cluster)
+  kInvB = 4,        // pass B, tile of `tile` rows
+  kRowFft = 5,      // mega_rowfft
+  kRowPair = 6,     // mega_rowpair
+  kFwd2Cluster = 7, // mega_fwd2cc, one row a CTA (`tile` CTAs a cluster)
 };
 
 // Columns of a mega_rowpair tile.
@@ -1917,10 +1916,9 @@ __host__ __device__ inline int pair_cols(int R2) {
 }
 
 // Shared-memory bytes (kind 0) or threads (kind 1) of pass `which` (Pass):
-// nout pols inverted, cplx the complex input's layout, prof_bytes the fold's
-// shared-memory profile (kInv and kInvB; 0 for megafil).
+// nout pols inverted, cplx the complex input's layout.
 int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
-                   int tile, int cplx, int prof_bytes) {
+                   int tile, int cplx) {
   const int F2 = (int)sizeof(float2);
   const int R2 = cplx ? row_len : row_len / 2;
   switch (which) {
@@ -1930,16 +1928,14 @@ int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
       return kind ? tile * (row_len / fft_points(row_len))
                   : (cplx ? 1 : 2) * tile * seq_ld(row_len) * F2;
     case kInv:
-      return kind ? M / fft_points(M) : nout * seq_ld(M) * F2 + prof_bytes;
+      return kind ? M / fft_points(M) : nout * seq_ld(M) * F2;
     case kInvA: {
       const int q = M / R1;
       return kind ? tile * (q / fft_points(q)) : kPassStages * q * tile * F2;
     }
     case kInvB:
-    case kInvBGlobal:
       return kind ? tile * (R1 / fft_points(R1))
-                  : nout * tile * seq_ld(R1) * F2 +
-                        (which == kInvB ? prof_bytes : 0);
+                  : nout * tile * seq_ld(R1) * F2;
     case kRowFft:
       return kind ? row_len / kRowPoints : seq_ld(row_len) * F2;
     case kRowPair:
@@ -2005,8 +2001,8 @@ cudaError_t launch_inva(const void* ybuf, void* zbuf, const void* jones,
   const int q = M / R1;
   if (ta < 1 || (ta & (ta - 1)) || R1 % ta || (jones && jpol0 + nout > 2))
     return cudaErrorInvalidValue;
-  const int threads = pass_resources(1, kInvA, R1, R2, M, nout, ta, 1, 0);
-  const int smem = pass_resources(0, kInvA, R1, R2, M, nout, ta, 1, 0);
+  const int threads = pass_resources(1, kInvA, R1, R2, M, nout, ta, 1);
+  const int smem = pass_resources(0, kInvA, R1, R2, M, nout, ta, 1);
   const auto k = jones ? inva_kernel<true>(q) : inva_kernel<false>(q);
   int grid;
   const cudaError_t err = persistent_grid(
@@ -2121,7 +2117,7 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
   // its tile) lives in its exchange area
   if (code == kCodeJA98 &&
       16 * R1 * (tc > (1 << u.lg_npw) ? tc >> u.lg_npw : 1) >
-          pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx, 0))
+          pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx))
     return cudaErrorInvalidValue;
   if (cplx && R2 >= kClusterR2 &&
       (tk < 1 || tk > kClusterRows || (tk & (tk - 1)) || R1 % tk))
@@ -2167,9 +2163,9 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     fwd1 = R1 >= 16 ? fwd1_kernel<16, kRealCaspsr>(kcode)
                     : fwd1_kernel<8, kRealCaspsr>(kcode);
   const int nseq = cplx ? npolf : 1;
-  const int smem1 = pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx, 0);
+  const int smem1 = pass_resources(0, kFwd1, R1, row_len, M, 0, tc, cplx);
   if ((err = launch(fwd1, dim3(nchan * nseq, row_len / tc, npart),
-                    pass_resources(1, kFwd1, R1, row_len, M, 0, tc, cplx, 0),
+                    pass_resources(1, kFwd1, R1, row_len, M, 0, tc, cplx),
                     smem1, stream, src, (float2*)cbuf, (const float*)psum,
                     tb, cs, npol, pol0, npolf, npart, R1, row_len,
                     nsamp_step, tc, u)) != cudaSuccess)
@@ -2177,12 +2173,12 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
   if (cplx && R2 >= kClusterR2)
     return launch_cluster(
         &mega_fwd2cc<16>, dim3(R1, npart, nchan * npolf),
-        pass_resources(1, kFwd2Cluster, R1, row_len, M, 0, tk, 1, 0),
-        pass_resources(0, kFwd2Cluster, R1, row_len, M, 0, tk, 1, 0), tk,
+        pass_resources(1, kFwd2Cluster, R1, row_len, M, 0, tk, 1),
+        pass_resources(0, kFwd2Cluster, R1, row_len, M, 0, tk, 1), tk,
         stream, (const float2*)cbuf, (float2*)ybuf, (const float*)gr,
         (const float*)gi, (float*)pb, tb, npolf, store, npart, R1, R2);
-  const int threads2 = pass_resources(1, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
-  const int smem2 = pass_resources(0, kFwd2, R1, row_len, M, 0, tk, cplx, 0);
+  const int threads2 = pass_resources(1, kFwd2, R1, row_len, M, 0, tk, cplx);
+  const int smem2 = pass_resources(0, kFwd2, R1, row_len, M, 0, tk, cplx);
   if (cplx) {
     auto fwd2 = row_len >= 16 ? &mega_fwd2c<16>
                 : (row_len == 8 ? &mega_fwd2c<8> : &mega_fwd2c<4>);
@@ -2195,8 +2191,8 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
     // the long row pass (see mega_rowfft)
     if (row_len < kRowPoints) return cudaErrorInvalidValue;
     if ((err = launch(&mega_rowfft<kRowPoints>, dim3(R1, npart, nchan),
-                      pass_resources(1, kRowFft, R1, row_len, M, 0, 0, 0, 0),
-                      pass_resources(0, kRowFft, R1, row_len, M, 0, 0, 0, 0),
+                      pass_resources(1, kRowFft, R1, row_len, M, 0, 0, 0),
+                      pass_resources(0, kRowFft, R1, row_len, M, 0, 0, 0),
                       stream, (float2*)cbuf, tb, npart, R1, row_len)) !=
         cudaSuccess)
       return err;

@@ -267,7 +267,7 @@ const char* megafil_error_string(int err) {
 int megafil_resources(int kind, int which, int R1, int row_len, int M,
                       int npolf, int tile, int layout) {
   return pass_resources(kind, which, R1, row_len, M, npolf, tile,
-                        layout == kComplexTfp, 0);
+                        layout == kComplexTfp);
 }
 
 // The registers, local (spill) bytes and most threads a block of the
@@ -299,8 +299,8 @@ static cudaError_t launch_multipass(
                          R1, R2, M, ta, stream)) != cudaSuccess)
     return err;
   return launch(invb_kernel(R1, nout), dim3(R2 / tb, npart, nchan),
-                pass_resources(1, kInvB, R1, R2, M, nout, tb, 1, 0),
-                pass_resources(0, kInvB, R1, R2, M, nout, tb, 1, 0), stream,
+                pass_resources(1, kInvB, R1, R2, M, nout, tb, 1),
+                pass_resources(0, kInvB, R1, R2, M, nout, tb, 1), stream,
                 (const float2*)zbuf, out, tables(tw2, R1, q, M), npart, R1,
                 R2, q, nfilt_pos, nkeep, nplane, det, voltage, flip, tb);
 }

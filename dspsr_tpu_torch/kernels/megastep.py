@@ -34,7 +34,7 @@ from . import build
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-_LAUNCH_ARGTYPES = [_c] * 23 + [_i] * 16 + [_f, _f] + [_i] * 11 + [_c]
+_LAUNCH_ARGTYPES = [_c] * 23 + [_i] * 16 + [_f, _f] + [_i] * 10 + [_c]
 _JA98_ARGTYPES = [_c] * 5 + [_i] * 7 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
@@ -44,11 +44,9 @@ MAX_THREADS = 512
 TILE_CAPS = (8, 4, 8)
 #: the passes a resource query names (``Pass`` in ``csrc/mega_common.cuh``):
 #: the forward's two, the one-CTA inverse, the multi-pass inverse's pass A
-#: and pass B (the fold's with its shared-memory profile, or with global
-#: atomics), the long row pass's two kernels, and the complex row pass as
+#: and pass B, the long row pass's two kernels, and the complex row pass as
 #: thread-block clusters (``mega_fwd2cc``, one row a CTA)
-(FWD1, FWD2, INV, INVA, INVB, INVB_GLOBAL, ROWFFT, ROWPAIR,
- FWD2_CLUSTER) = range(9)
+(FWD1, FWD2, INV, INVA, INVB, ROWFFT, ROWPAIR, FWD2_CLUSTER) = range(8)
 #: complex input from this R2 (``kClusterR2``), where a ``mega_fwd2c`` tile
 #: holds fewer than 4 rows, runs ``mega_fwd2cc`` in clusters of
 #: ``CLUSTER_ROWS`` CTAs (``kClusterRows``; fewer when R1 is smaller)
@@ -61,8 +59,9 @@ FTP_ALIGN = 16
 #: card allow: rows of 128 bytes; more where q is short, up to
 #: ``MAX_THREADS`` threads
 INVA_COLS = 16
-#: rows of the fold's pass-B tile at most (``mega_invbfold``)
-FOLD_ROWS = 8
+#: rows of the fold's pass-B tile at most (``mega_invbfold``): 256
+#: threads at R1 = 1024, so that two CTAs share an SM
+FOLD_ROWS = 4
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,9 +69,9 @@ def _lib() -> ctypes.CDLL:
     if lib.megastep_launch.argtypes is None:
         lib.megastep_launch.argtypes = _LAUNCH_ARGTYPES
         lib.megastep_launch.restype = _i
-        lib.megastep_resources.argtypes = [_i] * 10
+        lib.megastep_resources.argtypes = [_i] * 8
         lib.megastep_resources.restype = _i
-        lib.megastep_attributes.argtypes = [_i] * 4 + [_c]
+        lib.megastep_attributes.argtypes = [_i] * 6 + [_c]
         lib.megastep_attributes.restype = _i
         lib.megastep_ja98.argtypes = _JA98_ARGTYPES
         lib.megastep_ja98.restype = _i
@@ -100,25 +99,28 @@ def step_resources(lib, p: MegaPlan):
 
     def res(kind, which, tile):
         return lib.megastep_resources(kind, which, p.R1, p.row_len,
-                                      p.freq_res, npolf, p.nplane, p.nbin,
-                                      tile, layout_code(p))
+                                      p.freq_res, npolf, tile,
+                                      layout_code(p))
     return res
 
 
-def multipass_attributes(plan: MegaPlan) -> dict:
-    """Registers and local bytes of the fold step's multi-pass passes for
-    ``plan`` on the card: ``{"mega_inva": ..., "mega_invbfold": ...}``
-    (``kernel_attributes``), pass B with the fold ``fold_passes`` chooses
-    (shared-memory or global-atomic sums)."""
+def inverse_attributes(plan: MegaPlan) -> dict:
+    """Registers and local bytes of the fold step's inverse kernels for
+    ``plan`` on the card (``kernel_attributes``), as ``fold_passes``
+    chooses them: ``{"mega_invfold": ...}`` for the one-CTA inverse, else
+    ``{"mega_inva": ..., "mega_invbfold": ...}``."""
     lib = _lib()
     npolf = len(fold_pols(plan))
-    gfold = fold_passes(step_resources(lib, plan), plan,
-                        smem_limit(torch.device("cuda")))[2]
-    return {"mega_inva": kernel_attributes(lib.megastep_attributes, INVA,
-                                           plan.R1, plan.q, npolf),
-            "mega_invbfold": kernel_attributes(
-                lib.megastep_attributes, INVB_GLOBAL if gfold else INVB,
-                plan.R1, plan.q, npolf)}
+    ta, _ = fold_passes(step_resources(lib, plan), plan,
+                        smem_limit(torch.device("cuda")))
+
+    def attrs(which):
+        return kernel_attributes(lib.megastep_attributes, which, plan.R1,
+                                 plan.q, plan.freq_res, npolf, plan.nplane)
+    if not ta:
+        return {"mega_invfold": attrs(INV)}
+    return {"mega_inva": attrs(INVA),
+            "mega_invbfold": attrs(INVB)}
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -280,36 +282,30 @@ def fits(res, which: int, tile: int, limit: int) -> bool:
     return res(0, which, tile) <= limit and res(1, which, tile) <= MAX_THREADS
 
 
-def multipass_tiles(res, plan: MegaPlan, limit: int, rows: int,
-                    which_b: int = INVB) -> tuple[int, int]:
+def multipass_tiles(res, plan: MegaPlan, limit: int,
+                    rows: int) -> tuple[int, int]:
     """Tiles of the multi-pass inverse: the k1 columns of a pass-A tile
     (``mega_inva``: ``INVA_COLS``, or where q is short as many as make
     ``MAX_THREADS`` threads of q/16 a column; at most R1; halved until it
-    fits) and the rows of pass B ``which_b`` (up to ``rows``)."""
+    fits) and the rows of pass B (up to ``rows``)."""
     threads = plan.q // min(16, plan.q)  # a column's
     cols = min(plan.R1, max(INVA_COLS, MAX_THREADS // threads))
     return (fitting_tile(res, INVA, cols, limit),
-            fitting_tile(res, which_b, rows, limit))
+            fitting_tile(res, INVB, rows, limit))
 
 
 def fold_passes(res, plan: MegaPlan, limit: int,
-                inverse: str = "auto") -> tuple[int, int, int]:
-    """The fold step's inverse: ``(0, 0, 0)`` for the one-CTA
-    ``mega_invfold`` while it fits, else ``(ta, tb, gfold)``: the multi-pass
+                inverse: str = "auto") -> tuple[int, int]:
+    """The fold step's inverse: ``(0, 0)`` for the one-CTA
+    ``mega_invfold`` while it fits, else ``(ta, tb)``: the multi-pass
     inverse's tiles (pass B's rows at most q, so a tile is one subband's)
-    with the fold in pass B, by global atomics (``gfold`` 1) when the
-    ``[nplane, nbin]`` profile fits no CTA beside pass B's tile.
-    ``inverse="multipass"`` forces the multi-pass inverse,
-    ``inverse="global"`` its global-atomic fold."""
-    if inverse not in ("auto", "multipass", "global"):
+    with the fold in pass B.  ``inverse="multipass"`` forces the multi-pass
+    inverse."""
+    if inverse not in ("auto", "multipass"):
         raise ValueError(f"unknown inverse: {inverse}")
     if inverse == "auto" and fits(res, INV, 0, limit):
-        return 0, 0, 0
-    gfold = inverse == "global" or not fits(res, INVB, 1, limit)
-    which = INVB_GLOBAL if gfold else INVB
-    ta, tb = multipass_tiles(res, plan, limit, min(FOLD_ROWS, plan.q),
-                             which)
-    return ta, tb, int(gfold)
+        return 0, 0
+    return multipass_tiles(res, plan, limit, min(FOLD_ROWS, plan.q))
 
 
 def layout_code(plan: MegaPlan) -> int:
@@ -468,9 +464,8 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     res = step_resources(lib, p)
     limit = smem_limit(dev)
     tc, tk = forward_tiles(res, p, limit, row_pass)
-    ta, tb, gfold = fold_passes(res, p, limit, inverse)
-    inv = (((INVA, ta), (INVB_GLOBAL if gfold else INVB, tb)) if ta
-           else ((INV, 0),))
+    ta, tb = fold_passes(res, p, limit, inverse)
+    inv = ((INVA, ta), (INVB, tb)) if ta else ((INV, 0),)
     check_resources(res, p, ((FWD1, tc),) + step_passes(p, tk, inv), limit)
 
     prof_out = torch.empty_like(profiles)
@@ -503,7 +498,7 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
             p.freq_res, p.nfilt_pos, p.nkeep, p.nbin, p.nplane,
             detection_code(p), int(p.fourth_moment),
             int(p.twos_complement), cst.unpack_scale, cst.unpack_offset,
-            p.nsamp_step, tc, tk, ta, tb, gfold, lo, hi, layout_code(p),
+            p.nsamp_step, tc, tk, ta, tb, lo, hi, layout_code(p),
             code_kind(p), p.npw, stream)
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()

@@ -694,10 +694,9 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
     step passes its channel group's rows of the full-band chirp; the JAX
     package passes its permuted ``[nchan_in, R1, R2]`` layout instead).  On
     CUDA tensors it launches the hand-written kernel
-    (``kernels.megastep.megastep_cuda``; ``inverse="multipass"`` or
-    ``"global"`` forces its multi-pass inverse, with the fold's
-    shared-memory or global-atomic sums, where one CTA would do, for
-    checks); on CPU tensors it runs :func:`megastep_plain`.  ``cst`` holds tensors on the step's
+    (``kernels.megastep.megastep_cuda``; ``inverse="multipass"`` forces
+    its multi-pass inverse where one CTA would do, for checks); on CPU
+    tensors it runs :func:`megastep_plain`.  ``cst`` holds tensors on the step's
     device.  A Jones response raises: it runs on the hybrid engine's front
     end, as in the JAX package (``load_to_fold.py:1127-1144``)."""
     plan.validate()
@@ -706,7 +705,7 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
             "a Jones response on the fused fold step; the pipeline runs it "
             "on the hybrid engine (build_megafil), as the JAX package does; "
             "see ROADMAP.md Queue 2 item 1")
-    if inverse not in ("auto", "multipass", "global"):
+    if inverse not in ("auto", "multipass"):
         raise ValueError(f"unknown inverse: {inverse}")
     if external_weights and response_as_args:
         raise ValueError("external_weights or response_as_args, not both "

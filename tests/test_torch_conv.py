@@ -291,7 +291,7 @@ def _res(R1, R2, M, nout, real):
 
     def res(kind, which, tile):
         return pass_resources(kind, which, R1, row_len, M, nout, tile,
-                              not real, 0)
+                              not real)
 
     return res
 

@@ -14,6 +14,13 @@
   and the long row pass (``mega_rowfft`` with 32 points a thread,
   ``mega_rowpair``), against ``numpy.fft`` and the mirror of
   ``mega_fwd2``;
+- the work division of both fold kernels (``mega_invfold``,
+  ``mega_invbfold``): a CTA an item, each thread's runs of one bin over
+  its consecutive samples (``fold_runs``), added to the block accumulator
+  with the window weight: every kept sample folded once into its bin at
+  the test geometry and at the flagship, ``mega_guppi_2bit``, J1713 and
+  J0613 plans, with windows that start just before a turn, windows over
+  several turns, bounds inside a window and windows of weight 0;
 - the resource map: a Python copy of ``pass_resources``
   (``csrc/mega_common.cuh``) run through the wrappers' pass choosers over
   every plan ``MegaPlan.choose_r1`` accepts, real and complex, nplane 1, 2,
@@ -71,8 +78,7 @@ def _rel(got, want):
 # ------------------------------------------------------------ resources
 
 
-def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
-                   prof_bytes):
+def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx):
     """``pass_resources`` of ``csrc/mega_common.cuh`` in Python."""
     R2 = row_len if cplx else row_len // 2
     if which == kstep.FWD1:
@@ -82,16 +88,14 @@ def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
         return (tile * (row_len // fft_points(row_len)) if kind
                 else (1 if cplx else 2) * tile * seq_ld(row_len) * 8)
     if which == kstep.INV:
-        return M // fft_points(M) if kind else nout * seq_ld(M) * 8 + \
-            prof_bytes
+        return M // fft_points(M) if kind else nout * seq_ld(M) * 8
     if which == kstep.INVA:
         q = M // R1
         return (tile * (q // fft_points(q)) if kind
                 else PASS_STAGES * q * tile * 8)
-    if which in (kstep.INVB, kstep.INVB_GLOBAL):
+    if which == kstep.INVB:
         return (tile * (R1 // fft_points(R1)) if kind
-                else nout * tile * seq_ld(R1) * 8
-                + (prof_bytes if which == kstep.INVB else 0))
+                else nout * tile * seq_ld(R1) * 8)
     if which == kstep.ROWFFT:
         return row_len // 32 if kind else seq_ld(row_len) * 8
     if which == kstep.FWD2_CLUSTER:
@@ -101,13 +105,12 @@ def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx,
 
 
 def step_res(plan, npolf):
-    """``megastep_resources`` for ``plan``."""
-    prof = (plan.nplane * plan.nbin + plan.nbin) * 4
-
+    """``megastep_resources`` for ``plan`` (the fold holds no profile in
+    shared memory)."""
     def res(kind, which, tile):
         return pass_resources(kind, which, plan.R1, plan.row_len,
                               plan.freq_res, npolf, tile,
-                              not plan.real_input, prof)
+                              not plan.real_input)
     return res
 
 
@@ -116,7 +119,7 @@ def fil_res(plan, nout):
     def res(kind, which, tile):
         return pass_resources(kind, which, plan.R1, plan.row_len,
                               plan.freq_res, nout, tile,
-                              not plan.real_input, 0)
+                              not plan.real_input)
     return res
 
 
@@ -168,9 +171,17 @@ def test_no_plan_is_refused(nsub, real):
                         res, kstep.FWD2, min(4, plan.R1), LIMIT))
                     if cluster:
                         assert tk == min(kstep.CLUSTER_ROWS, plan.R1)
-                ta, tb, gfold = kstep.fold_passes(res, plan, LIMIT)
+                ta, tb = kstep.fold_passes(res, plan, LIMIT)
                 one_cta = kstep.fits(res, kstep.INV, 0, LIMIT)
                 assert (ta == 0) == one_cta
+                # no plan leaves the one-CTA inverse: every plan that fit
+                # one CTA with the [nplane, nbin] profile the fold held in
+                # shared memory before (4 bytes a bin and plane, and a hit
+                # count a bin) still does
+                prof = (plan.nplane * plan.nbin + plan.nbin) * 4
+                if (res(0, kstep.INV, 0) + prof <= LIMIT
+                        and res(1, kstep.INV, 0) <= MAX_THREADS):
+                    assert one_cta
                 if ta:
                     assert tb <= plan.q and plan.q % tb == 0
                     # pass A: whole columns of R1, rows of 128 bytes
@@ -178,8 +189,7 @@ def test_no_plan_is_refused(nsub, real):
                     assert plan.R1 % ta == 0
                     if plan.q <= 512:
                         assert ta >= min(16, plan.R1)
-                inv = ((kstep.INVA, ta), (kstep.INVB_GLOBAL if gfold
-                                          else kstep.INVB, tb)) if ta \
+                inv = ((kstep.INVA, ta), (kstep.INVB, tb)) if ta \
                     else ((kstep.INV, 0),)
                 _fitting(res, ((kstep.FWD1, tc),)
                          + kstep.step_passes(plan, tk, inv))
@@ -199,6 +209,20 @@ def test_no_plan_is_refused(nsub, real):
                     _fitting(fres, ((kstep.FWD1, tc),)
                              + kstep.step_passes(plan, tk, inv))
     assert seen > 0
+    if nsub == 64:
+        # the fold main path's one-CTA plans keep mega_invfold: the flagship
+        # (real, 75 windows of R1 = R2 = 512) and mega_guppi_2bit (32
+        # complex 2-bit channels, R1 512, R2 256)
+        plan = (tmk.MegaPlan(nsub=64, freq_res=4096, R1=512, nfilt_pos=288,
+                             nfilt_neg=288, nbin=1024, npol=2)
+                if real else
+                tmk.MegaPlan(nsub=64, freq_res=2048, R1=512, nfilt_pos=16,
+                             nfilt_neg=16, nbin=1024, npol=2, nbit=2,
+                             real_input=False, nchan_in=32, npw=256))
+        assert (plan.R2, plan.nkeep) == ((512, 3520) if real else (256, 2016))
+        res = step_res(plan, 2)
+        assert kstep.fold_passes(res, plan, LIMIT) == (0, 0)
+        _fitting(res, ((kstep.INV, 0),))
 
 
 def test_flagship_dm_plans():
@@ -219,10 +243,10 @@ def test_flagship_dm_plans():
         res = step_res(plan, 2)
         assert not kstep.fits(res, kstep.INV, 0, LIMIT)
         # pass A: 512 threads, q / 16 a column (256 or 64 columns of one
-        # subband); pass B: 8 rows, 512 threads, the profile in shared
-        # memory (the search front end, Intensity: 4 rows, 256 threads)
+        # subband); pass B: 4 rows, 256 threads, as the search front end's
+        # on Intensity (two CTAs an SM)
         ta = MAX_THREADS // (q // 16)
-        assert kstep.fold_passes(res, plan, LIMIT) == (ta, 8, 0)
+        assert kstep.fold_passes(res, plan, LIMIT) == (ta, 4)
         assert kfil.inverse_passes(fil_res(plan, 1), plan, LIMIT) == (ta, 4)
         assert (kstep.forward_tiles(res, plan, LIMIT)[1] == 0) == (
             R2 == 8192)
@@ -689,40 +713,143 @@ def test_ring_walk(nitems, grid, NU):
             assert len(set(st)) == NU
 
 
+# ------------------------------------------- the fold's work division
+#
+# Mirrors of ``csrc/megastep.cu``'s fold (``mega_invfold``,
+# ``mega_invbfold``): a CTA an item (a window of one subband, or a pass-B
+# tile), thread k on its items k*per .. k*per + per - 1 in time order
+# (``fold_runs``), each run of one bin summed and added to the block
+# accumulator with the window weight (``add_run``), subband 0 counting the
+# hits.
+
+
+def fold_bin32(p0, dp, i, nbin):
+    """``fold_bin``: the phase bin of kept samples i, float32 with each
+    operation rounded (numpy does not contract to an FMA)."""
+    i = np.asarray(i)
+    phi = np.float32(p0) + np.float32(dp) * i.astype(np.float32)
+    frac = phi - np.floor(phi)
+    b = np.floor(frac * np.float32(nbin)).astype(np.int64)
+    return np.clip(b, 0, nbin - 1)
+
+
+def kept_range(w, nkeep, lo, hi):
+    """``kept_range``: the kept samples of window w inside [lo, hi)."""
+    return max(0, lo - w * nkeep), min(nkeep, hi - w * nkeep)
+
+
+def fold_runs(bins, nthreads):
+    """The runs ``fold_runs`` hands to ``add_run`` for one CTA's items in
+    time order (bins [n], -1 where an item does not fold): thread k takes
+    items k*per .. k*per + per - 1 (per = ceil(n / nthreads)) and sums
+    them while the bin stays the same, passing over items that do not
+    fold.  Returns, for each run in thread order, (thread, bin, its items'
+    indices)."""
+    n = len(bins)
+    per = -(-n // nthreads)
+    out = []
+    for k in range(nthreads):
+        items = np.arange(k * per, min(k * per + per, n))
+        items = items[bins[items] >= 0]
+        if not len(items):
+            continue
+        b = bins[items]
+        cut = np.flatnonzero(b[1:] != b[:-1]) + 1
+        for run in np.split(items, cut):
+            out.append((k, int(bins[run[0]]), run))
+    return out
+
+
+def item_bins(p0, dp, i, i0, i1, nbin):
+    """Bins of kept samples i (-1 outside [i0, i1))."""
+    ok = (i >= i0) & (i < i1)
+    return np.where(ok, fold_bin32(p0, dp, np.where(ok, i, 0), nbin), -1)
+
+
+def invfold_item(w, nkeep, phi0, dphi, lo, hi, nbin):
+    """``mega_invfold``'s samples for window w (any subband and channel):
+    the kept indices i0 .. i1 - 1 in time order and their bins; None when
+    none is kept."""
+    i0, i1 = kept_range(w, nkeep, lo, hi)
+    if i0 >= i1:
+        return None
+    i = np.arange(i0, i1)
+    return i, fold_bin32(phi0[w], dphi[w], i, nbin)
+
+
+def invbfold_item(j, w, q, S, R1, nfilt_pos, nkeep, phi0, dphi, lo, hi,
+                  nbin):
+    """``mega_invbfold``'s samples for tile j of a subband (rows j*S ..
+    j*S + S - 1 of it) and window w, in time order idx = n1*S + r: sample t
+    = j*S + r + q*n1, kept index t - nfilt_pos, and their bins (-1 where
+    not kept or outside [lo, hi)); None when the window keeps none."""
+    i0, i1 = kept_range(w, nkeep, lo, hi)
+    if i0 >= i1:
+        return None
+    idx = np.arange(S * R1)
+    i = j * S + (idx & (S - 1)) + q * (idx // S) - nfilt_pos
+    return i, item_bins(phi0[w], dphi[w], i, i0, i1, nbin)
+
+
+def fold_hits(runs, i, nbin, wt=1.0):
+    """What the runs add to the hits (subband 0): each run's count times
+    the window weight in its bin; also checks that every run's items share
+    its bin and that no item is in two runs."""
+    h = np.zeros(nbin)
+    seen = np.concatenate([r[2] for r in runs]) if runs else np.zeros(0, int)
+    assert len(np.unique(seen)) == len(seen)
+    for _, b, items in runs:
+        h[b] += len(items) * wt
+    return h, i[seen]
+
+
+def want_hits(npart, nkeep, phi0, dphi, lo, hi, nbin, wt=None):
+    """Every kept sample inside [lo, hi) once in its bin (``fold_bin32``),
+    times its window's weight ``wt[w]`` (1 when None)."""
+    h = np.zeros(nbin)
+    for w in range(npart):
+        i0, i1 = kept_range(w, nkeep, lo, hi)
+        if i0 < i1:
+            h += (1.0 if wt is None else wt[w]) * np.bincount(
+                fold_bin32(phi0[w], dphi[w], np.arange(i0, i1), nbin),
+                minlength=nbin)
+    return h
+
+
 def fold_mirror(z, R1, R2, q, tb, S, nfilt_pos, nkeep, phi0, dphi, nbin,
                 lo, hi):
-    """``mega_invbfold``'s tile walk on one pol (Intensity |x|^2): profiles
-    [nsub, nbin] and hits [nbin] (from the tiles of subband 0)."""
-    nsub = R2 // q
-    M = R1 * q
+    """``mega_invbfold`` on one pol (Intensity |x|^2) over its grid of
+    tiles: each tile's unscaled rows (``invb_rows``), its threads' runs
+    (``fold_runs``, ``invbfold_item``), each run's sums times 1/M^2 added to
+    its subband's profile; profiles [nsub, nbin] and hits [nbin] (from the
+    tiles of subband 0)."""
+    nsub, M, npart = R2 // q, R1 * q, z.shape[1]
+    nthreads = S * (R1 // fft_points(R1))
     prof = np.zeros((nsub, nbin))
     hits = np.zeros(nbin)
-    lg = S.bit_length() - 1
+    idx = np.arange(S * R1)
     for a in range(0, R2, S):
-        s, n2a = a // q, a % q
-        sm = invb_rows(z, R1, R2, tb, a, S)[..., 0, :] / M  # [S, R1, w]
-        idx = np.arange(S * R1)
-        n1, r = idx >> lg, idx & (S - 1)
-        i = n2a + r + q * n1 - nfilt_pos
-        for w in range(z.shape[1]):
-            g = w * nkeep + i
-            keep = (i >= 0) & (i < nkeep) & (g >= lo) & (g < hi)
-            ii = i[keep]
-            phi = np.float32(phi0[w]) + np.float32(dphi[w]) * ii.astype(
-                np.float32)
-            frac = (phi - np.floor(phi)).astype(np.float32)
-            b = np.minimum((frac * np.float32(nbin)).astype(np.int64),
-                           nbin - 1)
-            np.add.at(prof[s], b, np.abs(sm[r[keep], n1[keep], w]) ** 2)
-            if s == 0:
-                np.add.at(hits, b, 1)
+        s, j = a // q, (a % q) // S
+        rows = invb_rows(z, R1, R2, tb, a, S)[..., 0, :]  # [S, R1, w]
+        for w in range(npart):
+            got = invbfold_item(j, w, q, S, R1, nfilt_pos, nkeep, phi0, dphi,
+                                lo, hi, nbin)
+            if got is None:
+                continue
+            _, bins = got
+            v = np.abs(rows[idx & (S - 1), idx // S, w]) ** 2
+            for _, b, items in fold_runs(bins, nthreads):
+                prof[s, b] += v[items].sum() / M ** 2
+                if s == 0:
+                    hits[b] += len(items)
     return prof, hits
 
 
 @pytest.mark.parametrize("S", [1, 4, 8])
 def test_fold_tile_walk_matches_plain_fold(S):
     """Each kept sample of each subband lands in its bin once, inside the
-    bounds, and subband 0's tiles count every kept sample once."""
+    bounds, and subband 0's tiles count every kept sample once, through
+    the threads' runs of unscaled samples scaled by 1/M^2 a run."""
     R1, R2, q, nbin = 16, 64, 16, 8
     N, M = R1 * R2, R1 * q
     rng = np.random.default_rng(S)
@@ -748,6 +875,115 @@ def test_fold_tile_walk_matches_plain_fold(S):
         np.add.at(want[s], b[keep], (np.abs(v[:, s]) ** 2)[keep])
     assert _rel(prof, want) < TOL_MIRROR
     assert np.array_equal(hits, np.bincount(b[keep], minlength=nbin))
+
+
+@pytest.mark.parametrize("nthreads", [1, 4, 32, 256])
+@pytest.mark.parametrize("pattern", ["monotone", "random", "gaps"])
+def test_fold_runs_cover_items_once(nthreads, pattern):
+    """``fold_runs``' division: every item that folds is in exactly one
+    run, a run's items share its bin and lie in one thread's range in time
+    order, and a thread's consecutive runs differ in bin; items that do
+    not fold end no run."""
+    rng = np.random.default_rng(nthreads)
+    n = 1000
+    if pattern == "monotone":
+        bins = np.sort(rng.integers(0, 40, n))
+    elif pattern == "random":
+        bins = rng.integers(0, 6, n)
+    else:
+        bins = np.repeat(rng.integers(-1, 5, n // 10), 10)
+    runs = fold_runs(bins, nthreads)
+    per = -(-n // nthreads)
+    items = np.concatenate([r[2] for r in runs])
+    assert np.array_equal(np.sort(items), np.flatnonzero(bins >= 0))
+    for (k, b, run), nxt in zip(runs, runs[1:] + [None]):
+        assert (bins[run] == b).all()
+        assert (run // per == k).all() and (np.diff(run) > 0).all()
+        if nxt is not None and nxt[0] == k:
+            assert nxt[1] != b
+    if pattern == "gaps":
+        # a run passes over items that do not fold
+        ok = bins >= 0
+        assert len(runs) <= (np.diff(bins[ok]) != 0).sum() + nthreads
+
+
+def _anchors(npart, nkeep, period_samples, phase0, jitter=0.0, rng=None):
+    """Anchors of consecutive windows as a predictor gives them: dphi the
+    turns a sample, phi0 the phase at each window's first kept sample
+    (``jitter`` turns of noise where windows need not join)."""
+    dphi = np.full(npart, 1.0 / period_samples, np.float32)
+    phi0 = (phase0 + np.arange(npart) * nkeep / period_samples)
+    if jitter:
+        phi0 = phi0 + rng.uniform(-jitter, jitter, npart)
+    return phi0.astype(np.float32), dphi
+
+
+#: (name, kernel, windows, kept samples a window, nbin, samples a turn,
+#: threads a CTA or pass B's (q, S, R1, nfilt_pos)): the test geometry's
+#: and the main path's plans (the flagship: 256 threads; mega_guppi_2bit:
+#: 128; J1713 and J0613: pass B at FOLD_ROWS = 4 rows, 256 threads)
+WALK_PLANS = [
+    ("test", "invfold", 3, 61, 8, 700.0, 4),
+    ("flagship", "invfold", 75, 3520, 1024, 35982.8, 256),
+    ("mega_guppi_2bit", "invfold", 16, 2016, 1024, 1124.2, 128),
+    ("mega_j1713", "invbfold", 9, 29184, 1024, 35982.8,
+     (32, kstep.FOLD_ROWS, 1024, 1700)),
+    ("mega_j0613", "invbfold", 8, 121856, 1024, 35982.8,
+     (128, kstep.FOLD_ROWS, 1024, 4122)),
+]
+
+
+@pytest.mark.parametrize("case", ["plain", "wrap", "turns", "bounds",
+                                  "weights"])
+@pytest.mark.parametrize("plan", WALK_PLANS, ids=lambda p: p[0])
+def test_fold_walk_folds_every_sample_once(plan, case):
+    """Both fold kernels' division at the test geometry and the main path's
+    plans: every kept sample inside [lo, hi) of every window of nonzero
+    weight is in exactly one run of one thread, in its ``fold_bin`` bin,
+    so the hits (subband 0: the count of each run times the window
+    weight) equal every kept sample once; with windows that start just
+    before a turn, windows over several turns, bounds inside a window and
+    windows of weight 0 (skipped whole)."""
+    name, kernel, npart, nkeep, nbin, per_turn, geo = plan
+    rng = np.random.default_rng(len(name) + len(case))
+    lo, hi, wt = 0, npart * nkeep, np.ones(npart)
+    phi0, dphi = _anchors(npart, nkeep, per_turn, 0.37)
+    if case == "wrap":
+        # each window's first kept sample a few bins before a turn
+        phi0 = (np.floor(phi0) + 1 - 3.0 / nbin).astype(np.float32)
+    elif case == "turns":
+        phi0, dphi = _anchors(npart, nkeep, nkeep / 3.7, 0.81, 0.3, rng)
+    elif case == "bounds":
+        lo, hi = nkeep // 3, npart * nkeep - nkeep // 2 - 7
+    elif case == "weights":
+        wt[::3] = 0
+        wt[1] = 0.5
+    hits = np.zeros(nbin)
+    for w in range(npart):
+        if wt[w] == 0:
+            continue
+        if kernel == "invfold":
+            got = invfold_item(w, nkeep, phi0, dphi, lo, hi, nbin)
+            items = [got] if got else []
+            nthreads = geo
+        else:
+            q, S, R1, nfilt_pos = geo
+            nthreads = S * R1 // 16
+            items = [invbfold_item(j, w, q, S, R1, nfilt_pos, nkeep, phi0,
+                                   dphi, lo, hi, nbin) for j in range(q // S)]
+            items = [x for x in items if x is not None]
+        folded = []
+        for i, bins in items:
+            h, seen = fold_hits(fold_runs(bins, nthreads), i, nbin, wt[w])
+            hits += h
+            folded.append(seen)
+        if items:
+            # every kept sample of the window once, in one tile's run
+            i0, i1 = kept_range(w, nkeep, lo, hi)
+            folded = np.sort(np.concatenate(folded))
+            assert np.array_equal(folded, np.arange(i0, i1))
+    assert np.array_equal(hits, want_hits(npart, nkeep, phi0, dphi, lo, hi,
+                                          nbin, wt))
 
 
 def rowfft_mirror(cbuf, L, tw):
