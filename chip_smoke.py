@@ -1729,13 +1729,27 @@ def pass_ms(times: dict, name: str, tag: str) -> float:
     return ms
 
 
+def row_library_ms(plan, npart: int, reps: int = 5) -> float:
+    """Mean milliseconds of ``torch.fft.fft`` over the stage-1 rows of one
+    real block (``[nchan_in * npart * R1, row_len]`` complex64 noise made
+    on the card): the one library call that computes ``mega_rowfft``'s
+    function, timed as its yardstick and used nowhere in the port."""
+    x = torch.randn(plan.nchan_in * npart * plan.R1, plan.row_len,
+                    dtype=torch.complex64, device="cuda")
+    torch.fft.fft(x, dim=-1)
+    ms = cuda_ms(lambda: torch.fft.fft(x, dim=-1), reps)
+    del x
+    return ms
+
+
 def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
                 out_bytes: int, times: dict) -> None:
     """Print the multi-pass inverse's and the long row pass's kernel times
-    (``times``, from :func:`kernel_breakdown`) against their bounds: the
-    DM phases (``DM_FOLD``, ``DM_SEARCH``) must have run the multi-pass
-    inverse, and real input at R2 = 8192 the long row pass; the other
-    blocks must have run neither."""
+    (``times``, from :func:`kernel_breakdown`) against their bounds, and
+    for the long row pass the library call of its FFT
+    (:func:`row_library_ms`): the DM phases (``DM_FOLD``, ``DM_SEARCH``)
+    must have run the multi-pass inverse, and real input at R2 = 8192 the
+    long row pass; the other blocks must have run neither."""
     multipass = name in DM_FOLD or name in DM_SEARCH
     rows = multipass and plan.real_input and plan.R2 == 8192
     ran = {k.split("<")[0] for k in times}
@@ -1755,6 +1769,8 @@ def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
         parts += [f"{k} {pass_ms(times, 'mega_' + k, name):.3f} ms (bound "
                   f"{v['bound_ms']:.4f} ms, {v['bound_by']})"
                   for k, v in row_bounds(plan, npart, nout).items()]
+        parts.append(f"torch.fft.fft of the same rows (library yardstick "
+                     f"of mega_rowfft) {row_library_ms(plan, npart):.3f} ms")
     if parts:
         print(f"{name} passes per block: {'; '.join(parts)} [{card}]",
               flush=True)
@@ -1829,8 +1845,9 @@ def print_passes(card: str, tag: str, plan, npart: int, nf: int,
     ``mega_fwd1`` (:func:`forward_passes`; R1-point FFTs of every column),
     after a pre-pass also the two as one function (raw codes in, ``cbuf``
     out), and the row pass (row_len-point FFTs of every row and 16
-    operations a kept bin and pol; the long row pass is
-    :func:`pass_bounds`'s).  Fails when the step did not run one of them.
+    operations a kept bin and pol; where the long row pass ran, its two
+    kernels as that one function, and each against its own bound in
+    :func:`pass_bounds`).  Fails when the step did not run one of them.
     Returns each pass's milliseconds (``"fused"``: ``mega_fwd1`` with its
     pre-pass)."""
     ran = {k.split("<")[0] for k in times}
@@ -1844,15 +1861,20 @@ def print_passes(card: str, tag: str, plan, npart: int, nf: int,
     if plan.real_input and nf == 2:
         nb = raw_bytes + 8 * plan.nchan_in * npart
         bounds["mega_polpow"] = dict(bound_of(nb, 0), bytes=nb)
+    long_rows = ("mega_rowfft", "mega_rowpair")
     for name, nb in passes.items():
-        if name == "fused" or (name == "mega_fwd2" and "mega_rowfft" in ran):
+        if name == "fused":
             continue
+        if name == "mega_fwd2" and long_rows[0] in ran:
+            name = " + ".join(long_rows)
         ops = (fwd1_ops if name == "mega_fwd1"
-               else row_ops if name.startswith("mega_fwd2") else 0)
+               else row_ops if name.startswith(("mega_fwd2", "mega_row"))
+               else 0)
         bounds[name] = dict(bound_of(nb, ops), bytes=nb)
     if inverse:
         bounds[inverse] = inverse_bound(plan, npart, nf, out_bytes)
-    ms = {name: pass_ms(times, name, tag) for name in bounds}
+    ms = {name: sum(pass_ms(times, n, tag) for n in name.split(" + "))
+          for name in bounds}
     parts = [pass_line(name, ms[name], b) for name, b in bounds.items()]
     pre = [n for n in ("mega_ftp", "mega_ftpw", "mega_ja98") if n in ms]
     ms["fused"] = sum(ms[n] for n in pre) + ms["mega_fwd1"]

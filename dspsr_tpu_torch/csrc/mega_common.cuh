@@ -1354,7 +1354,19 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
 //                 (row_len - k2) mod row_len), read from cbuf, then
 //                 separate_store.  A warp reads 4 consecutive columns (one
 //                 32-byte sector) of 8 rows and stores runs of 8 k1.
-// Against mega_fwd2 it writes and reads the stage-2 rows once more.
+// Against mega_fwd2 it writes and reads the stage-2 rows once more: 4.3 GB
+// a J0613-0200 block where the function needs 2.21 (0.661 ms at the
+// device-memory rate), in 1.02 + 0.94 ms (H100 80GB HBM3, 700 W).
+// mega_rowfft is held by its load and transform at one CTA an SM (0.79 ms
+// without its store; torch.fft.fft over the same rows takes 0.78-0.80).
+// Not kept: one kernel in clusters of 8 one-row CTAs (4 row pairs) that
+// separates each rank's slice of k2 from the cluster's distributed shared
+// memory, so the rows never return to device memory.  It took 2.39-2.51
+// ms a block: at one CTA an SM its transform (1.00 ms alone) and its
+// stores (0.94 more even when made contiguous) run one after the other,
+// where the pair overlaps its CTAs' phases through occupancy.  A row split
+// over two CTAs that share an SM, and bulk stores from shared memory, were
+// not tried.
 template <int P>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_rowfft(float2* __restrict__ cbuf, Tables tb, int npart, int R1,

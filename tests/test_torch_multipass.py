@@ -1032,7 +1032,8 @@ def rowpair_mirror(g, C, e, chirp, store=None):
 
 
 @pytest.mark.parametrize("R1,R2,pols", [(16, 16, (0, 1)), (8, 64, (0, 1)),
-                                        (32, 32, (1,)), (16, 128, (0, 1))])
+                                        (32, 32, (1,)), (16, 128, (0, 1)),
+                                        (8, 32, (0, 1))])
 def test_long_row_pass_mirror(R1, R2, pols):
     """The long row pass (one row an FFT with 32 points a thread, then the
     pair pass through device memory) stores what ``mega_fwd2`` stores, and
