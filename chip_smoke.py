@@ -1177,11 +1177,12 @@ def cyclic_block(card: str) -> dict:
     inv = bound_of(2 * npart * plan.n_fft * 8 + 8 * got.numel(),
                    2 * npart * plan.nsub * (5 * M * math.log2(M)
                                             + 2 * plan.nkeep))
+    inv["bytes"] = 2 * npart * plan.n_fft * 8 + 8 * got.numel()
     inv_ms = pass_ms(times, "megafil_invvolt", "cyclic block")
     print(f"megafil (voltage) per cyclic block: {kernel_ms:.3f} ms; plain: "
           f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']}); megafil_invvolt {inv_ms:.3f} ms against "
-          f"its bound {inv['bound_ms']:.4f} ms ({inv['bound_by']}) [{card}]",
+          f"({bound['bound_by']}); "
+          f"{pass_line('megafil_invvolt', inv_ms, inv)} [{card}]",
           flush=True)
 
     phi0, dphi = cyclic_anchors(pipe)
@@ -1729,17 +1730,49 @@ def pass_ms(times: dict, name: str, tag: str) -> float:
     return ms
 
 
-def row_library_ms(plan, npart: int, reps: int = 5) -> float:
+def traced_kernels(fn) -> list:
+    """The kernels one call of ``fn`` launches on the card, as the
+    profiler's trace records them: name, grid, block, registers a thread,
+    shared memory a block (bytes) and microseconds of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = []
+    for _ in range(3):  # a trace has come back without its kernels
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = [dict(name=ev.get("name", "?"),
+                        grid=ev["args"].get("grid"),
+                        block=ev["args"].get("block"),
+                        regs=ev["args"].get("registers per thread"),
+                        smem=ev["args"].get("shared memory"),
+                        us=ev.get("dur"))
+                   for ev in events if ev.get("cat") == "kernel"]
+        if kernels:
+            break
+    return kernels
+
+
+def row_library_ms(plan, npart: int, reps: int = 5) -> tuple:
     """Mean milliseconds of ``torch.fft.fft`` over the stage-1 rows of one
     real block (``[nchan_in * npart * R1, row_len]`` complex64 noise made
     on the card): the one library call that computes ``mega_rowfft``'s
-    function, timed as its yardstick and used nowhere in the port."""
+    function, timed as its yardstick and used nowhere in the port; and the
+    shape of the kernels it launches (:func:`traced_kernels`), which shows
+    what the card rewards on these rows."""
     x = torch.randn(plan.nchan_in * npart * plan.R1, plan.row_len,
                     dtype=torch.complex64, device="cuda")
     torch.fft.fft(x, dim=-1)
     ms = cuda_ms(lambda: torch.fft.fft(x, dim=-1), reps)
+    shape = traced_kernels(lambda: torch.fft.fft(x, dim=-1))
     del x
-    return ms
+    return ms, shape
 
 
 def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
@@ -1769,11 +1802,34 @@ def pass_bounds(card: str, name: str, plan, npart: int, nout: int,
         parts += [f"{k} {pass_ms(times, 'mega_' + k, name):.3f} ms (bound "
                   f"{v['bound_ms']:.4f} ms, {v['bound_by']})"
                   for k, v in row_bounds(plan, npart, nout).items()]
+        lib_ms, shape = row_library_ms(plan, npart)
         parts.append(f"torch.fft.fft of the same rows (library yardstick "
-                     f"of mega_rowfft) {row_library_ms(plan, npart):.3f} ms")
+                     f"of mega_rowfft) {lib_ms:.3f} ms")
+        print(f"{name} yardstick torch.fft.fft kernels: " + ("; ".join(
+            f"{k['name'][:48]} grid {k['grid']} block {k['block']}, "
+            f"{k['regs']} registers, {k['smem']} B shared, {k['us']} us"
+            for k in shape) or "none in the profiler's trace"), flush=True)
+        print_row_attributes(name, plan, name in DM_FOLD)
     if parts:
         print(f"{name} passes per block: {'; '.join(parts)} [{card}]",
               flush=True)
+
+
+def print_row_attributes(tag: str, plan, fold: bool) -> dict:
+    """Print the long row pass's ``mega_rowfft`` (as the fold step's
+    library, or the search front end's, built it): registers and local
+    bytes a thread, its cluster and how many clusters the card holds at
+    once; fails unless it spills nothing and runs two CTAs a row."""
+    from dspsr_tpu_torch.kernels.megastep import row_attributes
+
+    a = row_attributes(plan, "megastep" if fold else "megafil")
+    print(f"{tag} mega_rowfft: {a['regs']} registers, {a['local_bytes']} B "
+          f"local a thread (blocks of at most {a['max_threads']}), clusters "
+          f"of {a['cluster']} CTAs, {a['clusters_at_once']} clusters at once",
+          flush=True)
+    check(a["local_bytes"] == 0 and a["cluster"] == 2,
+          f"{tag} mega_rowfft attributes {a}")
+    return a
 
 
 def inverse_bound(plan, npart: int, nout: int, out_bytes: int) -> dict:
@@ -2220,18 +2276,59 @@ FTP_CASES = ([("complex", dict(nchan_in=n, **kw), None)
              + [("real", dict(nchan_in=2), "tukey")])
 
 
+def ja98_extras_plain(plan, cst, raw: torch.Tensor, codes: torch.Tensor,
+                      nlow: torch.Tensor) -> tuple:
+    """The JA98 pre-pass's block weights and channel-transposed copy,
+    plain: the least ``weight[nlow]`` over each channel's digitizers
+    ``[nchan_in, nweights]``, and the copy's bytes of each channel
+    ``[nchan_in, T * unit]`` (its samples' 4 codes in one byte where they
+    fill one, else a byte a code; None for one channel), from the block's
+    ``raw`` bytes, its ``codes [nchan_in, npol, ndim, T]`` and the plain
+    ``nlow``."""
+    nci, npd = plan.nchan_in, plan.npol * plan.ndim
+    wblk = cst.twobit[2][nlow].reshape(nci, npd, -1).amin(1)
+    if nci == 1:
+        return wblk, None
+    T = codes.shape[-1]
+    if npd == 4:
+        return wblk, raw.reshape(T, nci).t().contiguous()
+    return wblk, codes.reshape(nci, npd, T).transpose(1, 2).reshape(nci, -1)
+
+
+def ja98_against_plain(what: str, plan, cst, raw: torch.Tensor, npart: int,
+                       codes: torch.Tensor) -> tuple:
+    """The JA98 pre-pass alone (``ja98_cuda(full=True)``) against plain on
+    one block, bit for bit: nlow, window weights, block weights and (with
+    nchan_in > 1) the channel-transposed copy the forward half reads.
+    Returns the plain nlow and window weights."""
+    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
+    from dspsr_tpu_torch.ops.megakernel import twobit_plain
+
+    nlow, wwin, wblk, copy = ja98_cuda(plan, cst, raw, npart, full=True)
+    pn, pw = twobit_plain(plan, cst, codes, npart)
+    pb, pc = ja98_extras_plain(plan, cst, raw, codes, pn)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(nlow.long(), pn)), f"{what}: nlow")
+    check(bool(torch.equal(wwin, pw)), f"{what}: window weights")
+    check(bool(torch.equal(wblk, pb)), f"{what}: block weights")
+    check((copy is None) == (pc is None)
+          and (pc is None or bool(torch.equal(copy[:, :pc.shape[1]], pc))),
+          f"{what}: transposed copy")
+    return pn, pw
+
+
 def small_checks_unpack(cases=None) -> None:
     """Both kernels (f32) against their plain versions (f64) at the test
     geometry on every unpack variant (JA98 real and complex, fixed-level
     1/2/4-bit plain and two's complement, float32, apodization windows;
     ``cases``, default UNPACK_CASES): the fold step within TOL_SMALL with
     hits exact, the front end's detected and voltage outputs within
-    TOL_SMALL with its weights exactly equal, and the JA98 pre-pass's nlow
-    and window weights exactly equal."""
-    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
+    TOL_SMALL with its weights exactly equal, and the JA98 pre-pass's nlow,
+    window and block weights and transposed copy exactly equal
+    (:func:`ja98_against_plain`)."""
     from dspsr_tpu_torch.ops.megakernel import (
         build_megafil, build_megastep, bytes_to_codes, megafil_plain,
-        megastep_plain, twobit_plain)
+        megastep_plain)
 
     npart, nbin = 3, 32
     rng = np.random.default_rng(12)
@@ -2263,12 +2360,9 @@ def small_checks_unpack(cases=None) -> None:
         torch.cuda.synchronize()
         extra = ""
         if plan.npw:
-            nlow, wwin = ja98_cuda(plan, cst, raw, npart)
             codes = bytes_to_codes(raw, 2).reshape(
                 -1, nci, plan.npol, plan.ndim).permute(1, 2, 3, 0)
-            pn, pw = twobit_plain(plan, cst, codes, npart)
-            check(bool(torch.equal(nlow.long(), pn)), f"{what}: nlow")
-            check(bool(torch.equal(wwin, pw)), f"{what}: window weights")
+            _, pw = ja98_against_plain(what, plan, cst, raw, npart, codes)
             check(float(pw[0, 0]) == 0 and float(pw.sum()) == pw.numel() - 1,
                   f"{what}: excised windows {pw.tolist()}")
             extra = f", window weights {pw.tolist()}"
@@ -2445,9 +2539,7 @@ def guppi2_block(card: str) -> dict:
     against plain, and the excised windows against those the stretches
     give; then each pass against its bytes and the step against its
     bound."""
-    from dspsr_tpu_torch.kernels.megastep import ja98_cuda
-    from dspsr_tpu_torch.ops.megakernel import (
-        bytes_to_codes, megastep_plain, twobit_plain)
+    from dspsr_tpu_torch.ops.megakernel import bytes_to_codes, megastep_plain
 
     pipe = guppi2_pipe()
     plan, cst, npart = pipe.mega_plan, pipe.constants, pipe.npart
@@ -2462,29 +2554,28 @@ def guppi2_block(card: str) -> dict:
     hits0 = torch.zeros(32, plan.nbin, device="cuda")
     pk, hk = pipe._megastep(prof0, hits0, raw, phi0, dphi)
     pp, hp = megastep_plain(plan, cst, prof0, hits0, raw, phi0, dphi)
-    nlow, wwin = ja98_cuda(plan, cst, raw, npart)
     codes = bytes_to_codes(raw, 2).reshape(-1, 32, 2, 2).permute(1, 2, 3, 0)
-    pn, pw = twobit_plain(plan, cst, codes, npart)
+    # nlow, window and block weights and the transposed copy, bit for bit
+    pn, pw = ja98_against_plain("mega_guppi_2bit", plan, cst, raw, npart,
+                                codes)
     del codes
     torch.cuda.synchronize()
     err = rel_err(pk, pp)
     abs_err = float((pk - pp).abs().max())
     hdiff = float((hk - hp).abs().max())
     want_w = guppi2_expected_weights(pipe, 0)
-    excised = int((wwin == 0).sum())
+    excised = int((pw == 0).sum())
     print(f"mega_guppi_2bit block (nsub {plan.nsub} R1 {plan.R1} R2 "
           f"{plan.R2} npw {plan.npw}, npart {npart}, raw {raw.numel()} B "
           f"made in {gen_s * 1e3:.1f} ms): rel err {err:.3e} (abs "
           f"{abs_err:.3e}), hits diff {hdiff}; excised windows {excised} "
-          f"(plain {int((pw == 0).sum())}, from the stretches "
+          f"(kernel and plain equal, from the stretches "
           f"{int((want_w == 0).sum())}); nlow range "
-          f"{int(nlow.min())}-{int(nlow.max())}", flush=True)
+          f"{int(pn.min())}-{int(pn.max())}", flush=True)
     check(bool(torch.isfinite(pk).all()), "mega_guppi_2bit finite")
     check(err < TOL_FLAGSHIP, f"mega_guppi_2bit rel err {err} >= "
           f"{TOL_FLAGSHIP}")
     check(hdiff == 0, "mega_guppi_2bit hits differ")
-    check(bool(torch.equal(nlow.long(), pn)), "mega_guppi_2bit nlow")
-    check(bool(torch.equal(wwin, pw)), "mega_guppi_2bit window weights")
     check(np.array_equal(pw.cpu().numpy(), want_w) and 0 < excised,
           "mega_guppi_2bit excised windows")
     per_chan = hk.sum(1).cpu().numpy()

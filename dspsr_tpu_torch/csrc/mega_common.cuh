@@ -204,6 +204,21 @@
 //    at J0613; megafil_invb 1.16 -> 0.75; mega_invfold 1.44 -> 1.23 on
 //    mega_guppi_2bit, but 0.272 -> 0.278-0.282 on the flagship; the
 //    flagship fold step 1.23 -> 1.07-1.08.
+// 10. The long row pass's row FFT (mega_rowfft) over a cluster of two
+//    CTAs, half a row each: a 16384-point row in one CTA took 139 KB and
+//    ran one CTA an SM, its load, transform and store one after another
+//    (1.02 ms a J0613-0200 block against torch.fft.fft's 0.81).  Two
+//    69 KB half-row CTAs an SM overlap one's loads with the other's
+//    transform; the first radix-2 stage is exchanged through distributed
+//    shared memory, and the half length is a template parameter, so that
+//    the passes unroll and nothing spills (0.87 ms; the note above
+//    mega_rowfft gives the split and what was not kept).
+// 11. mega_ja98's counts and copy (see the note above it): at
+//    mega_guppi_2bit's 32 channels of one byte a sample, 128-thread CTAs of
+//    4 blocks transpose 4x4 byte blocks in registers from word loads of a
+//    padded tile and count the low codes in nibble lanes of the
+//    transposed words (0.058 ms a block against 0.086 for byte loads and
+//    a count a byte; H100 80GB HBM3, 700 W).
 //
 // The multi-pass inverse's pass A (mega_inva, for a subband inverse past
 // one CTA), which both kernels run, lives here too; see item 8 and the note
@@ -254,8 +269,12 @@ __host__ __device__ constexpr int seq_ld(int L) { return L + (L >> 4) + 1; }
 __host__ __device__ constexpr int fft_points(int L) { return L >= 16 ? 16 : L; }
 
 // Points each thread holds in the long row pass (mega_rowfft): 32, so that
-// a row of 16384 points takes 512 threads.
+// half a row of 8192 points takes 256 threads, or at half rows of 16
+// points (the shortest) all 16.
 constexpr int kRowPoints = 32;
+__host__ __device__ constexpr int row_points(int H) {
+  return H >= kRowPoints ? kRowPoints : H;
+}
 
 __host__ __device__ constexpr int ilog2c(int x) {
   return x <= 1 ? 0 : 1 + ilog2c(x >> 1);
@@ -344,14 +363,14 @@ __device__ __forceinline__ void dft(float2 (&x)[R]) {
 // (lgP = log2 of the points a thread holds, capped at 4): the first pass is
 // radix 2^lgP, the rest split the remaining bits as evenly as possible,
 // larger first (512 = 16*8*4, 1024 = 16*8*8, 4096 = 16*16*16).
-__host__ __device__ inline int pass_bits(int s, int logL, int lgP) {
+__host__ __device__ constexpr int pass_bits(int s, int logL, int lgP) {
   if (s == 0) return lgP;
   const int rem = logL - lgP;
   const int n = (rem + lgP - 1) / lgP;
   return rem / n + (s - 1 < rem % n ? 1 : 0);
 }
 
-__host__ __device__ inline int num_passes(int logL, int lgP) {
+__host__ __device__ constexpr int num_passes(int logL, int lgP) {
   return 1 + (logL - lgP + lgP - 1) / lgP;
 }
 
@@ -418,10 +437,10 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[P], float2* seq, int j,
 // writes.  tw is the length-L table: for each pass s >= 1 in turn,
 // (R_s - 1)*Ns_s entries exp(-2 pi i k r / (Ns_s R_s)) at (r-1)*Ns_s + k
 // (L - P entries in all).  Every thread of the block calls it.  With P = 32
-// (the long row pass) no pass is wider than radix 16: a thread runs two
-// butterflies a pass, and the passes (and so the tables) are those of P =
-// 16.  idx places an element of a sequence (PadIdx, or ColIdx for a column
-// of a tile).
+// (as the long row pass's fft_keep runs) no pass is wider than radix 16: a
+// thread runs two butterflies a pass, and the passes (and so the tables)
+// are those of P = 16.  idx places an element of a sequence (PadIdx, or
+// ColIdx for a column of a tile).
 template <int P, int NS, int DIR, bool KEEP, class Load, class Idx = PadIdx>
 __device__ __forceinline__ void fft_seqs(float2 (&v)[P], Load load,
                                          float2* seq, int seq_stride, int j,
@@ -461,6 +480,29 @@ __device__ __forceinline__ void fft_seqs(float2 (&v)[P], Load load,
     Ns <<= bits;
   }
   if (!KEEP) __syncthreads();
+}
+
+// fft_seqs for one sequence of a length L known at compile time, the
+// result kept in registers (v[i] = X[j + T*i] on return, T = L/P), v
+// holding the input already: the passes unrolled, so that every radix,
+// span and table offset is a constant, and the barriers those of fft_seqs.
+template <int P, int DIR, int L, int S = 0, int NSP = 1>
+__device__ __forceinline__ void fft_keep(float2 (&v)[P], float2* seq, int j,
+                                         const float2* __restrict__ tw) {
+  constexpr int lgP = ilog2c(P) > 4 ? 4 : ilog2c(P);
+  constexpr int np = num_passes(ilog2c(L), lgP);
+  constexpr int bits = pass_bits(S, ilog2c(L), lgP);
+  constexpr int T = L / P;
+  if constexpr (S > 0) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = seq[sidx(j + T * i)];
+    __syncthreads();
+  }
+  fft_pass<P, (1 << bits), DIR>(v, seq, j, T, NSP, S == np - 1, tw);
+  if constexpr (S + 1 < np)
+    fft_keep<P, DIR, L, S + 1, NSP * (1 << bits)>(
+        v, seq, j, S > 0 ? tw + ((1 << bits) - 1) * NSP : tw);
 }
 
 __device__ __forceinline__ float unpack(uint8_t byte, int twos, float scale,
@@ -730,70 +772,421 @@ mega_ftpw(const uint8_t* __restrict__ raw, uint8_t* __restrict__ ftp,
   store_widened<NBIT>(span, nchan, npd, twos, ftp, tp, t0, tt);
 }
 
-// The JA98 pre-pass, one CTA per npw-sample block (see the note at the
-// top).  The block's npw*ndig codes are bytes [blk*nb, (blk+1)*nb), nb =
-// npw*ndig/4, read in chunks of TT samples (cb = TT*ndig/4 bytes, a
-// multiple of pb) into shared memory with 16-byte loads; field f of byte k
-// is code 4k + f of the block, of digitizer (4k + f) mod ndig, which is the
-// same for every k of one residue r = k mod pb (pb = ndig / gcd(ndig, 4)).
-// So each thread sums the four fields of the chunk's bytes of one residue
-// and adds them into a shared count per digitizer.  With ftp (nchan > 1)
-// each chunk is also stored to the channel-transposed copy (mega_ftp: whole
-// bytes when a channel's codes of a sample fill one, else widened), so the
-// transpose costs only its writes.  Writes nlow[dig, blk] and wblk[c, blk],
-// the least of weight[nlow] over channel c's nd_chan digitizers.
-__global__ void __launch_bounds__(kThreads)
+// Shared-memory address of a generic pointer to shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous copies global -> shared of 16 bytes (L2 only) or 8 bytes,
+// committed as one group a call of cp_commit; cp_wait(n) returns once at
+// most n of this thread's groups are pending (n < 3).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// The JA98 pre-pass (see the note at the top): one CTA per kJa98Blocks
+// consecutive npw-sample blocks, streamed in chunks of TT samples (cb =
+// TT*ndig/4 bytes, TT dividing npw): each chunk is staged in shared memory
+// with 16-byte cp.async copies while the chunk before it is counted (two
+// buffers, one barrier a chunk).  The counts come from 32-bit words of one
+// channel's code stream, in which every field of a word belongs to a
+// digitizer known from its position alone: with nchan > 1 the
+// channel-transposed copy's words as the chunk is stored to it (mega_ftp's
+// layout: whole bytes when a channel's codes of a sample fill one, else
+// widened), with one channel the staged words themselves.  Where channels
+// of one byte a sample come in a power of two of 16 to 128 (ja98_group;
+// mega_guppi_2bit's 32) the word path ja98_rows4 transposes 4x4 byte
+// blocks in registers and counts in nibble lanes; elsewhere a popc a
+// digitizer and word counts (ja98_count) and lane pairs that hold one
+// channel add their counts with a shuffle.  The counts of the CTA's blocks
+// stay in shared memory ([kJa98Blocks][ndig | 1] words) until the end,
+// when nlow[dig, blk] and wblk[c, blk] (the least of weight[nlow] over
+// channel c's nd_chan digitizers) go out as runs of the CTA's blocks.
+// Counts, weights and copy are integers and bytes, equal to the plain
+// version's.  Measured a mega_guppi_2bit block (H100 80GB HBM3, 700 W):
+// 0.058 ms (2.31 TB/s for its 135 MB) against the parent's 0.086 (one
+// 256-thread CTA a block, the count a byte at a time from shared memory,
+// the copy gathered a byte at a time); without the count 0.058, the
+// parent's without its count 0.063.  Not kept: the copy gathered a byte at
+// a time with a popc count (0.086-0.100 at 2-4 stages, 2-8 blocks a CTA,
+// 4-8 CTAs an SM); one block a CTA (0.064); 8 blocks and 3 stages (0.063).
+constexpr int kJa98Blocks = 4;
+constexpr int kJa98Stages = 2;  // chunks in shared memory (1 in flight)
+constexpr int kJa98Threads = 128;
+constexpr int kJa98MinBlocks = 8;  // CTAs an SM (the register cap)
+
+// Low-state bits of the 16 two-bit fields of a word: bit 2f is set where
+// field f holds code 1 or 2.  Widened codes (a byte a code, 0..3) leave
+// their bit in bit 0 of each byte.
+__device__ __forceinline__ unsigned ja98_low(unsigned w) {
+  return ((w >> 1) ^ w) & 0x55555555u;
+}
+
+// The low-bit mask of digitizer d (d < nd, else 0) in a word of one
+// channel's stream: packed units (4 codes a byte, field f of every byte of
+// digitizer f mod nd, the most significant field first) or widened ones
+// (byte p of the word of digitizer p mod nd).
+__device__ __forceinline__ unsigned ja98_mask(int d, int nd, bool widened) {
+  unsigned m = 0u;
+  if (d < nd) {
+    if (widened)
+      for (int p = d; p < 4; p += nd) m |= 1u << (8 * p);
+    else
+      for (int f = d; f < 4; f += nd) m |= 0x01010101u << (6 - 2 * f);
+  }
+  return m;
+}
+
+__device__ __forceinline__ void ja98_count(unsigned w,
+                                           const unsigned (&mask)[4],
+                                           unsigned (&n)[4]) {
+  const unsigned low = ja98_low(w);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) n[d] += __popc(low & mask[d]);
+}
+
+// Add the counts n of one channel (nd digitizers at cnt) held by a lane
+// pair: the pair's sum by one shuffle, then digitizer d from the lane of
+// its parity.  Both lanes of the pair call it.
+__device__ __forceinline__ void ja98_add(unsigned* cnt, int nd,
+                                         unsigned (&n)[4]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned pair = 3u << (lane & 30);
+  const int h = lane & 1;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    n[d] += __shfl_xor_sync(pair, n[d], 1);
+    if (d < nd && (d & 1) == h) atomicAdd(cnt + d, n[d]);
+  }
+}
+
+// The word path of the copy (ja98_rows4): channels of one byte a sample
+// (nd_chan == 4), 4 ncw of them with ncw a power of two from 4 to 32, and
+// chunks of whole 16-sample vectors.  Its chunks are staged with kJa98Pad
+// bytes after every 16 rows (gsize = 16*nchan bytes), so that the lanes of
+// a warp that read one word column of 4 consecutive row groups fall in
+// other banks.  ja98_group gives gsize, or 0 for no pad.
+constexpr int kJa98Pad = 32;
+__host__ __device__ inline int ja98_group(int nchan, int nd_chan, int TT,
+                                          bool copy) {
+  const int ncw = nchan >> 2;
+  return copy && nd_chan == 4 && (nchan & 3) == 0 && ncw >= 4 &&
+                 ncw <= 32 && (ncw & (ncw - 1)) == 0 && TT % 16 == 0
+             ? 16 * nchan
+             : 0;
+}
+
+// Bytes of one staged chunk of cb bytes (gsize as ja98_group), a multiple
+// of 16.
+__host__ __device__ inline int ja98_chunk_bytes(int cb, int gsize) {
+  return ((cb + 15) & ~15) + (gsize ? cb / gsize * kJa98Pad : 0);
+}
+
+// Stage n contiguous bytes in shared memory (a pad of kJa98Pad bytes after
+// every gsize, when gsize is not 0): 16-byte cp.async copies when the
+// source allows them, else plain byte copies; one commit either way.
+__device__ __forceinline__ void ja98_stage(uint8_t* dst,
+                                           const uint8_t* __restrict__ src,
+                                           int n, int gsize) {
+  if ((((uintptr_t)src | (uintptr_t)n) & 15) == 0) {
+    for (int i = threadIdx.x; i < (n >> 4); i += blockDim.x) {
+      const int o = 16 * i;
+      cp_async16(dst + o + (gsize ? o / gsize * kJa98Pad : 0), src + o);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      dst[i + (gsize ? i / gsize * kJa98Pad : 0)] = __ldg(src + i);
+  }
+  cp_commit();
+}
+
+// Sum of the 4 bytes of x.
+__device__ __forceinline__ unsigned hsum4(unsigned x) {
+  return (x * 0x01010101u) >> 24;
+}
+
+// One chunk of tt time samples of the word path (see ja98_group), staged
+// with the pad: item (word column cw, 16-sample vector v), cw fastest,
+// reads the 16 words of column cw in rows 16v .. 16v + 15 (4 channels a
+// word), transposes each 4x4 block of bytes in registers (__byte_perm)
+// into 4 samples of each of the column's 4 channels, and stores each
+// channel's 16 samples with one 16-byte store.  Its low codes are counted
+// in nibble lanes (a packed byte holds digitizer 3 in its low field's low
+// bit and 1 in the next but one: masks 0x11111111 of the low bits and of
+// them shifted by 2 keep each digitizer in its own nibble), summed over
+// the item's bytes (hsum4), packed a byte a digitizer and added over the
+// lanes of one column by shuffles; each lane then adds one channel's 4
+// counts to shared memory.  Every thread of the block calls it.
+__device__ __forceinline__ void ja98_rows4(const uint8_t* tile, int nchan,
+                                           uint8_t* __restrict__ ftp,
+                                           long long tp, long long t0,
+                                           int tt, unsigned* cnt) {
+  const int ncw = nchan >> 2;
+  const int nv = tt >> 4;
+  const int gw = 4 * nchan + kJa98Pad / 4;  // words of a 16-row group
+  const unsigned* words = reinterpret_cast<const unsigned*>(tile);
+  const int lane = threadIdx.x & 31;
+  const int g = lane / ncw;  // this lane's place among its column's lanes
+  for (int i0 = threadIdx.x - lane; i0 < ncw * nv; i0 += blockDim.x) {
+    const int i = i0 + lane;
+    const int cw = i & (ncw - 1);
+    const int v = i / ncw;
+    unsigned pk[4] = {0u, 0u, 0u, 0u};  // channel m: digitizer d in byte d
+    if (v < nv) {
+      const unsigned* src = words + v * gw + cw;
+      unsigned out[4][4];  // [channel m][word q]: samples 4q .. 4q + 3
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned a0 = src[(4 * q) * ncw];
+        const unsigned a1 = src[(4 * q + 1) * ncw];
+        const unsigned a2 = src[(4 * q + 2) * ncw];
+        const unsigned a3 = src[(4 * q + 3) * ncw];
+        const unsigned b0 = __byte_perm(a0, a1, 0x5140);
+        const unsigned b1 = __byte_perm(a2, a3, 0x5140);
+        const unsigned b2 = __byte_perm(a0, a1, 0x7362);
+        const unsigned b3 = __byte_perm(a2, a3, 0x7362);
+        out[0][q] = __byte_perm(b0, b1, 0x5410);
+        out[1][q] = __byte_perm(b0, b1, 0x7632);
+        out[2][q] = __byte_perm(b2, b3, 0x5410);
+        out[3][q] = __byte_perm(b2, b3, 0x7632);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        unsigned lo = 0u, hi = 0u;  // digitizers 3, 1 and 2, 0 in nibbles
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const unsigned low = ja98_low(out[m][q]);
+          lo += low & 0x11111111u;
+          hi += (low >> 2) & 0x11111111u;
+        }
+        pk[m] = hsum4((hi >> 4) & 0x0F0F0F0Fu) |
+                hsum4((lo >> 4) & 0x0F0F0F0Fu) << 8 |
+                hsum4(hi & 0x0F0F0F0Fu) << 16 |
+                hsum4(lo & 0x0F0F0F0Fu) << 24;
+        *reinterpret_cast<uint4*>(ftp + (long long)(4 * cw + m) * tp + t0 +
+                                  16 * v) =
+            make_uint4(out[m][0], out[m][1], out[m][2], out[m][3]);
+      }
+    }
+    // the sums over the lanes of one column (lane mod ncw), 16 samples
+    // each: at most 16 * 32 / ncw <= 128 a byte ...
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      for (int o = ncw; o < 32; o <<= 1)
+        pk[m] += __shfl_xor_sync(0xffffffffu, pk[m], o);
+    // ... and lane g of the column adds the channels m = g mod (32 / ncw)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (m % (32 / ncw) == g) {
+        unsigned* c = cnt + 4 * (4 * cw + m);
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+          atomicAdd(c + d, (pk[m] >> (8 * d)) & 0xFFu);
+      }
+    }
+  }
+}
+
+// One chunk of tt time samples of nchan channels of one byte a sample (4
+// codes: nd_chan == 4), rows of nchan bytes, to the copy (store_units<1>'s
+// items: 16 samples of one channel an item) and counted.
+__device__ __forceinline__ void ja98_units(const uint8_t* tile, int nchan,
+                                           uint8_t* __restrict__ ftp,
+                                           long long tp, long long t0,
+                                           int tt, unsigned* cnt) {
+  unsigned mask[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) mask[d] = ja98_mask(d, 4, false);
+  const int nv = (tt + 15) >> 4;
+  const int nitems = nchan * 2 * ((nv + 1) >> 1);
+  for (int i = threadIdx.x; i < nitems; i += blockDim.x) {
+    int c, v;
+    ftp_item(i, nchan, &c, &v);
+    unsigned n[4] = {0u, 0u, 0u, 0u};
+    if (v < nv) {
+      const int r0 = 16 * v;
+      const uint8_t* s = tile + r0 * nchan + c;
+      uint8_t* dst = ftp + (long long)c * tp + t0 + r0;
+      if (r0 + 16 <= tt && ((uintptr_t)dst & 15) == 0) {
+        unsigned w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          w[q] = (unsigned)s[(4 * q) * nchan] |
+                 (unsigned)s[(4 * q + 1) * nchan] << 8 |
+                 (unsigned)s[(4 * q + 2) * nchan] << 16 |
+                 (unsigned)s[(4 * q + 3) * nchan] << 24;
+          ja98_count(w[q], mask, n);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        const int m = tt - r0 < 16 ? tt - r0 : 16;
+        for (int b = 0; b < m; ++b) {
+          const unsigned x = s[b * nchan];
+          dst[b] = (uint8_t)x;
+          ja98_count(x, mask, n);
+        }
+      }
+    }
+    ja98_add(cnt + 4 * c, 4, n);
+  }
+}
+
+// One chunk of tt time samples of nchan channels of npd < 4 two-bit codes
+// a sample (one span, the most significant field first), widened to a
+// byte a code in the copy (store_widened<2>'s items) and counted.
+__device__ __forceinline__ void ja98_widened(const uint8_t* span, int nchan,
+                                             int npd,
+                                             uint8_t* __restrict__ ftp,
+                                             long long tp, long long t0,
+                                             int tt, unsigned* cnt) {
+  unsigned mask[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) mask[d] = ja98_mask(d, npd, true);
+  const int nb = tt * npd;  // bytes of a channel in this chunk
+  const int nv = (nb + 15) >> 4;
+  const int nitems = nchan * 2 * ((nv + 1) >> 1);
+  for (int i = threadIdx.x; i < nitems; i += blockDim.x) {
+    int c, v;
+    ftp_item(i, nchan, &c, &v);
+    unsigned n[4] = {0u, 0u, 0u, 0u};
+    if (v < nv) {
+      const int b0 = 16 * v;
+      const int m = nb - b0 < 16 ? nb - b0 : 16;
+      uint8_t* dst = ftp + ((long long)c * tp + t0) * npd + b0;
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (k < m) {
+          const int r = (b0 + k) / npd;
+          const int idx = (r * nchan + c) * npd + (b0 + k - r * npd);
+          const unsigned f = (span[idx >> 2] >> ((3 - (idx & 3)) * 2)) & 3u;
+          w[k >> 2] |= f << (8 * (k & 3));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ja98_count(w[q], mask, n);
+      if (m == 16 && ((uintptr_t)dst & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (k < m) dst[k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
+      }
+    }
+    ja98_add(cnt + npd * c, npd, n);
+  }
+}
+
+// One chunk of cb bytes of one channel's nd digitizers (no copy), counted
+// from its words; each warp's sums go to shared memory in one add a
+// digitizer.  Every thread of the block calls it.
+__device__ __forceinline__ void ja98_words(const uint8_t* tile, int cb,
+                                           int nd, unsigned* cnt) {
+  unsigned mask[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) mask[d] = ja98_mask(d, nd, false);
+  unsigned n[4] = {0u, 0u, 0u, 0u};
+  for (int i = threadIdx.x; 4 * i < cb; i += blockDim.x) {
+    unsigned w = reinterpret_cast<const unsigned*>(tile)[i];
+    if (cb - 4 * i < 4) w &= (1u << (8 * (cb - 4 * i))) - 1u;
+    ja98_count(w, mask, n);
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      n[d] += __shfl_xor_sync(0xffffffffu, n[d], o);
+    if ((threadIdx.x & 31) == 0 && d < nd) atomicAdd(cnt + d, n[d]);
+  }
+}
+
+// Shared-memory words between two blocks' counts: odd, so that the
+// write-out's reads of one digitizer over the blocks fall in other banks.
+__host__ __device__ inline int ja98_cstride(int ndig) { return ndig | 1; }
+
+__global__ void __launch_bounds__(kJa98Threads, kJa98MinBlocks)
 mega_ja98(const uint8_t* __restrict__ raw, uint16_t* __restrict__ nlow,
           float* __restrict__ wblk, const float* __restrict__ weight,
           uint8_t* __restrict__ ftp, int ndig, int nd_chan, int npw,
           int nweights, long long tp, int TT) {
   extern __shared__ uint4 ja98_sm[];
+  const int cs = ja98_cstride(ndig);
   unsigned* cnt = reinterpret_cast<unsigned*>(ja98_sm);
-  uint8_t* tile = reinterpret_cast<uint8_t*>(ja98_sm) + ((ndig * 4 + 15) & ~15);
-  const int blk = blockIdx.x;
-  for (int d = threadIdx.x; d < ndig; d += blockDim.x) cnt[d] = 0u;
-  const int pb = ndig / gcd4(ndig);
   const int cb = TT * ndig / 4;
   const int nchan = ndig / nd_chan;
-  const uint8_t* src = raw + (long long)blk * npw * ndig / 4;
-  const int S = pb >= (int)blockDim.x ? 1 : (int)blockDim.x / pb;
-  for (int t = 0; t < npw; t += TT) {
-    __syncthreads();  // the counts zeroed; the previous chunk read
-    load_span(tile, src + (long long)t * ndig / 4, cb);
+  const int gsize = ja98_group(nchan, nd_chan, TT, ftp != nullptr);
+  const int cb16 = ja98_chunk_bytes(cb, gsize);
+  uint8_t* buf = reinterpret_cast<uint8_t*>(ja98_sm) +
+                 ((kJa98Blocks * cs * 4 + 15) & ~15);
+  const int b0 = blockIdx.x * kJa98Blocks;
+  const int G = nweights - b0 < kJa98Blocks ? nweights - b0 : kJa98Blocks;
+  const int nq = npw / TT;  // chunks a block
+  const int nchunks = G * nq;
+  const uint8_t* src = raw + (long long)b0 * npw * ndig / 4;
+  for (int e = threadIdx.x; e < kJa98Blocks * cs; e += blockDim.x) cnt[e] = 0u;
+  for (int k = 0; k < kJa98Stages - 1; ++k) {
+    if (k < nchunks)
+      ja98_stage(buf + k * cb16, src + (long long)k * cb, cb, gsize);
+    else
+      cp_commit();
+  }
+  for (int s = 0; s < nchunks; ++s) {
+    // one group a chunk (empty past the last): chunk s has landed
+    cp_wait(kJa98Stages - 2);
+    // ... from every thread; chunk s - 1 is counted, so its buffer takes
+    // chunk s + kJa98Stages - 1 (and the counts are zeroed)
     __syncthreads();
-    for (int unit = threadIdx.x; unit < pb * S; unit += blockDim.x) {
-      const int r = unit % pb;
-      const int s = unit / pb;
-      unsigned c0 = 0u, c1 = 0u, c2 = 0u, c3 = 0u;
-      for (int k = r + s * pb; k < cb; k += S * pb) {
-        const unsigned b = tile[k];
-        const unsigned low = ((b >> 1) ^ b) & 0x55u;
-        c0 += (low >> 6) & 1u;
-        c1 += (low >> 4) & 1u;
-        c2 += (low >> 2) & 1u;
-        c3 += low & 1u;
-      }
-      atomicAdd(&cnt[(4 * r) % ndig], c0);
-      atomicAdd(&cnt[(4 * r + 1) % ndig], c1);
-      atomicAdd(&cnt[(4 * r + 2) % ndig], c2);
-      atomicAdd(&cnt[(4 * r + 3) % ndig], c3);
-    }
-    if (ftp) {
-      const long long t0 = (long long)blk * npw + t;
-      if (nd_chan == 4)
-        store_units<1>(tile, nchan, ftp, tp, t0, TT, 0, nchan);
-      else
-        store_widened<2>(tile, nchan, nd_chan, 0, ftp, tp, t0, TT);
-    }
+    const int nx = s + kJa98Stages - 1;
+    if (nx < nchunks)
+      ja98_stage(buf + (nx % kJa98Stages) * cb16, src + (long long)nx * cb,
+                 cb, gsize);
+    else
+      cp_commit();
+    const uint8_t* tile = buf + (s % kJa98Stages) * cb16;
+    unsigned* c = cnt + (s / nq) * cs;
+    const long long t0 = (long long)b0 * npw + (long long)s * TT;
+    if (!ftp)
+      ja98_words(tile, cb, ndig, c);
+    else if (gsize)
+      ja98_rows4(tile, nchan, ftp, tp, t0, TT, c);
+    else if (nd_chan == 4)
+      ja98_units(tile, nchan, ftp, tp, t0, TT, c);
+    else
+      ja98_widened(tile, nchan, nd_chan, ftp, tp, t0, TT, c);
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < ndig; d += blockDim.x)
-    nlow[(long long)d * nweights + blk] = (uint16_t)cnt[d];
-  for (int c = threadIdx.x; c < nchan; c += blockDim.x) {
-    float w = __ldg(weight + cnt[c * nd_chan]);
-    for (int d = 1; d < nd_chan; ++d)
-      w = fminf(w, __ldg(weight + cnt[c * nd_chan + d]));
-    wblk[(long long)c * nweights + blk] = w;
+  for (int e = threadIdx.x; e < ndig * G; e += blockDim.x) {
+    const int d = e / G;
+    const int b = e - d * G;
+    nlow[(long long)d * nweights + b0 + b] = (uint16_t)cnt[b * cs + d];
+  }
+  for (int e = threadIdx.x; e < nchan * G; e += blockDim.x) {
+    const int ch = e / G;
+    const int b = e - ch * G;
+    const unsigned* cc = cnt + b * cs + ch * nd_chan;
+    float w = __ldg(weight + cc[0]);
+    for (int d = 1; d < nd_chan; ++d) w = fminf(w, __ldg(weight + cc[d]));
+    wblk[(long long)ch * nweights + b0 + b] = w;
   }
 }
 
@@ -828,24 +1221,31 @@ cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
 
 // The JA98 pre-pass on the caller's stream: nlow (u.nlow), the block
 // weights wblk float[nchan, nweights] and the window weights wwin
-// float[nchan, npart]; with ftp (nchan > 1) the channel-transposed copy of
-// the codes too (streams tp samples apart).
+// float[nchan, npart]; ftp, the channel-transposed copy of the codes
+// (streams tp samples apart), exactly when nchan > 1.
 cudaError_t launch_ja98(const void* raw, const Unpack& u, void* wblk,
                         void* wwin, int nchan, int npol, int ndim, int npart,
                         int nsamp_step, int nsamp_fft, void* ftp,
                         long long tp, cudaStream_t stream) {
   const int npw = 1 << u.lg_npw;
   const int ndig = nchan * npol * ndim;
-  if ((npw * ndig) % 4 || nsamp_step % npw || nsamp_fft % npw)
+  // mega_ja98 counts a stream of several channels from its copy
+  if ((npw * ndig) % 4 || nsamp_step % npw || nsamp_fft % npw ||
+      (ftp != nullptr) != (nchan > 1))
     return cudaErrorInvalidValue;
   // chunks of TT samples: a power of two dividing npw, 16 or more where
   // npw allows, within kFtpTile bytes where that allows
   int TT = npw;
   while (TT > 16 && TT * ndig / 4 > kFtpTile) TT >>= 1;
   if ((TT * ndig) % 4) return cudaErrorInvalidValue;
-  const int smem = ((ndig * 4 + 15) & ~15) + TT * ndig / 4;
+  const int smem =
+      ((kJa98Blocks * ja98_cstride(ndig) * 4 + 15) & ~15) +
+      kJa98Stages *
+          ja98_chunk_bytes(TT * ndig / 4,
+                           ja98_group(nchan, npol * ndim, TT, ftp != nullptr));
   cudaError_t err = launch(
-      &mega_ja98, dim3(u.nweights), kThreads, smem, stream,
+      &mega_ja98, dim3((u.nweights + kJa98Blocks - 1) / kJa98Blocks),
+      kJa98Threads, smem, stream,
       (const uint8_t*)raw, (uint16_t*)u.nlow, (float*)wblk,
       u.tables + 2 * u.npw1, (uint8_t*)ftp, ndig, npol * ndim, npw,
       u.nweights, tp, TT);
@@ -1036,7 +1436,10 @@ constexpr int kMaxCols = 16;
 // out per pass as fft_seqs reads them), then the inter-stage factors over
 // the window length W = R1 * row_len (2N real, N complex): lo[e] =
 // exp(-2 pi i e / W), e < 2^lo_bits, hi[e] = exp(-2 pi i e 2^lo_bits / W),
-// and col[k1*kMaxCols + c] = exp(-2 pi i c k1 / W), c < kMaxCols.
+// and col[k1*kMaxCols + c] = exp(-2 pi i c k1 / W), c < kMaxCols; last
+// the long row pass's (mega_rowfft) row_len entries: its first stage's
+// factors half[n] = exp(-2 pi i n / row_len), n < row_len / 2, then the
+// length-row_len/2 FFT table.
 struct Tables {
   const float2* r1;
   const float2* row;
@@ -1044,6 +1447,7 @@ struct Tables {
   const float2* lo;
   const float2* hi;
   const float2* col;
+  const float2* half;
   int log2n;
   int lo_bits;
 };
@@ -1058,6 +1462,7 @@ Tables tables(const void* base, int R1, int row_len, int M) {
   t.lo_bits = (t.log2n + 1) / 2;
   t.hi = t.lo + (1 << t.lo_bits);
   t.col = t.hi + (1 << (t.log2n - t.lo_bits));
+  t.half = t.col + R1 * kMaxCols;
   return t;
 }
 
@@ -1343,48 +1748,141 @@ mega_fwd2(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
 // The long row pass (real input whose rows of row_len = 2*R2 points are too
 // long for mega_fwd2, which holds a row pair in one CTA: at R2 = 8192 a pair
 // needs 278 KB of shared memory).  Two kernels through device memory:
-//   mega_rowfft   per (row k1, window, input channel): the length-row_len
-//                 FFT of the row, kRowPoints points a thread (512 threads
-//                 at 16384 points, 139 KB of shared memory), written back
-//                 over the row in cbuf.
+//   mega_rowfft   the length-row_len FFT of each row (k1, window, input
+//                 channel), split over a cluster of two CTAs (see below) and
+//                 written back over the row in cbuf as its even bins, then
+//                 its odd bins (rowpos).
 //   mega_rowpair  per (tile of 8 consecutive k1 and 32 consecutive k2,
 //                 window, input channel): bin k = k2*R1 + k1 from Z[k] and
-//                 its partner Z[2N - k] (row R1 - k1, column row_len-1-k2;
-//                 rows 0 and R1/2 pair with themselves, row 0 at column
-//                 (row_len - k2) mod row_len), read from cbuf, then
-//                 separate_store.  A warp reads 4 consecutive columns (one
-//                 32-byte sector) of 8 rows and stores runs of 8 k1.
+//                 its partner Z[2N - k] (row R1 - k1, column
+//                 row_len-1-k2; rows 0 and R1/2 pair with themselves, row 0
+//                 at column (row_len - k2) mod row_len), read from cbuf
+//                 through rowpos, then separate_store.  A warp reads 4
+//                 consecutive k2 of 8 rows (two 16-byte halves of sectors
+//                 that the tile's other warps read too) and stores runs of
+//                 8 k1.
 // Against mega_fwd2 it writes and reads the stage-2 rows once more: 4.3 GB
 // a J0613-0200 block where the function needs 2.21 (0.661 ms at the
-// device-memory rate), in 1.02 + 0.94 ms (H100 80GB HBM3, 700 W).
-// mega_rowfft is held by its load and transform at one CTA an SM (0.79 ms
-// without its store; torch.fft.fft over the same rows takes 0.78-0.80).
-// Not kept: one kernel in clusters of 8 one-row CTAs (4 row pairs) that
-// separates each rank's slice of k2 from the cluster's distributed shared
-// memory, so the rows never return to device memory.  It took 2.39-2.51
-// ms a block: at one CTA an SM its transform (1.00 ms alone) and its
-// stores (0.94 more even when made contiguous) run one after the other,
-// where the pair overlaps its CTAs' phases through occupancy.  A row split
-// over two CTAs that share an SM, and bulk stores from shared memory, were
-// not tried.
-template <int P>
-__global__ void __launch_bounds__(kMaxThreads)
-mega_rowfft(float2* __restrict__ cbuf, Tables tb, int npart, int R1,
-            int row_len) {
+// device-memory rate).
+//
+// mega_rowfft: one row over a cluster of two CTAs, half a row (H =
+// row_len/2 points, 32 a thread: 256 threads, 69 KB of shared memory, 128
+// registers, no local memory) each, so that two row CTAs share an SM and
+// one's loads are in flight while the other transforms.  CTA `rank` loads
+// its half x[rank*H + n] (n < H) into registers, writes it into its
+// partner's shared memory (distributed shared memory, after a cluster
+// barrier that every CTA of the cluster has reached: split in two around
+// the loads) and, after a second cluster barrier, takes the partner's half
+// from its own: the first radix-2 stage, decimation in frequency, gives
+// rank 0 the sequence x[n] + x[n + H] whose H-point FFT is the even bins
+// X[2m], and rank 1 (x[n] - x[n + H]) exp(-2 pi i n / row_len), the odd
+// bins X[2m + 1].  Each then runs the H-point FFT (fft_keep, the half
+// tables of Tables) and stores its H bins as one contiguous half of the
+// row, so bin k lies at rowpos(k) = (k & 1) * H + (k >> 1).
+// Measured a J0613-0200 block (H100 80GB HBM3, 700 W): 0.868-0.872 ms
+// against the parent's 1.023-1.030 (one 512-thread CTA a row, 139 KB, one
+// CTA an SM, 40 B of spills a thread), torch.fft.fft over the same rows
+// 0.81-0.82; split: the loads alone 0.341 (the parent's too), with the
+// exchange 0.434, with the transform 0.712.  mega_rowpair reading through
+// rowpos 0.955 against 0.938 (walking k2 in stored order, 0.967).  Not
+// kept: 16 points a thread (512 threads, 64 registers: 0.98-0.99, 64 B of
+// spills); a run-time half length (192-536 B of spills, 1.2-2.1 ms); the
+// partner's half read from L2 in place of distributed shared memory (0.893
+// against 0.872).
+// Also not kept: one kernel in clusters of 8 one-row CTAs (4 row pairs) that
+// separated each rank's slice of k2 from the cluster's distributed shared
+// memory took 2.39-2.51 ms a block: its transform (1.00 ms alone) and its
+// stores (0.94 more) ran one after the other at one CTA an SM.
+
+// threads of a mega_rowfft CTA at most: half of the longest row (R2 =
+// 8192 points) at kRowPoints a thread
+constexpr int kRowThreads = 8192 / kRowPoints;
+
+// Where bin k of a row of row_len = 2H points lies after mega_rowfft.
+__host__ __device__ __forceinline__ int rowpos(int k, int H) {
+  return (k & 1) * H + (k >> 1);
+}
+
+// The cluster's barrier and distributed shared memory in PTX (the
+// cooperative-groups calls kept the 16 points of every thread live across
+// a call, 120-536 bytes of stack a thread): this CTA's rank; the barrier
+// in two halves (every thread of each CTA calls both: the arrival with no
+// memory ordering, and the wait for every CTA's), or whole, releasing this
+// CTA's writes and acquiring every other's; the address of p's element in
+// CTA `rank`'s shared memory, and an 8-byte store there.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+// Grid (2*R1, npart, nchan) in clusters of 2 along x: blockIdx.x = 2*k1 +
+// rank.  The half row's length H is a template parameter (16 .. 8192,
+// row_kernel), so that every index of a thread's points is an immediate
+// offset from one base and the FFT's passes unroll: at a length known only
+// at run time the points' 16-32 addresses and indices stayed live through
+// the FFT and spilled 192-536 bytes a thread (H100 80GB HBM3, ptxas).
+template <int H>
+__global__ void __launch_bounds__(kRowThreads, 2)
+mega_rowfft(float2* __restrict__ cbuf, Tables tb, int npart, int R1) {
+  constexpr int P = row_points(H);
+  constexpr int row_len = 2 * H;
   extern __shared__ float2 sm[];
-  const int T = row_len / P;
+  const int rank = cluster_rank();
+  constexpr int T = H / P;
   const int j = threadIdx.x;
-  float2* row = cbuf + (((long long)blockIdx.z * npart + blockIdx.y) * R1 +
-                        blockIdx.x) * row_len;
+  float2* half = cbuf + (((long long)blockIdx.z * npart + blockIdx.y) * R1 +
+                         (blockIdx.x >> 1)) * row_len + rank * H;
+  cluster_arrive_relaxed();
   float2 v[P];
-  auto load = [&](int, float2(&x)[P]) {
 #pragma unroll
-    for (int i = 0; i < P; ++i) x[i] = row[j + T * i];
-  };
-  fft_seqs<P, 1, -1, true>(v, load, sm, 0, j, row_len, __ffs(row_len) - 1,
-                           tb.row);
+  for (int i = 0; i < P; ++i) v[i] = half[j + T * i];
+  // the partner has started: its shared memory takes this half
+  cluster_wait();
+  const uint32_t peer = cluster_addr(sm, rank ^ 1);
 #pragma unroll
-  for (int i = 0; i < P; ++i) row[j + T * i] = v[i];
+  for (int i = 0; i < P; ++i)
+    st_cluster(peer + 8u * sidx(j + T * i), v[i]);
+  cluster_sync_all();
+  // v holds this CTA's half, the partner's lies in shared memory: the first
+  // stage, then the H-point FFT of the result (already in v)
+  const float2* hw = tb.half;
+  if (rank) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      v[i] = cmul(csub(sm[sidx(j + T * i)], v[i]), __ldg(hw + j + T * i));
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = cadd(v[i], sm[sidx(j + T * i)]);
+  }
+  // read: the first pass may overwrite it
+  __syncthreads();
+  fft_keep<P, -1, H>(v, sm, j, hw + H);
+#pragma unroll
+  for (int i = 0; i < P; ++i) half[j + T * i] = v[i];
 }
 
 constexpr int kPairRows = 8;   // k1 of a mega_rowpair tile
@@ -1399,6 +1897,7 @@ mega_rowpair(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   const int w = blockIdx.y;
   const int c = blockIdx.z;
   const int ntile = R1 / kPairRows;
+  const int H = row_len >> 1;
   const int k1 = (blockIdx.x % ntile) * kPairRows + (threadIdx.x & (kPairRows - 1));
   const int k2 = (blockIdx.x / ntile) * kc + threadIdx.x / kPairRows;
   const Sep o = make_sep(ybuf, gr, gi, psum, pb, npolf, store, npart, c, w,
@@ -1406,8 +1905,8 @@ mega_rowpair(const float2* __restrict__ cbuf, float2* __restrict__ ybuf,
   const float2* win = cbuf + ((long long)c * npart + w) * R1 * row_len;
   const int pk1 = (k1 == 0 || 2 * k1 == R1) ? k1 : R1 - k1;
   const int pcol = k1 == 0 ? (row_len - k2) & (row_len - 1) : row_len - 1 - k2;
-  separate_store(win[(long long)k1 * row_len + k2],
-                 win[(long long)pk1 * row_len + pcol],
+  separate_store(win[(long long)k1 * row_len + rowpos(k2, H)],
+                 win[(long long)pk1 * row_len + rowpos(pcol, H)],
                  (long long)k2 * R1 + k1, o);
 }
 
@@ -1702,38 +2201,6 @@ __device__ __forceinline__ void inverse_subband(
 // Jones the mix's Jones reads, two planes of every bin.
 constexpr int kPassStages = 3;  // ring stages of mega_inva
 
-// Shared-memory address of a generic pointer to shared memory.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Asynchronous copies global -> shared of 16 bytes (L2 only) or 8 bytes,
-// committed as one group a call of cp_commit; cp_wait(n) returns once at
-// most n of this thread's groups are pending (n < kPassStages).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait(int n) {
-  if (n <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (n == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-}
-
 // The tile walk of both passes: items blockIdx.x, blockIdx.x + gridDim.x,
 // ... of `nitems`; how many this CTA takes.
 __device__ __forceinline__ int local_items(int nitems) {
@@ -1949,7 +2416,8 @@ int pass_resources(int kind, int which, int R1, int row_len, int M, int nout,
       return kind ? tile * (R1 / fft_points(R1))
                   : nout * tile * seq_ld(R1) * F2;
     case kRowFft:
-      return kind ? row_len / kRowPoints : seq_ld(row_len) * F2;
+      return kind ? (row_len / 2) / row_points(row_len / 2)
+                  : seq_ld(row_len / 2) * F2;
     case kRowPair:
       return kind ? kPairRows * pair_cols(R2) : 0;
     case kFwd2Cluster:
@@ -1982,6 +2450,54 @@ cudaError_t kernel_attributes(K kernel, int* out) {
   out[1] = (int)a.localSizeBytes;
   out[2] = a.maxThreadsPerBlock;
   return cudaSuccess;
+}
+
+// The mega_rowfft instance for rows of row_len points (32 .. 16384, a
+// power of two), or null.
+decltype(&mega_rowfft<16>) row_kernel(int row_len) {
+  switch (row_len) {
+    case 32: return &mega_rowfft<16>;
+    case 64: return &mega_rowfft<32>;
+    case 128: return &mega_rowfft<64>;
+    case 256: return &mega_rowfft<128>;
+    case 512: return &mega_rowfft<256>;
+    case 1024: return &mega_rowfft<512>;
+    case 2048: return &mega_rowfft<1024>;
+    case 4096: return &mega_rowfft<2048>;
+    case 8192: return &mega_rowfft<4096>;
+    case 16384: return &mega_rowfft<8192>;
+    default: return nullptr;
+  }
+}
+
+// The long row pass's mega_rowfft for rows of row_len points, R1 rows a
+// window: its registers, local (spill) bytes and most threads a block
+// (kernel_attributes), the CTAs of its cluster, and how many such clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters), into
+// out[0..4].
+cudaError_t row_attributes(int R1, int row_len, int* out) {
+  const auto k = row_kernel(row_len);
+  if (!k) return cudaErrorInvalidValue;
+  cudaError_t err = kernel_attributes(k, out);
+  if (err != cudaSuccess) return err;
+  const int smem = pass_resources(0, kRowFft, R1, row_len, 0, 0, 0, 0);
+  if ((err = cudaFuncSetAttribute(
+           k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * R1);
+  cfg.blockDim = dim3(pass_resources(1, kRowFft, R1, row_len, 0, 0, 0, 0));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  out[3] = 2;
+  return cudaOccupancyMaxActiveClusters(&out[4], k, &cfg);
 }
 
 // The persistent grid of a walk over `items`: as many CTAs of `kernel`
@@ -2200,13 +2716,14 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                   store, npart, R1, R2, tk);
   }
   if (tk == 0) {
-    // the long row pass (see mega_rowfft)
-    if (row_len < kRowPoints) return cudaErrorInvalidValue;
-    if ((err = launch(&mega_rowfft<kRowPoints>, dim3(R1, npart, nchan),
-                      pass_resources(1, kRowFft, R1, row_len, M, 0, 0, 0),
-                      pass_resources(0, kRowFft, R1, row_len, M, 0, 0, 0),
-                      stream, (float2*)cbuf, tb, npart, R1, row_len)) !=
-        cudaSuccess)
+    // the long row pass (see mega_rowfft): a cluster of two CTAs a row
+    const auto rowfft = row_kernel(row_len);
+    if (!rowfft) return cudaErrorInvalidValue;
+    if ((err = launch_cluster(
+             rowfft, dim3(2 * R1, npart, nchan),
+             pass_resources(1, kRowFft, R1, row_len, M, 0, 0, 0),
+             pass_resources(0, kRowFft, R1, row_len, M, 0, 0, 0), 2, stream,
+             (float2*)cbuf, tb, npart, R1)) != cudaSuccess)
       return err;
     const int kc = pair_cols(R2);
     return launch(&mega_rowpair, dim3((R1 / kPairRows) * (R2 / kc), npart,

@@ -270,6 +270,13 @@ int megafil_resources(int kind, int which, int R1, int row_len, int M,
                         layout == kComplexTfp);
 }
 
+// mega_rowfft's registers, local bytes, most threads a block, cluster
+// CTAs and clusters the card holds at once (row_attributes), into
+// out[0..4].
+int megafil_row_attributes(int R1, int row_len, int* out) {
+  return (int)row_attributes(R1, row_len, out);
+}
+
 // The registers, local (spill) bytes and most threads a block of the
 // multi-pass inverse's pass `which` (kInvA: mega_inva for length q, with
 // the Jones mix when jones; kInvB: megafil_invb for R1 and nout pols),

@@ -355,6 +355,13 @@ int megastep_resources(int kind, int which, int R1, int row_len, int M,
                         layout == kComplexTfp);
 }
 
+// mega_rowfft's registers, local bytes, most threads a block, cluster
+// CTAs and clusters the card holds at once (row_attributes), into
+// out[0..4].
+int megastep_row_attributes(int R1, int row_len, int* out) {
+  return (int)row_attributes(R1, row_len, out);
+}
+
 // The registers, local (spill) bytes and most threads a block of the
 // fold's inverse kernel `which` (kInv: mega_invfold for freq_res M; kInvA:
 // mega_inva for length q; kInvB: mega_invbfold for R1) with npolf pols and
@@ -466,15 +473,16 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
 
 // The JA98 pre-pass alone (mega_ja98, mega_ja98_windows), for checks and
 // timing: 2-bit codes of nsamp_block samples of nchan*npol*ndim digitizers
-// -> nlow, wblk and wwin as in megastep_launch.
+// -> nlow, wblk and wwin as in megastep_launch, and the channel-transposed
+// copy ftp as launch_forward makes it (exactly when nchan > 1).
 int megastep_ja98(const void* raw, const void* levels, void* nlow, void* wblk,
-                  void* wwin, int nchan, int npol, int ndim, int npart,
-                  int nsamp_step, int nsamp_fft, int npw, void* stream_ptr) {
-  const Unpack u = make_unpack(
-      0, 1.f, 0.f, nullptr, levels, nlow, npw,
-      (long long)(npart - 1) * nsamp_step + nsamp_fft);
+                  void* wwin, void* ftp, int nchan, int npol, int ndim,
+                  int npart, int nsamp_step, int nsamp_fft, int npw,
+                  void* stream_ptr) {
+  const long long T = (long long)(npart - 1) * nsamp_step + nsamp_fft;
+  const Unpack u = make_unpack(0, 1.f, 0.f, nullptr, levels, nlow, npw, T);
   return (int)launch_ja98(raw, u, wblk, wwin, nchan, npol, ndim, npart,
-                          nsamp_step, nsamp_fft, nullptr, 0,
+                          nsamp_step, nsamp_fft, ftp, ftp_stride(T),
                           (cudaStream_t)stream_ptr);
 }
 

@@ -35,7 +35,7 @@ _c = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _LAUNCH_ARGTYPES = [_c] * 23 + [_i] * 16 + [_f, _f] + [_i] * 10 + [_c]
-_JA98_ARGTYPES = [_c] * 5 + [_i] * 7 + [_c]
+_JA98_ARGTYPES = [_c] * 6 + [_i] * 7 + [_c]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
 MAX_THREADS = 512
@@ -123,6 +123,23 @@ def inverse_attributes(plan: MegaPlan) -> dict:
             "mega_invbfold": attrs(INVB)}
 
 
+def row_attributes(plan: MegaPlan, library: str = "megastep") -> dict:
+    """The long row pass's ``mega_rowfft`` for ``plan`` on the card, as
+    ``library`` (``"megastep"`` or ``"megafil"``) built it: registers and
+    local (spill) bytes a thread, the most threads a block may have, the
+    CTAs of its cluster and how many such clusters the card holds at once
+    (``row_attributes`` in ``csrc/mega_common.cuh``)."""
+    lib = _lib() if library == "megastep" else build.load(library)
+    fn = getattr(lib, f"{library}_row_attributes")
+    fn.argtypes, fn.restype = [_i, _i, _c], _i
+    out = (ctypes.c_int * 5)()
+    rc = fn(plan.R1, plan.row_len, out)
+    if rc != 0:
+        raise RuntimeError(f"mega_rowfft attributes failed: CUDA error {rc}")
+    return dict(regs=out[0], local_bytes=out[1], max_threads=out[2],
+                cluster=out[3], clusters_at_once=out[4])
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor of
     ``shape`` on ``device``."""
@@ -169,7 +186,10 @@ def twiddle_tables(R1: int, row_len: int, M: int,
       where row_len = R2): ``lo[e] = exp(-2 pi i e / W)``, ``e <
       2^lo_bits``, and ``hi[e] = exp(-2 pi i e 2^lo_bits / W)``, ``e < W /
       2^lo_bits``, with lo_bits = (log2(W) + 1) // 2;
-    - ``col[k1*16 + c] = exp(-2 pi i c k1 / W)``, ``k1 < R1``, ``c < 16``.
+    - ``col[k1*16 + c] = exp(-2 pi i c k1 / W)``, ``k1 < R1``, ``c < 16``;
+    - the long row pass's (``mega_rowfft``, half a row a CTA): its first
+      stage's factors ``exp(-2 pi i n / row_len)``, ``n < row_len / 2``,
+      then the length-row_len/2 FFT table as above.
 
     Computed in float64 and rounded once to ``dtype`` (complex64 for the
     kernels)."""
@@ -180,8 +200,7 @@ def twiddle_tables(R1: int, row_len: int, M: int,
     def turns(num, den):
         return np.exp(-2j * np.pi * (np.asarray(num, np.float64) / den))
 
-    parts = []
-    for L in (R1, row_len, M):
+    def fft_table(L):
         bits = fft_pass_bits(L)
         ns, table = 1 << bits[0], []
         for b in bits[1:]:
@@ -189,11 +208,15 @@ def twiddle_tables(R1: int, row_len: int, M: int,
             table.append(turns(np.arange(1, R)[:, None] * np.arange(ns),
                                ns * R).ravel())
             ns *= R
-        table.append(np.zeros(L - sum(t.size for t in table)))
-        parts += table
+        return table + [np.zeros(L - sum(t.size for t in table))]
+
+    parts = fft_table(R1) + fft_table(row_len) + fft_table(M)
     parts.append(turns(np.arange(1 << lo_bits), two_n))
     parts.append(turns(np.arange(1 << (log2n - lo_bits)) << lo_bits, two_n))
     parts.append(turns(np.arange(R1)[:, None] * np.arange(16), two_n).ravel())
+    H = row_len // 2
+    parts.append(turns(np.arange(H), row_len))
+    parts += fft_table(H) if H else [np.zeros(row_len)]
     return np.concatenate(parts).astype(dtype)
 
 
@@ -358,31 +381,41 @@ def unpack_operands(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 
 
 def ja98_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
-              npart: int):
+              npart: int, full: bool = False):
     """The JA98 pre-pass alone (``mega_ja98``, ``mega_ja98_windows``) on
     one block of 2-bit codes: ``(nlow, wwin)``, the low-state counts int32
     ``[nchan_in, npol, ndim, nweights]`` and the window weights float32
-    ``[nchan_in, npart]``, as ``ops.megakernel.twobit_plain`` gives them."""
+    ``[nchan_in, npart]``, as ``ops.megakernel.twobit_plain`` gives them.
+    With ``full``, also the block weights float32 ``[nchan_in, nweights]``
+    and the channel-transposed copy the step's forward half reads, which
+    the pre-pass makes (and counts from) for every plan of several
+    channels (``ftp_buffer``: uint8, nchan_in streams of ``ftp_nbytes /
+    nchan_in`` bytes, or None for one channel)."""
     p = plan
     if not p.npw:
         raise ValueError("the JA98 pre-pass needs a plan with npw > 0")
     if raw.device.type != "cuda":
         raise ValueError(f"ja98_cuda needs CUDA tensors, got {raw.device}")
     ptrs, held = unpack_operands(p, cst, raw, npart)
-    nlow, wwin = held[-3], held[-1]  # after the window, when there is one
+    nlow, wblk, wwin = held[-3:]  # after the window, when there is one
+    ftp = ftp_buffer(p, npart, raw.device)
     lib = _lib()
     stream = torch.cuda.current_stream(raw.device).cuda_stream
     with torch.cuda.device(raw.device):
-        rc = lib.megastep_ja98(raw.data_ptr(), *ptrs[1:], p.nchan_in, p.npol,
-                               p.ndim, npart, p.nsamp_step, p.nsamp_fft,
-                               p.npw, stream)
+        rc = lib.megastep_ja98(raw.data_ptr(), *ptrs[1:],
+                               None if ftp is None else ftp.data_ptr(),
+                               p.nchan_in, p.npol, p.ndim, npart,
+                               p.nsamp_step, p.nsamp_fft, p.npw, stream)
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()
         raise RuntimeError(f"mega_ja98 launch failed: CUDA error {rc}: {msg}")
     count_launch("mega_ja98")
     nlow = (nlow.to(torch.int32) & 0xFFFF).reshape(
         p.nchan_in, p.npol, p.ndim, -1)
-    return nlow, wwin
+    if not full:
+        return nlow, wwin
+    return nlow, wwin, wblk, (None if ftp is None
+                              else ftp.reshape(p.nchan_in, -1))
 
 
 def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:

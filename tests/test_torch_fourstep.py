@@ -32,6 +32,7 @@ from dspsr_tpu_torch.kernels.megastep import (
     CLUSTER_R2, CLUSTER_ROWS, FTP_ALIGN, TILE_CAPS, fft_pass_bits,
     ftp_nbytes, twiddle_tables)
 from dspsr_tpu_torch.ops import megakernel as tmk
+from dspsr_tpu_torch.unpack.unpackers import twobit_nlow
 
 torch.set_num_threads(2)
 
@@ -166,11 +167,11 @@ def tables64(g):
     log2n = (g.R1 * g.row_len).bit_length() - 1
     lo_bits = (log2n + 1) // 2
     o = np.cumsum([0, g.R1, g.row_len, g.M, 1 << lo_bits,
-                   1 << (log2n - lo_bits), 16 * g.R1])
+                   1 << (log2n - lo_bits), 16 * g.R1, g.row_len])
     assert o[-1] == buf.size
-    r1, row, inv, lo, hi, col = (buf[o[i]:o[i + 1]] for i in range(6))
-    return dict(r1=r1, row=row, inv=inv, lo=lo, hi=hi, col=col, log2n=log2n,
-                lo_bits=lo_bits)
+    r1, row, inv, lo, hi, col, half = (buf[o[i]:o[i + 1]] for i in range(7))
+    return dict(r1=r1, row=row, inv=inv, lo=lo, hi=hi, col=col, half=half,
+                log2n=log2n, lo_bits=lo_bits)
 
 
 def byte_index(g, t, c, pol):
@@ -616,15 +617,15 @@ def test_pass_radices(L, radices):
 
 
 @pytest.mark.parametrize("R1, row_len, M", [(8, 16, 64), (16, 64, 64),
-                                            (512, 1024, 4096)])
+                                            (512, 1024, 4096),
+                                            (8, 16384, 64)])
 def test_twiddle_tables_are_rounded_exp(R1, row_len, M):
     got = twiddle_tables(R1, row_len, M)
     assert got.dtype == np.complex64
     two_n = R1 * row_len
     log2n = two_n.bit_length() - 1
     lo_bits = (log2n + 1) // 2
-    turns = []
-    for L in (R1, row_len, M):  # per pass: k*r / (Ns*R) at (r-1)*Ns + k
+    def fft_turns(L):  # per pass: k*r / (Ns*R) at (r-1)*Ns + k
         lgP, logL = fft_points(L).bit_length() - 1, L.bit_length() - 1
         ns, block = 1 << lgP, []
         for s in range(1, num_passes(logL, lgP)):
@@ -632,10 +633,15 @@ def test_twiddle_tables_are_rounded_exp(R1, row_len, M):
             for r in range(1, R):
                 block += [k * r / (ns * R) for k in range(ns)]
             ns *= R
-        turns += block + [None] * (L - len(block))
+        return block + [None] * (L - len(block))
+
+    turns = fft_turns(R1) + fft_turns(row_len) + fft_turns(M)
     turns += [e / two_n for e in range(1 << lo_bits)]
     turns += [(e << lo_bits) / two_n for e in range(1 << (log2n - lo_bits))]
     turns += [c * k1 / two_n for k1 in range(R1) for c in range(16)]
+    # the long row pass's first stage over half rows, and their FFT table
+    turns += [n / row_len for n in range(row_len // 2)]
+    turns += fft_turns(row_len // 2) if row_len > 1 else [None]
     assert got.size == len(turns)
     used = np.array([t is not None for t in turns])
     want = np.exp(-2j * np.pi * np.array([t or 0.0 for t in turns]))
@@ -651,7 +657,7 @@ def test_twiddle_tables_are_rounded_exp(R1, row_len, M):
     ex = ((m - col) * k1) & (two_n - 1)
     prod = (got[R1 + row_len + M:][ex & ((1 << lo_bits) - 1)].astype(complex)
             * got[R1 + row_len + M + (1 << lo_bits):][ex >> lo_bits]
-            * got[-16 * R1:][k1 * 16 + col])
+            * got[-16 * R1 - row_len:-row_len][k1 * 16 + col])
     assert np.abs(prod - np.exp(-2j * np.pi * m * k1 / two_n)).max() < 4e-7
 
 
@@ -940,6 +946,221 @@ def ja98_prepass(raw, ndig, nd_chan, npw, nweights, weight):
                 nlow[(4 * r + f) % ndig, blk] += ((low >> sh) & 1).sum()
     wblk = weight[nlow].reshape(ndig // nd_chan, nd_chan, nweights).min(1)
     return nlow, wblk
+
+
+#: npw-sample blocks of a ``mega_ja98`` CTA (``kJa98Blocks``)
+JA98_BLOCKS = 4
+
+
+def ja98_mask(d, nd, widened):
+    """``ja98_mask``: the low bits of digitizer d (of nd) in a word of one
+    channel's stream, packed (field f of a byte: digitizer f mod nd) or
+    widened (byte p: digitizer p mod nd)."""
+    m = 0
+    if d < nd:
+        for x in range(d, 4, nd):
+            m |= 1 << (8 * x) if widened else 0x01010101 << (6 - 2 * x)
+    return m
+
+
+def ja98_count(words, nd, widened):
+    """``ja98_count`` over uint32 ``words [..., n]``: counts [..., 4] of
+    digitizers 0..3 (0 past nd), one popc a digitizer and word."""
+    low = ((words >> 1) ^ words) & 0x55555555
+    return np.stack([np.bitwise_count(low & ja98_mask(d, nd, widened)).astype(
+        np.int64).sum(-1) for d in range(4)], -1)
+
+
+def le_words(b):
+    """Little-endian uint32 words of bytes ``b [..., 4n]``."""
+    b = b.astype(np.uint32).reshape(b.shape[:-1] + (-1, 4))
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+#: bytes of pad after every 16 rows of the word path (``kJa98Pad``) and
+#: the threads of a ``mega_ja98`` CTA (``kJa98Threads``)
+JA98_PAD, JA98_THREADS = 32, 128
+
+
+def ja98_group(nchan, nd_chan, TT):
+    """``ja98_group``: the staged bytes between two pads of the word path
+    (16 rows), or 0 where the chunk takes another path."""
+    ncw = nchan >> 2
+    ok = (nd_chan == 4 and nchan % 4 == 0 and 4 <= ncw <= 32
+          and ncw & (ncw - 1) == 0 and TT % 16 == 0)
+    return 16 * nchan if ok else 0
+
+
+def byte_perm(x, y, sel):
+    """``__byte_perm``: byte n of the result is byte (sel >> 4n) & 7 of
+    the 8 bytes of (y, x), x's first."""
+    b = [(x >> (8 * k)) & 0xFF for k in range(4)]
+    b += [(y >> (8 * k)) & 0xFF for k in range(4)]
+    return sum(b[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def hsum4(x):
+    """``hsum4``: the sum of the 4 bytes of x (as the kernel's multiply)."""
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def ja98_rows4(tile, nchan, TT, gsize, cnt, copy, t0):
+    """``ja98_rows4`` on one chunk: staged with JA98_PAD bytes after every
+    gsize; items (cw fastest, in warps of 32 lanes, each warp's lanes all
+    through the loop) read their column's 16 words, transpose 4x4 byte
+    blocks with ``byte_perm``, store each channel's 16 samples into
+    ``copy [nchan, T]`` at t0 and count in nibbles; a warp's lanes of one
+    column add their packed counts, and lane g adds the channels m with
+    m = g mod (32 / ncw)."""
+    staged = np.zeros(tile.size + tile.size // gsize * JA98_PAD, np.uint8)
+    o = np.arange(tile.size)
+    staged[o + o // gsize * JA98_PAD] = tile
+    words = le_words(staged).astype(np.int64)
+    ncw, nv = nchan >> 2, TT >> 4
+    gw = 4 * nchan + JA98_PAD // 4
+    total = ncw * nv
+    i = np.arange(-(-total // JA98_THREADS) * JA98_THREADS)
+    cw, v = i & (ncw - 1), i // ncw
+    act = v < nv
+    vv = np.minimum(v, nv - 1)
+    pk = np.zeros((4, i.size), np.int64)
+    for m in range(4):
+        lo, hi = np.zeros(i.size, np.int64), np.zeros(i.size, np.int64)
+        for q in range(4):
+            a = [words[vv * gw + cw + (4 * q + k) * ncw] for k in range(4)]
+            sel = 0x5140 if m < 2 else 0x7362
+            b = (byte_perm(a[0], a[1], sel), byte_perm(a[2], a[3], sel))
+            out = byte_perm(b[0], b[1], 0x5410 if m % 2 == 0 else 0x7632)
+            for k in range(4):  # sample 4q + k of channel 4 cw + m
+                copy[(4 * cw + m)[act], t0 + 16 * v[act] + 4 * q + k] = (
+                    out[act] >> (8 * k)) & 0xFF
+            low = ((out >> 1) ^ out) & 0x55555555
+            lo += low & 0x11111111
+            hi += (low >> 2) & 0x11111111
+        pk[m] = np.where(act, hsum4((hi >> 4) & 0x0F0F0F0F)
+                         | hsum4((lo >> 4) & 0x0F0F0F0F) << 8
+                         | hsum4(hi & 0x0F0F0F0F) << 16
+                         | hsum4(lo & 0x0F0F0F0F) << 24, 0)
+    lane = i & 31
+    g = lane // ncw
+    for m in range(4):
+        # the shuffle sum over a warp's lanes of one column
+        tot = np.zeros(i.size, np.int64)
+        key = (i >> 5) * ncw + cw
+        np.add.at(tot, key, pk[m])
+        tot = tot[key]
+        assert (tot >> 8 & 0xFF).max() <= 16 * 32 // ncw
+        mine = m % (32 // ncw) == g
+        for d in range(4):
+            np.add.at(cnt, (4 * (4 * cw + m) + d)[mine],
+                      (tot[mine] >> (8 * d)) & 0xFF)
+
+
+def ja98_words_mirror(raw, nchan, nd_chan, npw, nweights, weight):
+    """``mega_ja98``: CTAs of JA98_BLOCKS consecutive blocks, chunks of TT
+    samples (``launch_ja98``), each counted from the words of one
+    channel's stream (``ja98_rows4``: the word path; ``ja98_units``: the
+    copy's 16-sample items with nd_chan == 4 otherwise; ``ja98_widened``:
+    widened codes; ``ja98_words``: one channel, the raw words), a lane
+    pair's two items of one channel added together.  Returns nlow [ndig,
+    nweights], the block weights [nchan, nweights] and the copy's bytes
+    [nchan, T * unit] (None for one channel)."""
+    ndig = nchan * nd_chan
+    TT = npw
+    while TT > 16 and TT * ndig // 4 > 32768:
+        TT >>= 1
+    cb, nq = TT * ndig // 4, npw // TT
+    gsize = ja98_group(nchan, nd_chan, TT) if nchan > 1 else 0
+    nlow = np.zeros((ndig, nweights), np.int64)
+    unit = 1 if nd_chan == 4 else nd_chan
+    copy = np.full((nchan, npw * nweights * unit), -1, np.int64)
+    for b0 in range(0, nweights, JA98_BLOCKS):
+        G = min(JA98_BLOCKS, nweights - b0)
+        cnt = np.zeros((JA98_BLOCKS, ndig), np.int64)
+        src = raw[b0 * npw * ndig // 4:]
+        for s in range(G * nq):
+            tile = src[s * cb:(s + 1) * cb]
+            t0 = b0 * npw + s * TT
+            if gsize:
+                ja98_rows4(tile, nchan, TT, gsize, cnt[s // nq], copy, t0)
+                continue
+            if nchan == 1:
+                pad = np.zeros(-(-cb // 4) * 4, np.uint8)
+                pad[:cb] = tile
+                cnt[s // nq] += ja98_count(le_words(pad), ndig, False)[:ndig]
+                continue
+            if nd_chan == 4:
+                nv = -(-TT // 16)
+                c, v = ftp_items(nchan, nv)
+                o = 16 * v[:, None] + np.arange(16)[None, :]
+                rows = tile.reshape(TT, nchan)
+                b = np.where(o < TT, rows[np.minimum(o, TT - 1), c[:, None]],
+                             0)
+            else:
+                nb = TT * nd_chan
+                c, v = ftp_items(nchan, -(-nb // 16))
+                o = 16 * v[:, None] + np.arange(16)[None, :]
+                r = o // nd_chan
+                idx = (r * nchan + c[:, None]) * nd_chan + o - r * nd_chan
+                f = code_field(tile, np.minimum(idx, 4 * cb - 1), 2)
+                b = np.where(o < nb, f, 0)
+            n = ja98_count(le_words(b), nd_chan, nd_chan < 4)
+            for d in range(nd_chan):
+                np.add.at(cnt[s // nq], c * nd_chan + d, n[:, d])
+            ok = o < (TT if nd_chan == 4 else TT * nd_chan)
+            for k in range(16):
+                at = t0 * unit + o[:, k]
+                copy[c[ok[:, k]], at[ok[:, k]]] = b[ok[:, k], k]
+        nlow[:, b0:b0 + G] = cnt[:G].T
+    wblk = weight[nlow].reshape(nchan, nd_chan, nweights).min(1)
+    return nlow, wblk, (copy if nchan > 1 else None)
+
+
+@pytest.mark.parametrize("nchan,npol,ndim,npw,nweights", [
+    (32, 2, 2, 256, 20), (3, 2, 1, 16, 11), (2, 1, 1, 64, 9),
+    (5, 1, 2, 32, 17), (1, 2, 2, 256, 12), (1, 2, 1, 16, 9),
+    (1, 1, 1, 64, 8)],
+    ids=["guppi-32chan", "widened-3chan", "widened-1dig", "widened-5chan",
+         "one-chan-4dig", "one-chan-2dig", "one-chan-1dig"])
+def test_ja98_word_counts_match_plain(nchan, npol, ndim, npw, nweights):
+    """``mega_ja98``'s counts from words (at mega_guppi_2bit's geometry,
+    32 complex dual-pol channels: 128 digitizers, npw 256, the word path's
+    byte transposes and nibble counts; elsewhere a popc a digitizer and
+    word of one channel's stream), several blocks a CTA and the last CTA
+    short, equal the plain count (``twobit_nlow``) and the byte-wise mirror
+    exactly, on widened and one-channel streams too; the block weights
+    equal the plain least weight over each channel's digitizers, and the
+    copy the plain transpose."""
+    nd_chan = npol * ndim
+    ndig = nchan * nd_chan
+    rng = np.random.default_rng(ndig * npw + nweights)
+    T = npw * nweights
+    # skewed codes, so that the counts span their range
+    p = np.linspace(0.05, 0.95, ndig) if ndig > 1 else np.full(1, 0.5)
+    low = rng.uniform(size=(T, ndig)) < p
+    codes = np.where(low, rng.integers(1, 3, (T, ndig)),
+                     3 * rng.integers(0, 2, (T, ndig))).astype(np.uint8)
+    flat = codes.reshape(-1, 4)
+    raw = (flat[:, 0] << 6 | flat[:, 1] << 4 | flat[:, 2] << 2
+           | flat[:, 3]).astype(np.uint8)
+    weight = (rng.uniform(size=npw + 1) < 0.5).astype(np.float32)
+    got, wblk, copy = ja98_words_mirror(raw, nchan, nd_chan, npw, nweights,
+                                        weight)
+    plain = twobit_nlow(torch.from_numpy(codes.T.reshape(
+        nchan, npol, ndim, T)).long(), npw).reshape(ndig, nweights).numpy()
+    assert np.array_equal(got, plain)
+    want, _ = ja98_prepass(raw, ndig, nd_chan, npw, nweights, weight)
+    assert np.array_equal(got, want)
+    assert np.array_equal(wblk, weight[plain].reshape(
+        nchan, nd_chan, nweights).min(1))
+    assert ndig == 1 or (got.min() < npw // 4 and got.max() > 3 * npw // 4)
+    # the copy: each channel's stream, 4 codes a byte or a byte a code
+    if nchan > 1:
+        if nd_chan == 4:
+            want = raw.reshape(T, nchan).T
+        else:
+            want = codes.reshape(T, nchan, nd_chan).transpose(1, 0, 2)
+        assert np.array_equal(copy, want.reshape(nchan, -1))
 
 
 def load_code(raw, i, dig, t, nbit, ja98, twos, scale, offset, tables,

@@ -96,8 +96,9 @@ def pass_resources(kind, which, R1, row_len, M, nout, tile, cplx):
     if which == kstep.INVB:
         return (tile * (R1 // fft_points(R1)) if kind
                 else nout * tile * seq_ld(R1) * 8)
-    if which == kstep.ROWFFT:
-        return row_len // 32 if kind else seq_ld(row_len) * 8
+    if which == kstep.ROWFFT:  # half a row a CTA, 32 points a thread
+        H = row_len // 2
+        return H // min(32, H) if kind else seq_ld(H) * 8
     if which == kstep.FWD2_CLUSTER:
         return R2 // fft_points(R2) if kind else seq_ld(R2) * 8
     assert which == kstep.ROWPAIR
@@ -986,23 +987,46 @@ def test_fold_walk_folds_every_sample_once(plan, case):
                                           nbin, wt))
 
 
-def rowfft_mirror(cbuf, L, tw):
-    """``mega_rowfft<32>``: each row of cbuf [nchan, npart, R1, L] FFT'd in
-    place with 32 points a thread."""
-    P = 32
-    T = L // P
-    v = np.stack([cbuf[..., np.arange(T) + T * i] for i in range(P)])
-    v = fft_regs(np.moveaxis(v, -1, 1), L, -1, tw)
+def rowpos(k, H):
+    """``rowpos``: where bin k of a row of 2H points lies after
+    ``mega_rowfft`` (the even bins, then the odd ones)."""
+    return (k & 1) * H + (k >> 1)
+
+
+def rowfft_mirror(cbuf, L, half):
+    """``mega_rowfft``: each row of cbuf [nchan, npart, R1, L] over a
+    cluster of two CTAs, half a row (H = L/2 points, 32 a thread, or 16
+    at H = 16) each: CTA ``rank`` holds x[rank*H + j + T*i], takes the
+    partner's half from its shared memory (what the partner wrote there),
+    forms the first radix-2 stage (rank 0 x[n] + x[n + H], rank 1 (x[n] -
+    x[n + H]) times ``half[n]``), runs the H-point FFT with the table
+    ``half[H:]`` and stores its bins over its own half: the row's bins in
+    ``rowpos`` order.  ``half`` is the wrapper's long-row block of the
+    table buffer."""
+    H = L // 2
+    P = min(32, H)
+    T = H // P
+    n = np.arange(T)[None, :] + T * np.arange(P)[:, None]  # [P, T]
     out = np.empty_like(cbuf)
-    for i in range(P):
-        out[..., np.arange(T) + T * i] = np.moveaxis(v[i], 0, -1)
+    own = [np.moveaxis(cbuf[..., rank * H + n], (-2, -1), (0, 1))
+           for rank in (0, 1)]  # v[i, j, ...] of each CTA
+    shared = [own[1], own[0]]  # the partner's half, by sidx(j + T*i)
+    tw = half[n].reshape(n.shape + (1,) * (own[0].ndim - 2))
+    first = [own[0] + shared[0], (shared[1] - own[1]) * tw]
+    for rank in (0, 1):
+        v = fft_regs(first[rank], H, -1, half[H:])
+        for i in range(P):
+            out[..., rank * H + np.arange(T) + T * i] = np.moveaxis(
+                v[i], 0, -1)
     return out
 
 
 def rowpair_mirror(g, C, e, chirp, store=None):
-    """``mega_rowpair`` over every tile of 8 k1 and min(32, R2) k2: ybuf
-    [nchan*nstore, npart, N] and how often each bin was written."""
+    """``mega_rowpair`` over every tile of 8 k1 and min(32, R2) k2, each
+    bin and its partner read through ``rowpos``: ybuf [nchan*nstore, npart,
+    N] and how often each bin was written."""
     R1, R2, L = g.R1, g.R2, g.row_len
+    H = L // 2
     npolf = len(g.pols)
     store = (3 if npolf == 2 else 1) if store is None else store
     nstore = (store & 1) + (store >> 1)
@@ -1014,9 +1038,15 @@ def rowpair_mirror(g, C, e, chirp, store=None):
         tid = np.arange(8 * kc)
         k1 = (blk % (R1 // 8)) * 8 + (tid & 7)
         k2 = (blk // (R1 // 8)) * kc + tid // 8
+        # a tile's columns of a row are two runs: its even bins, its odd
+        # bins, each a contiguous stretch of the stored row
+        for par in (0, 1):
+            pos = rowpos(k2[::8][k2[::8] % 2 == par], H)
+            assert pos.size == kc // 2 and (np.diff(pos) == 1).all()
         pk1 = np.where((k1 == 0) | (2 * k1 == R1), k1, R1 - k1)
         pcol = np.where(k1 == 0, (L - k2) & (L - 1), L - 1 - k2)
-        z, p = C[:, :, k1, k2], C[:, :, pk1, pcol]  # [nchan, npart, tid]
+        z = C[:, :, k1, rowpos(k2, H)]  # [nchan, npart, tid]
+        p = C[:, :, pk1, rowpos(pcol, H)]
         k = k2 * R1 + k1
         np.add.at(writes, k, 1)
         xs = [0.5 * (z + np.conj(p))]
@@ -1033,11 +1063,15 @@ def rowpair_mirror(g, C, e, chirp, store=None):
 
 @pytest.mark.parametrize("R1,R2,pols", [(16, 16, (0, 1)), (8, 64, (0, 1)),
                                         (32, 32, (1,)), (16, 128, (0, 1)),
-                                        (8, 32, (0, 1))])
+                                        (8, 32, (0, 1)), (8, 16, (1,)),
+                                        (8, 8192, (0, 1))])
 def test_long_row_pass_mirror(R1, R2, pols):
-    """The long row pass (one row an FFT with 32 points a thread, then the
-    pair pass through device memory) stores what ``mega_fwd2`` stores, and
-    each bin once: the rfft of each pol."""
+    """The long row pass (a row over a cluster of two CTAs, half a row's
+    FFT each after a radix-2 stage through the partner's shared memory,
+    the bins stored even then odd; then the pair pass through device
+    memory, reading through ``rowpos``) stores what ``mega_fwd2`` stores,
+    and each bin once: the rfft of each pol.  Rows of 32 points (the
+    shortest the pass takes) to 16384 (R2 = 8192, the J0613-0200 cells)."""
     g = Geom(R1=R1, R2=R2, M=R1 * R2 // 4, nchan=2, npol=2, pols=pols,
              npart=2, step=R1 * R2)
     g.scale, g.offset = tmk.unpack_affine(8)
@@ -1047,8 +1081,11 @@ def test_long_row_pass_mirror(R1, R2, pols):
     tb = tables64(g)
     psum = polpow(g, raw) if len(pols) == 2 else None
     cbuf, e = fwd1(g, raw, tb, psum, min(8, g.row_len))
-    got, writes = rowpair_mirror(g, rowfft_mirror(cbuf, g.row_len,
-                                                  tb["row"]), e, chirp)
+    rows = rowfft_mirror(cbuf, g.row_len, tb["half"])
+    H = g.row_len // 2
+    k = np.arange(g.row_len)
+    assert _rel(rows[..., rowpos(k, H)], np.fft.fft(cbuf, axis=-1)) < 1e-12
+    got, writes = rowpair_mirror(g, rows, e, chirp)
     assert (writes == 1).all()
     want, _ = fwd2(g, cbuf, e, tb, chirp, min(4, R1 // 2))
     assert _rel(got, want) < TOL_MIRROR
