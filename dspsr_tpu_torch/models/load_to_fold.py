@@ -61,7 +61,7 @@ from ..timing.mjd import MJD
 from ..timing.par import Ephemeris
 from ..timing.polyco import FixedPeriodPredictor, Polyco
 
-from ..device import host_to_device, resolve_device
+from ..device import BlockStaging, host_to_device, resolve_device
 from ..ops.convolution import (
     OverlapSavePlan, overlap_save_convolve, overlap_save_convolve_jones)
 from ..ops.cyclic import CyclicPlan, fold_lag_products, lag_planes
@@ -302,6 +302,9 @@ class FoldPipeline:
         self.source = source
         self.config = config
         self.obs_in = source.obs
+        # on a card, ``run`` copies block n+1 while block n's step runs
+        self._staging = (BlockStaging(self.device)
+                         if self.device.type == "cuda" else None)
         self._construct()
 
     # ---- construction (LoadToFold::construct/prepare equivalents) ----
@@ -1315,14 +1318,17 @@ class FoldPipeline:
             start += self.stride_in_samples
 
             # enqueue: the copies and the step, each a device span; a
-            # sub-integration's flush between two steps is one too
+            # sub-integration's flush between two steps is one too.  On a
+            # card the copies run on the staging's own stream, and the
+            # step's stream waits for them in an ``h2d_wait`` span
             with rep.stage("enqueue"):
-                with rep.device("h2d"):
-                    raw_t = self.to_device(raw)
-                    phi0_t = self.to_device(
-                        np.ascontiguousarray(phi0, np.float32))
-                    dphi_t = self.to_device(
-                        np.ascontiguousarray(dphi, np.float32))
+                arrays = (raw, np.ascontiguousarray(phi0, np.float32),
+                          np.ascontiguousarray(dphi, np.float32))
+                if self._staging is None:
+                    with rep.device("h2d"):
+                        raw_t, phi0_t, dphi_t = map(self.to_device, arrays)
+                else:
+                    raw_t, phi0_t, dphi_t = self._staging.put(arrays, rep)
                 if self.mega_mode != "full":
                     with rep.device("step"):
                         blk = self._tail_block(raw_t)
@@ -1350,6 +1356,8 @@ class FoldPipeline:
                             self._profiles, self._hits = self._fold_tail_d(
                                 self._profiles, self._hits, *blk[:3],
                                 phi0_t, dphi_t, bounds)
+                if self._staging is not None:
+                    self._staging.release()
             rep.add_samples(self.stride_in_samples)
             if self.obs_in.rate > 0:
                 rep.progress(start / self.obs_in.rate,

@@ -7,20 +7,23 @@ Equivalent of the reference's Operation timing report (-r:
 (``SingleThread.C:434-451``).  Device stages are fused into one program, so
 the unit of accounting is the pipeline's loop: for each block, host stages
 (``stage``: read, anchors, enqueue, flush, write ...) and device spans
-(``device``: h2d, step, d2h), each a ``Span`` with the block's index and
-the host stage that was open when it began.
+(``device``: h2d, h2d_wait, step, d2h), each a ``Span`` with the block's
+index and the host stage that was open when it began.
 
 A device span is a pair of CUDA events on the current stream, taken from a
 pool and resolved without waiting: by a non-blocking ``query()`` of the
 oldest pending pairs whenever a span closes (a few at a time), and at the
 end of the run.  On
 the CPU the work is synchronous, and a device span is timed on the host.
-Between two device spans on one stream the device had none of the loop's
-work: that gap is its wait on the host (``stall``), put down to the host
-stages open in the gap's last stretch before the second span was recorded
-(``other`` where none was).  A block's latency runs from ``begin_block`` to
-the end of its last device span, put on the host clock by one anchor event
-recorded after a ``synchronize()`` when the report starts.
+Between two device spans on the step's stream (the stream current when the
+report began) the device had none of the loop's work: that gap is its wait
+on the host (``stall``), put down to the host stages open in the gap's last
+stretch before the second span was recorded (``other`` where none was).
+Spans on another stream, such as the fold's copy stream
+(``device.BlockStaging``), count as device time but give no stall: their
+gaps are waits on the device.  A block's latency runs from ``begin_block``
+to the end of its last device span, put on the host clock by one anchor
+event recorded after a ``synchronize()`` when the report starts.
 
 Everything is kept in memory and summarised by ``report()``: the stages'
 lines, then device, stall, counter and latency lines, and last a ``run
@@ -110,14 +113,17 @@ class RunReport:
         self._block_end: dict[int, float] = {}
         self._pending: deque = deque()
         self._pool: list = []
-        # the end of the last resolved device span: by stream, its event and
-        # the host clock when it was recorded; on the CPU a host time
-        self._last_end: dict = {}
+        # the end of the last resolved device span on the step's stream: its
+        # event and the host clock when it was recorded; on the CPU a host
+        # time
+        self._last_end: tuple | None = None
         self._last_t: float | None = None
         if self._cuda:
             torch.cuda.synchronize(self._dev)
+            step = torch.cuda.current_stream(self._dev)
+            self._step_stream = step.cuda_stream
             self._anchor = torch.cuda.Event(enable_timing=True)
-            self._anchor.record(torch.cuda.current_stream(self._dev))
+            self._anchor.record(step)
             self._t_anchor = time.perf_counter()
 
     # ---- recording ----
@@ -157,7 +163,8 @@ class RunReport:
             self.host_spans.append(Span(name, self.block, cause, t0, t1))
 
     def device(self, name: str):
-        """A device span around work enqueued on the current stream."""
+        """A device span around work enqueued on the current stream; only
+        spans on the step's stream give the stall."""
         if not self.enabled:
             return _NOOP
         return self._device(name) if self._cuda else self._host_timed(name)
@@ -231,14 +238,16 @@ class RunReport:
     def _resolve(self, p: _Pending) -> None:
         ms = p.begin.elapsed_time(p.end)
         start = self._t_anchor + self._anchor.elapsed_time(p.begin) * 1e-3
-        last = self._last_end.get(p.stream)
-        if last is not None:
-            event, t_recorded = last
-            self._stall(event.elapsed_time(p.begin) * 1e-3, t_recorded,
-                        p.t_begin)
-            self._pool.append(event)
+        if p.stream != self._step_stream:
+            self._pool.append(p.end)
+        else:
+            if self._last_end is not None:
+                event, t_recorded = self._last_end
+                self._stall(event.elapsed_time(p.begin) * 1e-3, t_recorded,
+                            p.t_begin)
+                self._pool.append(event)
+            self._last_end = (p.end, p.t_end)
         self._pool.append(p.begin)
-        self._last_end[p.stream] = (p.end, p.t_end)
         self._add_device(Span(p.name, p.block, p.cause, start,
                               start + ms * 1e-3))
 

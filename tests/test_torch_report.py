@@ -7,11 +7,14 @@ counters and the device spans against a ``torch.profiler`` trace of the
 same blocks; it imports no JAX, so on the card: ``python -m pytest
 --noconftest -p no:cacheprovider tests/test_torch_report.py -m card``."""
 
+import contextlib
+import gc
 import io
 import json
 import re
 import time
 from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -83,11 +86,15 @@ class Writer:
         self.blocks.append(arr.copy())
 
 
-def fold_pipe(report: bool, nblocks: int, **kw) -> FoldPipeline:
+def fold_pipe(report: bool, nblocks: int, device="cpu",
+              distinct: bool = False, **kw) -> FoldPipeline:
+    """TINY's fold over ``nblocks`` blocks; with ``distinct`` no two blocks
+    hold the same bytes.  On a card the buffer is pinned."""
     src = PeriodicSource(1 << 40)
     pipe = FoldPipeline(src, FoldConfig(**TINY_FOLD, report=report, **kw),
-                        device="cpu")
-    src.fill(pipe.block_in_samples, pipe.stride_in_samples)
+                        device=device)
+    src.fill(pipe.block_in_samples, pipe.stride_in_samples,
+             strides=nblocks if distinct else 3, pin=device == "cuda")
     src.obs = src.obs.replace(ndat=(nblocks - 1) * pipe.stride_in_samples
                               + pipe.block_in_samples)
     return pipe
@@ -206,26 +213,44 @@ def test_stall_is_put_down_to_the_stage_the_device_waited_on():
                                 - rep.device_spans[0].end))
 
 
+class FakeStream(NamedTuple):
+    cuda_stream: int
+
+
+class FakeCuda:
+    """A device that reaches each event when it is recorded and reports it
+    passed once ``passed`` is set (an event's ``synchronize`` sets it), with
+    two streams: the step's, current by default, and a copy stream, current
+    inside ``copy_stream()``.  ``made`` counts the events made."""
+
+    def __init__(self):
+        self.made = 0
+        self.passed = True
+        self.current = [FakeStream(1)]
+
+    @contextlib.contextmanager
+    def copy_stream(self):
+        self.current.append(FakeStream(2))
+        try:
+            yield
+        finally:
+            self.current.pop()
+
+
 class FakeEvent:
-    """A CUDA event of a device that reaches each event when it is recorded
-    and reports it passed once ``passed`` is set (``synchronize`` sets
-    it)."""
-
-    made = 0
-    passed = True
-
-    def __init__(self, enable_timing=False):
-        FakeEvent.made += 1
+    def __init__(self, cuda: FakeCuda):
+        cuda.made += 1
+        self.cuda = cuda
         self.t = None
 
     def record(self, stream=None):
         self.t = time.perf_counter()
 
     def query(self):
-        return FakeEvent.passed
+        return self.cuda.passed
 
     def synchronize(self):
-        FakeEvent.passed = True
+        self.cuda.passed = True
 
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
@@ -233,15 +258,16 @@ class FakeEvent:
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    class Stream:
-        cuda_stream = 1
-
-    FakeEvent.made, FakeEvent.passed = 0, True
-    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    # the fake device's time is the host's: a full collection of what
+    # earlier tests left (a profiler's events) would land in a span
+    gc.collect()
+    cuda = FakeCuda()
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda enable_timing=False: FakeEvent(cuda))
     monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: Stream())
+                        lambda device=None: cuda.current[-1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    return FakeEvent
+    return cuda
 
 
 def event_loop(rep, nblocks, sleep=0.0):
@@ -293,6 +319,43 @@ def test_event_spans_wait_for_nothing_until_the_end(fake_cuda):
                                                                 "step"}
 
 
+def test_copy_stream_spans_give_device_time_but_no_stall(fake_cuda):
+    """The fold's staging on a card: each block's ``h2d`` span on a copy
+    stream, then ``h2d_wait`` and ``step`` on the step's stream.  Every span
+    is resolved and summed as device time; the stall comes from the gaps on
+    the step's stream alone, put down to the host stages open in them (the
+    anchors, and the enqueue of the copies), and not from the copy stream's
+    gaps, which are waits on the device."""
+    nblocks = 20
+    rep = RunReport(stream=io.StringIO(), device="cuda")
+    for _ in range(nblocks):
+        rep.begin_block()
+        with rep.stage("anchors"):
+            time.sleep(0.002)
+        with rep.stage("enqueue"):
+            with fake_cuda.copy_stream(), rep.device("h2d"):
+                time.sleep(0.001)
+            with rep.device("h2d_wait"):
+                time.sleep(0.0005)
+            with rep.device("step"):
+                time.sleep(0.001)
+    assert fake_cuda.made <= 8
+    s = rep.summary()
+    spans = rep.device_spans
+    assert [sp.name for sp in spans] == ["h2d", "h2d_wait", "step"] * nblocks
+    for name, ms in (("h2d", 1.0), ("h2d_wait", 0.5), ("step", 1.0)):
+        mine = [sp for sp in spans if sp.name == name]
+        assert [sp.block for sp in mine] == list(range(nblocks))
+        assert s["device_ms"][name] == pytest.approx(
+            1e3 * sum(sp.end - sp.start for sp in mine))
+        assert s["device_ms"][name] >= 0.9 * nblocks * ms
+    step_side = [sp for sp in spans if sp.name != "h2d"]
+    gaps = sum(b.start - a.end for a, b in zip(step_side, step_side[1:]))
+    assert sum(s["stall_ms"].values()) == pytest.approx(1e3 * gaps)
+    assert s["stall_ms"]["anchors"] >= 0.9 * (nblocks - 1) * 2
+    assert s["stall_ms"]["enqueue"] >= 0.9 * (nblocks - 1) * 1
+
+
 def test_an_off_report_records_nothing():
     rep = RunReport(enabled=False)
     assert rep.stage("read") is rep.device("h2d") is rep.stage("write")
@@ -342,6 +405,7 @@ def test_fold_report(reports, capsys):
     assert s["counters"]["h2d_copies"] == 3 * nblocks
     assert s["counters"]["h2d_bytes"] == nblocks * (
         2 * pipe.block_in_samples + 2 * 4 * pipe.npart)
+    assert s["counters"]["h2d_staged"] == 0  # no copy stream on the CPU
     names = [sp.name for sp in rep.device_spans]
     nsub = len(res.profiles)
     assert names.count("h2d") == nblocks
@@ -401,6 +465,78 @@ def warmed(fn):
     return fn()
 
 
+def j1713_pipe(report: bool) -> FoldPipeline:
+    """J1713's fold (``portbench``'s ``fold.j1713``: 64 subbands of 400 MHz
+    at 800 Msamp/s, DM 15.99, 68 MB blocks) on the card, from a pinned
+    buffer."""
+    src = PeriodicSource(1 << 50, rate=800e6, bandwidth=-400.0,
+                         centre_frequency=1382.0)
+    cfg = FoldConfig(folding_period=0.00457014, dispersion_measure=15.99,
+                     nchan=64, nbin=1024, block_parts=8, npol_out=1,
+                     min_block_samples=1 << 25, subint_seconds=10,
+                     digitizer_stats=False, report=report)
+    pipe = FoldPipeline(src, cfg, device="cuda")
+    assert pipe.mega_mode == "full"
+    src.fill(pipe.block_in_samples, pipe.stride_in_samples, pin=True)
+    return pipe
+
+
+def staged_blocks(fn) -> int:
+    """The blocks whose copies went through the copy stream in ``fn()``."""
+    before = tdevice.launch_counts()["h2d_staged"]
+    fn()
+    return tdevice.launch_counts()["h2d_staged"] - before
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kw", [{}, {"use_megakernel": False}],
+                         ids=["full", "general"])
+def test_staged_fold_matches_the_cpu(card, kw):
+    """TINY's fold on the card over 9 blocks that all differ, from a pinned
+    buffer, with sub-integrations that end mid-block: every block's copies
+    go through the copy stream's two slots, and the profiles and hits are
+    the CPU's (kernel against plain: 1e-4 of the largest, hits exact).  A
+    slot written before its last step had read it would show here."""
+    nblocks = 9
+    pipe = fold_pipe(False, nblocks, device="cuda", distinct=True, **kw)
+    assert pipe.mega_mode == ("full" if not kw else None)
+    got = []
+    assert staged_blocks(lambda: got.append(pipe.run())) == nblocks
+    want = fold_pipe(False, nblocks, distinct=True, **kw).run()
+    (got,) = got
+    assert got.profiles.shape == want.profiles.shape
+    assert len(want.profiles) > 1
+    assert np.array_equal(got.hits, want.hits)
+    err = np.abs(got.profiles - want.profiles).max() \
+        / np.abs(want.profiles).max()
+    assert err < 1e-4, err
+
+
+@pytest.mark.card
+def test_copies_overlap_the_step_in_two_slots(card):
+    """J1713's fold: in a trace, a block's HtoD copy runs while a ``mega``
+    kernel does, and the memory allocated over 8 blocks exceeds that over 2
+    by less than one block's bytes: the copy stream holds two slots however
+    far ahead the host runs."""
+    from portbench.trace import capture, short_name
+
+    pipe = j1713_pipe(report=False)
+    block = 2 * pipe.block_in_samples
+    pipe.run(max_blocks=2)  # builds and warms every kernel
+    peak = {}
+    for n in (2, 8):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        assert staged_blocks(lambda: pipe.run(max_blocks=n)) == n
+        peak[n] = torch.cuda.max_memory_allocated()
+    assert peak[8] - peak[2] < block, peak
+    _, tr = capture(lambda: warmed(lambda: pipe.run(max_blocks=8)))
+    mega = [e for e in tr.kernels() if short_name(e.name).startswith("mega")]
+    h2d = [e for e in tr.copies("HtoD") if e.nbytes == block]
+    assert len(h2d) == 8 and mega
+    assert any(c.ts < k.end and k.ts < c.end for c in h2d for k in mega)
+
+
 @pytest.mark.card
 def test_counters_and_spans_agree_with_the_trace(card, capsys):
     """J1713's fold (``portbench``'s ``fold.j1713``: 64 subbands of 400
@@ -412,15 +548,7 @@ def test_counters_and_spans_agree_with_the_trace(card, capsys):
     from portbench.trace import capture, short_name
 
     nblocks = 6
-    src = PeriodicSource(1 << 50, rate=800e6, bandwidth=-400.0,
-                         centre_frequency=1382.0)
-    cfg = FoldConfig(folding_period=0.00457014, dispersion_measure=15.99,
-                     nchan=64, nbin=1024, block_parts=8, npol_out=1,
-                     min_block_samples=1 << 25, subint_seconds=10,
-                     digitizer_stats=False, report=True)
-    pipe = FoldPipeline(src, cfg, device="cuda")
-    assert pipe.mega_mode == "full"
-    src.fill(pipe.block_in_samples, pipe.stride_in_samples, pin=True)
+    pipe = j1713_pipe(report=True)
     pipe.run(max_blocks=2)  # builds and warms every kernel
     capsys.readouterr()
     _, tr = capture(lambda: warmed(lambda: pipe.run(max_blocks=nblocks)))
@@ -434,6 +562,8 @@ def test_counters_and_spans_agree_with_the_trace(card, capsys):
     assert s["device_ms"]["step"] >= 0.99e-3 * sum(e.dur for e in mega)
     assert s["device_ms"]["h2d"] >= 0.97e-3 * sum(e.dur for e in h2d)
     assert s["blocks"] == nblocks and s["latency_ms"]["p50"] > 0
+    assert s["counters"]["h2d_staged"] == nblocks
+    assert 0 <= s["device_ms"]["h2d_wait"] <= s["device_ms"]["h2d"]
 
 
 @pytest.mark.card
