@@ -1844,13 +1844,14 @@ def inverse_bound(plan, npart: int, nout: int, out_bytes: int) -> dict:
 
 def fold_times(card: str) -> None:
     """The blocks whose fold runs ``mega_invfold`` or ``mega_invbfold``
-    (the flagship real, complex and CASPSR, ``mega_guppi_2bit`` and the
-    ``DM_FOLD`` cells), each checked against plain and timed pass by pass
+    (the flagship real, complex and CASPSR, ``mega_guppi_2bit``, Band 2
+    and the ``DM_FOLD`` cells), each checked against plain and timed pass by pass
     by its block function: for comparing two trees, or the variants of one,
     in one call."""
     for kind in KINDS:
         flagship_block(card, kind)
     guppi2_block(card)
+    band2_block(card)
     for name, (kind, dm) in DM_FOLD.items():
         flagship_block(card, kind, dm, name)
 
@@ -2699,6 +2700,89 @@ def guppi2_rates(card: str) -> None:
           f"{step_msps / rt:.2f} x real time); peak device memory of a step "
           f"{peak_mb:.0f} MiB; real time is {rt:g} Msamp/s [{card}]",
           flush=True)
+
+
+def band2_obs():
+    """SKA1-Mid Band 2 as ``portbench``'s ``ska1_band2_fold``: 81 complex
+    8-bit dual-pol channels of 10 MHz (810 MHz about 1355 MHz, lower
+    sideband), 10 Msamp/s each, TFP."""
+    from dspsr_tpu_torch.models.load_to_fold import MJD, Observation, Signal
+
+    return Observation(
+        nchan=81, npol=2, ndim=2, nbit=8, centre_frequency=1355.0,
+        bandwidth=-810.0, rate=10e6,
+        start_time=MJD.from_utc("2010-04-13-02:05:45"),
+        state=Signal.ANALYTIC, source="J0613-0200", telescope="SKA1-Mid",
+        instrument="DUMMY").replace(ndat=1 << 40)
+
+
+def band2_cfg():
+    """The ``fold.ska1_band2.j0613`` fold: 1296 output channels, 1024
+    bins, J0613-0200's DM and period, blocks of 2^20 samples or more (79
+    windows of 16384 points a channel)."""
+    from dspsr_tpu_torch.models.load_to_fold import FoldConfig
+
+    return FoldConfig(folding_period=0.00306184, dispersion_measure=38.78,
+                      nchan=1296, nbin=1024, block_parts=8, npol_out=1,
+                      min_block_samples=1 << 20, digitizer_stats=False)
+
+
+def band2_block(card: str) -> dict:
+    """One Band 2 block at full width on device noise: the fold kernel
+    against its plain version (both f32) within TOL_FLAGSHIP, hits exact
+    and every kept sample of every channel counted; then each pass
+    (``mega_ftp``, ``mega_fwd1``, ``mega_fwd2c``, ``mega_invfold``) against
+    its bytes and the step against its bound."""
+    from dspsr_tpu_torch.io.sources import DummySource, device_noise_bytes
+    from dspsr_tpu_torch.models.load_to_fold import FoldPipeline
+    from dspsr_tpu_torch.ops.megakernel import megastep_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = FoldPipeline(DummySource(band2_obs()), band2_cfg(), device="cuda")
+    plan, cst, npart = pipe.mega_plan, pipe.constants, pipe.npart
+    check(pipe.mega_mode == "full" and plan.nchan_in == 81
+          and plan.nsub == 16 and not plan.real_input,
+          f"band2: mega_mode {pipe.mega_mode}, plan {plan}")
+    raw = device_noise_bytes(0, block_bytes(pipe), "cuda")
+    phi0, dphi = cyclic_anchors(pipe)
+    prof0 = torch.zeros(81, 1, plan.nsub, plan.nbin, device="cuda")
+    hits0 = torch.zeros(81, plan.nbin, device="cuda")
+    args = (prof0, hits0, raw, phi0, dphi)
+    pk, hk = pipe._megastep(*args)
+    pp, hp = megastep_plain(plan, cst, *args)
+    torch.cuda.synchronize()
+    err = rel_err(pk, pp)
+    abs_err = float((pk - pp).abs().max())
+    hdiff = float((hk - hp).abs().max())
+    del pp, hp
+    print(f"band2 block (nchan_in {plan.nchan_in}, nsub {plan.nsub}, "
+          f"freq_res {plan.freq_res}, R1 {plan.R1}, R2 {plan.R2}, npart "
+          f"{npart}, raw {raw.numel()} B): rel err {err:.3e} (abs "
+          f"{abs_err:.3e}), hits diff {hdiff}", flush=True)
+    check(bool(torch.isfinite(pk).all()), "band2 finite")
+    check(err < TOL_FLAGSHIP, f"band2 rel err {err} >= {TOL_FLAGSHIP}")
+    check(hdiff == 0, "band2 hits differ")
+    check(bool((hk.sum(1) == plan.nkeep * npart).all()),
+          "band2 hits per channel")
+
+    kernel_ms = cuda_ms(lambda: pipe._megastep(*args), 10)
+    plain_ms = cuda_ms(lambda: megastep_plain(plan, cst, *args), 2)
+    times = kernel_breakdown(lambda: pipe._megastep(*args), card,
+                             label=" (band2 fold)")
+    nbytes = (raw.numel() + 8 * cst.gr.numel()
+              + 8 * (prof0.numel() + hits0.numel()) + 8 * phi0.numel())
+    bound = bound_of(nbytes, front_ops(plan, npart, 2, 2))
+    out_bytes = 8 * (prof0.numel() + hits0.numel())
+    print_passes(card, "band2", plan, npart, 2, raw.numel(), times,
+                 "mega_invfold", out_bytes)
+    print_attributes("band2", plan, 2, fold=True)
+    sky_ms = pipe.stride_in_samples / pipe.obs_in.rate * 1e3
+    print(f"band2 step per block ({sky_ms:.2f} ms of sky): {kernel_ms:.3f} "
+          f"ms (bound {bound['bound_ms']:.4f} ms, {bound['bound_by']}); "
+          f"plain {plain_ms:.3f} ms [{card}]", flush=True)
+    return dict(max_abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                **bound, library_ms=None)
 
 
 # --------------------------------------------------------------------------
@@ -4368,6 +4452,8 @@ def main() -> None:
     guppi = guppi2_block(card)
     launches += guppi2_path(card)
     guppi2_rates(card)
+    # SKA1-Mid Band 2: 81 complex channels, each into 16 subbands
+    band2 = band2_block(card)
     # the flagship band at J1713+0747's and J0613-0200's DMs: the
     # multi-pass inverse at nsub 64, and the long row pass
     dm = dm_phases(card)
@@ -4393,7 +4479,8 @@ def main() -> None:
     launches += sharded["megastep"]
     hybrid_launches += sharded["megafil"]
     flag["max_abs_err"] = max(f["max_abs_err"]
-                              for f in (flag, flag_c, flag_k, guppi))
+                              for f in (flag, flag_c, flag_k, guppi,
+                                        band2))
     flag["max_abs_err"] = max(flag["max_abs_err"], sharded["err_megastep"],
                               dm["err_megastep"])
     search["max_abs_err"] = max(search["max_abs_err"],

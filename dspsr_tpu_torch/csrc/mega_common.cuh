@@ -2639,14 +2639,18 @@ cudaError_t launch_cluster(void (*kernel)(KP...), dim3 grid, int threads,
 // byte a code: kernels/megastep.py::ftp_nbytes) exactly when nchan > 1
 // (TFP; CASPSR is one channel), else null.  For complex input tk is the
 // rows of a mega_fwd2c tile, or from R2 = kClusterR2 the CTAs of a
-// mega_fwd2cc cluster.
+// mega_fwd2cc cluster.  With ftp_ready the caller has already made the
+// copy of codes other than JA98 (launch_ftp, before this call on the same
+// stream), and it is not made again: the fold's megastep_launch, whose
+// caller makes it through megastep_ftp; megafil makes it here.
 cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            const void* tw, void* psum, void* cbuf, void* ybuf,
                            void* pb, void* ftp, int nchan, int npol, int pol0,
                            int npolf, int store, int npart, int R1, int R2,
                            int M, int code, const Unpack& u, void* wblk,
                            void* wwin, int nsamp_step, int tc, int tk,
-                           int layout, cudaStream_t stream) {
+                           int layout, cudaStream_t stream,
+                           bool ftp_ready = false) {
   const bool cplx = layout == kComplexTfp;
   const int row_len = cplx ? R2 : 2 * R2;
   const int two_n = R1 * row_len;
@@ -2684,7 +2688,7 @@ cudaError_t launch_forward(const void* raw, const void* gr, const void* gi,
                            npart, nsamp_step, two_n, ftp, tp, stream)) !=
         cudaSuccess)
       return err;
-  } else if (ftp &&
+  } else if (ftp && !ftp_ready &&
              (err = launch_ftp(raw, ftp, T, nchan, npd, code_bits(code),
                                u.twos, tp, stream)) != cudaSuccess) {
     return err;

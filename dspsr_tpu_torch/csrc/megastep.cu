@@ -391,7 +391,8 @@ int megastep_attributes(int which, int R1, int q, int M, int npolf,
 // (nweights = samples a block / npw).  wext is null or the caller's window
 // weights float[nchan, npart], which multiply the JA98 ones.  ftp is the
 // channel-transposed copy of the codes when nchan > 1, else null (see
-// launch_forward).  Output samples g of the block fold
+// launch_forward); for codes other than JA98 the caller has made it
+// already (megastep_ftp, on the same stream).  Output samples g of the block fold
 // only when lo <= g < hi.  tk == 0 (real input) runs the long row pass in
 // place of mega_fwd2; for complex input from R2 = kClusterR2 tk is the
 // CTAs of a mega_fwd2cc cluster; ta > 0 runs the
@@ -433,8 +434,8 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
   if ((err = launch_forward(raw, gr, gi, tw, psum, cbuf, ybuf, nullptr, ftp,
                             nchan, npol, pol0, npolf, npolf == 2 ? 3 : 1,
                             npart, R1, R2, M, code, u, wblk, wwin,
-                            nsamp_step, tc, tk, layout,
-                            stream)) != cudaSuccess)
+                            nsamp_step, tc, tk, layout, stream,
+                            /*ftp_ready=*/true)) != cudaSuccess)
     return (int)err;
 
   const float* wja = code == kCodeJA98 ? (const float*)wwin : nullptr;
@@ -470,6 +471,22 @@ int megastep_launch(const void* raw, const void* phi0, const void* dphi,
       (const float*)hits_in, (const float*)hacc, (float*)hits_out,
       (int)nhits);
   return (int)counted();
+}
+
+// The channel-transposing pre-pass alone (mega_ftp, or mega_ftpw for units
+// of less than a byte) on the block's codes other than JA98, as
+// launch_forward makes it: T = (npart - 1) * nsamp_step + nsamp_fft time
+// samples of nchan > 1 channels of npd codes of nbit bits -> the copy ftp.
+// The fold's wrapper launches it on its own, inside a span of its own, and
+// then megastep_launch.
+int megastep_ftp(const void* raw, void* ftp, int nchan, int npd, int nbit,
+                 int twos, int npart, int nsamp_step, int nsamp_fft,
+                 void* stream_ptr, int* nkernels) {
+  const KernelCount count(nkernels);
+  const long long T = (long long)(npart - 1) * nsamp_step + nsamp_fft;
+  if (nchan < 2 || !raw || !ftp) return (int)cudaErrorInvalidValue;
+  return (int)launch_ftp(raw, ftp, T, nchan, npd, nbit, twos, ftp_stride(T),
+                         (cudaStream_t)stream_ptr);
 }
 
 // The JA98 pre-pass alone (mega_ja98, mega_ja98_windows), for checks and

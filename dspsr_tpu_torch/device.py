@@ -17,7 +17,11 @@ is enqueued, nowhere else:
 - ``h2d_copies``, ``h2d_bytes``: copies and bytes of ``host_to_device``
   and of ``BlockStaging``; the run report's counters;
 - ``h2d_staged``: blocks whose copies went through ``BlockStaging``'s copy
-  stream (the fold's blocks on a card); the run report's counter.
+  stream (the fold's blocks on a card); the run report's counter;
+- ``ftp_bytes``: bytes the fused fold step's channel-transposing pre-pass
+  read and wrote (``ops/megakernel.py::ftp_traffic``; on the CPU the plain
+  step's transpose of the same bytes): 0 on one input channel; the run
+  report's counter.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 #: counter name -> its count since the last reset
 _LAUNCHES: dict[str, int] = {"megastep": 0, "megafil": 0, "mega_ja98": 0,
                              "kernels": 0, "h2d_copies": 0, "h2d_bytes": 0,
-                             "h2d_staged": 0}
+                             "h2d_staged": 0, "ftp_bytes": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -47,6 +51,11 @@ def count_launch(name: str, kernels: int = 0) -> None:
     ``kernels`` CUDA kernels."""
     _LAUNCHES[name] += 1
     _LAUNCHES["kernels"] += kernels
+
+
+def count_bytes(name: str, nbytes: int) -> None:
+    """Add ``nbytes`` to the byte counter ``name``."""
+    _LAUNCHES[name] += nbytes
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,7 +4,9 @@ Replaces ``dspsr_tpu/ops/megakernel.py::build_megastep`` (the Pallas
 kernel) and what its XLA pre-stage (``_prepare_input``) computed: for JA98
 2-bit input the nlow counts, level tables and window weights, and for
 multi-channel TFP input the channel transpose (the pre-pass ``mega_ftp``,
-into a copy this wrapper allocates, ``ftp_buffer``).  The source note in
+into a copy this wrapper allocates, ``ftp_buffer``; launched from its own C
+entry point, ``megastep_ftp``, inside the caller's ``ftp`` span, and
+counted in bytes, ``ftp_bytes``).  The source note in
 ``csrc/megastep.cu`` says what bounds it and how it is laid out.  This
 wrapper checks every operand, chooses each pass from the geometry and the
 card's limits (``forward_tiles``, ``fold_passes``: the multi-pass inverse
@@ -21,15 +23,16 @@ to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
 import torch
 
-from ..device import count_launch
+from ..device import count_bytes, count_launch
 from ..ops.megakernel import (
     MegaConstants, MegaPlan, bounds_pair, detection_code, fold_pols,
-    raw_nbytes)
+    ftp_traffic, raw_nbytes)
 from . import build
 
 _c = ctypes.c_void_p
@@ -38,6 +41,7 @@ _f = ctypes.c_float
 _n = ctypes.POINTER(_i)  # an entry point's count of the kernels it enqueued
 _LAUNCH_ARGTYPES = [_c] * 23 + [_i] * 16 + [_f, _f] + [_i] * 10 + [_c, _n]
 _JA98_ARGTYPES = [_c] * 6 + [_i] * 7 + [_c, _n]
+_FTP_ARGTYPES = [_c] * 2 + [_i] * 7 + [_c, _n]
 
 #: the transform kernels' block size limit (``kMaxThreads``)
 MAX_THREADS = 512
@@ -77,6 +81,8 @@ def _lib() -> ctypes.CDLL:
         lib.megastep_attributes.restype = _i
         lib.megastep_ja98.argtypes = _JA98_ARGTYPES
         lib.megastep_ja98.restype = _i
+        lib.megastep_ftp.argtypes = _FTP_ARGTYPES
+        lib.megastep_ftp.restype = _i
         lib.megastep_error_string.argtypes = [_i]
         lib.megastep_error_string.restype = ctypes.c_char_p
     return lib
@@ -433,6 +439,24 @@ def ja98_cuda(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                               else ftp.reshape(p.nchan_in, -1))
 
 
+def ftp_cuda(lib, plan: MegaPlan, raw: torch.Tensor, ftp: torch.Tensor,
+             npart: int, stream) -> int:
+    """The fold step's pre-pass alone (``megastep_ftp``): the block's
+    codes, other than JA98, into the channel-transposed copy ``ftp`` on
+    ``stream``; returns the kernels it enqueued."""
+    p = plan
+    nk = ctypes.c_int(-1)
+    with torch.cuda.device(raw.device):
+        rc = lib.megastep_ftp(raw.data_ptr(), ftp.data_ptr(), p.nchan_in,
+                              p.npol * p.ndim, p.nbit,
+                              int(p.twos_complement), npart, p.nsamp_step,
+                              p.nsamp_fft, stream, ctypes.byref(nk))
+    if rc != 0:
+        msg = lib.megastep_error_string(rc).decode()
+        raise RuntimeError(f"mega_ftp launch failed: CUDA error {rc}: {msg}")
+    return kernels_launched(nk, "megastep_ftp")
+
+
 def cbuf_seqs(plan: MegaPlan, npolf: int) -> int:
     """Stage-1 sequences a (channel, window): one packed sequence for real
     input, one per transformed pol for complex input."""
@@ -474,13 +498,15 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                   hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
                   dphi: torch.Tensor, bounds=None, gr=None, gi=None,
                   weights=None, inverse: str = "auto",
-                  row_pass: str = "auto"):
+                  row_pass: str = "auto", span=None):
     """One fused fold step on the card; arguments as
     ``ops.megakernel.megastep_plain`` (float32 carries; ``gr``/``gi``, the
     chirp, default ``cst.gr``/``cst.gi``; ``weights``, when given, float32
     ``[nchan_in, npart]`` window weights that multiply the JA98 ones).
     ``inverse`` (``fold_passes``) and ``row_pass`` (``forward_tiles``)
     force the multi-pass inverse and the long row pass, for checks.
+    ``span(name)``, when given, is a context (a ``RunReport``'s
+    ``device``) around the multi-channel pre-pass, named ``"ftp"``.
     Returns new ``(profiles, hits)``."""
     p = plan
     dev = raw.device
@@ -533,6 +559,11 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     ftp = ftp_buffer(p, npart, dev)
     lo, hi = bounds_pair(bounds)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the pre-pass of codes other than JA98 on its own, in its own span
+    nftp = 0
+    if ftp is not None and not p.npw:
+        with span("ftp") if span else contextlib.nullcontext():
+            nftp = ftp_cuda(lib, p, raw, ftp, npart, stream)
     nk = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         rc = lib.megastep_launch(
@@ -552,7 +583,8 @@ def megastep_cuda(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     if rc != 0:
         msg = lib.megastep_error_string(rc).decode()
         raise RuntimeError(f"megastep launch failed: CUDA error {rc}: {msg}")
-    count_launch("megastep", kernels_launched(nk, "megastep_launch"))
+    count_launch("megastep", kernels_launched(nk, "megastep_launch") + nftp)
+    count_bytes("ftp_bytes", ftp_traffic(p, npart))
     if p.npw:
         count_launch("mega_ja98")
     return prof_out, hits_out

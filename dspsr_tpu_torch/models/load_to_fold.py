@@ -668,8 +668,10 @@ class FoldPipeline:
             if self.mega_mode == "full":
                 self.constants = MegaConstants.build(mp, resp, **unpack).to(
                     self.device)
-                self._megastep = build_megastep(mp, self.constants,
-                                                self.npart)
+                # the step's channel transpose is a span of the run's report
+                self._megastep = build_megastep(
+                    mp, self.constants, self.npart,
+                    report=lambda: self._report)
             else:
                 self._build_hybrid(resp, unpack)
 

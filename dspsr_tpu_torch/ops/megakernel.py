@@ -65,6 +65,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import count_bytes
 from ..unpack.unpackers import (
     bytes_to_codes, reorder_bytes_tfp, twobit_levels, twobit_nlow)
 from .fold import compute_bins
@@ -503,22 +504,52 @@ def raw_nbytes(plan: MegaPlan, npart: int) -> int:
     return nbits // 8
 
 
+def ftp_traffic(plan: MegaPlan, npart: int) -> int:
+    """Bytes the fold step's channel-transposing pre-pass moves over one
+    block (``mega_ftp`` in ``csrc/mega_common.cuh``): the block's codes
+    read once and the copy's samples written once (its padding is not
+    written; sub-byte units are written a byte a code).  0 where the step
+    runs no pre-pass of its own: one input channel, and JA98 codes, whose
+    copy ``mega_ja98`` makes as it counts."""
+    p = plan
+    if p.nchan_in == 1 or p.npw:
+        return 0
+    npd = p.npol * p.ndim
+    bits = npd * p.nbit
+    unit = npd if bits < 8 else bits // 8
+    return raw_nbytes(p, npart) + p.nchan_in * p.block_ndat(npart) * unit
+
+
+def _channel_major(plan: MegaPlan, x: torch.Tensor, npart: int, span):
+    """TFP samples or codes ``x`` as ``[nchan_in, npol, ndim,
+    block_ndat]``; where the fold step's pre-pass would run
+    (:func:`ftp_traffic`) and ``span`` is given, made contiguous inside
+    ``span("ftp")``: the plain step's channel transpose, timed."""
+    p = plan
+    x = x.reshape(p.block_ndat(npart), p.nchan_in, p.npol, p.ndim).permute(
+        1, 2, 3, 0)
+    if span is None or not ftp_traffic(p, npart):
+        return x
+    with span("ftp"):
+        return x.contiguous()
+
+
 def _unpack_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
-                  npart: int, dtype):
+                  npart: int, dtype, span=None):
     """The plain unpack of one block of raw bytes: the samples
     ``[nchan_in, npol, ndim, block_ndat]`` in ``dtype`` and, for a JA98
-    plan, the window weights ``[nchan_in, npart]`` (else None)."""
+    plan, the window weights ``[nchan_in, npart]`` (else None).  ``span``
+    as :func:`_channel_major`."""
     p = plan
-    shape = (p.block_ndat(npart), p.nchan_in, p.npol, p.ndim)
     if p.nbit == 32:
-        return raw.view(torch.float32).to(dtype).reshape(shape).permute(
-            1, 2, 3, 0), None
+        return _channel_major(p, raw.view(torch.float32), npart, span).to(
+            dtype), None
     raw = reorder_bytes_tfp(raw, p.interleave, p.npol)
     if p.nbit == 8 and p.twos_complement:
         codes = raw.view(torch.int8)
     else:
         codes = bytes_to_codes(raw, p.nbit)
-    codes = codes.reshape(shape).permute(1, 2, 3, 0)
+    codes = _channel_major(p, codes, npart, span)
     if p.npw:
         nlow, wgt = twobit_plain(p, cst, codes, npart)
         lo, hi = cst.twobit[0].to(dtype), cst.twobit[1].to(dtype)
@@ -571,7 +602,7 @@ def inverse_subbands_twopass(spec: torch.Tensor,
 def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
                  npart: int, dtype, passband: bool = False, gr=None,
                  gi=None, voltage: bool = False, jones=None,
-                 twopass: bool = False):
+                 twopass: bool = False, span=None):
     """The front end both plain steps share: unpack (:func:`_unpack_plain`),
     the spectrum of each window times the apodization window when there is
     one (real input: ``rfft``, Nyquist dropped; complex input: ``fft`` then
@@ -587,11 +618,12 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
     ``cst.jones``) both input pols are transformed, and output pol ``p`` is
     the mix ``J[p, 0] X_0 + J[p, 1] X_1`` before the scalar chirp slot.
     ``twopass`` runs the inverse as :func:`inverse_subbands_twopass` (for
-    the tests) in place of ``torch.fft.ifft``."""
+    the tests) in place of ``torch.fft.ifft``; ``span`` times the channel
+    transpose (:func:`_channel_major`)."""
     p = plan
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     nchan, M = p.nchan_in, p.freq_res
-    x, wgt = _unpack_plain(p, cst, raw, npart, dtype)
+    x, wgt = _unpack_plain(p, cst, raw, npart, dtype, span)
     x = x[:, :, 0] if p.real_input else torch.complex(x[:, :, 0], x[:, :, 1])
     pols = list(range(p.npol)) if voltage else list(fold_pols(p))
     jones = cst.jones if jones is None else jones
@@ -636,7 +668,7 @@ def _front_plain(plan: MegaPlan, cst: MegaConstants, raw: torch.Tensor,
 def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
                    hits: torch.Tensor, raw: torch.Tensor, phi0: torch.Tensor,
                    dphi: torch.Tensor, bounds=None, gr=None, gi=None,
-                   weights=None, twopass: bool = False):
+                   weights=None, twopass: bool = False, span=None):
     """Plain PyTorch version of the fused step (``torch.fft`` and
     ``index_add_``), in the dtype of ``profiles`` (float32 or float64); the
     phase is float32 whatever that dtype.
@@ -652,13 +684,16 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
     the external ones, multiply each window's samples and hits (the
     reference's weight in the fold's one-hot, ``mega_reference``).
     ``twopass`` runs the inverse as :func:`inverse_subbands_twopass`.
+    ``span(name)``, when given, is a context (a ``RunReport``'s
+    ``device``) around the channel transpose of multi-channel input, named
+    ``"ftp"``, as ``megastep_cuda`` puts it around its pre-pass.
     """
     p = plan
     npart = phi0.shape[0]
     dtype = profiles.dtype
     nchan = p.nchan_in
     planes, _, wgt = _front_plain(p, cst, raw, npart, dtype, gr=gr, gi=gi,
-                                  twopass=twopass)
+                                  twopass=twopass, span=span)
     if weights is not None:
         weights = weights.to(dtype)
         wgt = weights if wgt is None else wgt.to(dtype) * weights
@@ -682,7 +717,8 @@ def megastep_plain(plan: MegaPlan, cst: MegaConstants, profiles: torch.Tensor,
 
 def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
                    response_as_args: bool = False,
-                   external_weights: bool = False, inverse: str = "auto"):
+                   external_weights: bool = False, inverse: str = "auto",
+                   report=None):
     """The fused fold step for ``npart`` windows a block:
     ``step(profiles, hits, raw, phi0, dphi[, weights | gr, gi],
     bounds=None) -> (profiles, hits)`` (the JAX package's signature).
@@ -697,7 +733,9 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
     (``kernels.megastep.megastep_cuda``; ``inverse="multipass"`` forces
     its multi-pass inverse where one CTA would do, for checks); on CPU
     tensors it runs :func:`megastep_plain`.  ``cst`` holds tensors on the step's
-    device.  A Jones response raises: it runs on the hybrid engine's front
+    device.  ``report``, when given, is called at each step for the run's
+    ``RunReport``, whose ``device("ftp")`` span the step puts around its
+    channel transpose of multi-channel input.  A Jones response raises: it runs on the hybrid engine's front
     end, as in the JAX package (``load_to_fold.py:1127-1144``)."""
     plan.validate()
     if cst is not None and cst.jones is not None:
@@ -714,13 +752,17 @@ def build_megastep(plan: MegaPlan, cst: MegaConstants, npart: int,
     def run(profiles, hits, raw, phi0, dphi, weights, gr, gi, bounds):
         if phi0.shape != (npart,):
             raise ValueError(f"phi0 shape {tuple(phi0.shape)} != ({npart},)")
+        span = None if report is None else report().device
         if raw.is_cuda:
             from ..kernels.megastep import megastep_cuda
 
             return megastep_cuda(plan, cst, profiles, hits, raw, phi0, dphi,
-                                 bounds, gr, gi, weights, inverse)
+                                 bounds, gr, gi, weights, inverse,
+                                 span=span)
+        # the plain step's transpose stands for the pre-pass's bytes
+        count_bytes("ftp_bytes", ftp_traffic(plan, npart))
         return megastep_plain(plan, cst, profiles, hits, raw, phi0, dphi,
-                              bounds, gr, gi, weights)
+                              bounds, gr, gi, weights, span=span)
 
     if external_weights:
         def step(profiles, hits, raw, phi0, dphi, weights, bounds=None):

@@ -7,8 +7,10 @@ Equivalent of the reference's Operation timing report (-r:
 (``SingleThread.C:434-451``).  Device stages are fused into one program, so
 the unit of accounting is the pipeline's loop: for each block, host stages
 (``stage``: read, anchors, enqueue, flush, write ...) and device spans
-(``device``: h2d, h2d_wait, step, d2h), each a ``Span`` with the block's
-index and the host stage that was open when it began.
+(``device``: h2d, h2d_wait, step, d2h; ftp, the fused step's channel
+transpose of multi-channel input, inside its block's step), each a
+``Span`` with the block's index and the host stage that was open when it
+began.
 
 A device span is a pair of CUDA events on the current stream, taken from a
 pool and resolved without waiting: by a non-blocking ``query()`` of the
